@@ -4,11 +4,12 @@ supervisor (port of p2p_llm_tunnel_tpu/cli.py).
 The tunnel plane is the reference's: the same flags, flag > env > default
 precedence, the same ``run_with_retry`` backoff and SIGTERM drain.
 ``serve --backend gpu`` runs the in-process PyTorch engine on the card
-(``--device cpu`` runs it on the CPU instead).  Flags of engine features
-this slice does not port are accepted only at their off value: anything
-else exits with a message naming the ROADMAP.md port-queue item.  Unlike
-the JAX serve CLI, mux / prefix cache / conversation cache default OFF —
-they are in that queue.
+(``--device cpu`` runs it on the CPU instead) in the JAX serve CLI's
+default engine configuration: mux, prefix cache and conversation cache ON
+(``TUNNEL_MUX``, ``TUNNEL_PREFIX_CACHE``, ``TUNNEL_CONV_CACHE``), bf16
+weights and KV, ``--ragged-prefill`` off.  Flags of engine features the
+port does not run yet are accepted only at their off value: anything else
+exits with a message naming the ROADMAP.md port-queue item.
 """
 
 from __future__ import annotations
@@ -146,8 +147,44 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--fabric", action=argparse.BooleanOptionalAction,
                        default=_env("TUNNEL_FABRIC", "") == "1",
                        help="join as one serve peer of a multi-peer fabric")
-    # The JAX serve CLI's engine knobs that this slice does not port:
-    # accepted at their off value only (see _unported).
+    # The JAX serve CLI's default engine: mux + prefix pool + conversation
+    # cache ON, with the reference's flags, env names and defaults.
+    serve.add_argument("--mux", action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_MUX", "1") == "1",
+                       help="iteration-level prefill/decode multiplexing "
+                            "(default ON; --no-mux or TUNNEL_MUX=0 disables)")
+    serve.add_argument("--mux-budget-tokens", type=int,
+                       default=int(_env("TUNNEL_MUX_BUDGET_TOKENS", "0")),
+                       help="fixed per-iteration prefill token budget under "
+                            "--mux (0 = adaptive controller)")
+    serve.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_PREFIX_CACHE", "1") == "1",
+                       help="automatic prefix caching (default ON; "
+                            "--no-prefix-cache or TUNNEL_PREFIX_CACHE=0)")
+    serve.add_argument("--prefix-pool-blocks", type=int,
+                       default=int(_env("TUNNEL_PREFIX_POOL_BLOCKS", "128")),
+                       help="prefix-cache pool capacity in KV blocks "
+                            "(block 0 is scratch)")
+    serve.add_argument("--conv-cache", action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_CONV_CACHE", "1") == "1",
+                       help="cross-request conversation cache (default ON "
+                            "with --prefix-cache; --no-conv-cache or "
+                            "TUNNEL_CONV_CACHE=0)")
+    serve.add_argument("--prefix-evict", choices=("cost", "lru"),
+                       default=_env("TUNNEL_PREFIX_EVICT", "cost"),
+                       help="pool page eviction policy: cost (GreedyDual "
+                            "over recompute cost) or lru")
+    serve.add_argument("--prefill-chunk", type=int,
+                       default=int(_env("TUNNEL_PREFILL_CHUNK", "0")),
+                       help="chunked prefill segment width (0 = whole-prompt "
+                            "prefill; mux picks 128)")
+    serve.add_argument("--ragged-prefill",
+                       action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_RAGGED_PREFILL", "") == "1",
+                       help="route every chunk-prefill dispatch through the "
+                            "ragged grouped prefill kernel (default off)")
+    # The JAX serve CLI's engine knobs that the port does not run yet:
+    # accepted at their off value only (see _engine_config).
     for flag, kw in _UNPORTED_FLAGS.items():
         serve.add_argument(flag, **kw)
 
@@ -182,12 +219,7 @@ _UNPORTED_FLAGS = {
     "--quant": dict(default="none"),
     "--kv-quant": dict(default="none"),
     "--prefill-act-quant": _BOOL,
-    "--mux": _BOOL,
-    "--prefix-cache": _BOOL,
-    "--conv-cache": _BOOL,
     "--prefix-cache-dir": dict(default=None),
-    "--prefill-chunk": dict(type=int, default=0),
-    "--ragged-prefill": _BOOL,
     "--fused-decode-layer": _BOOL,
     "--spec-ngram": dict(type=int, default=0),
     "--spill-pages": dict(type=int, default=0),
@@ -203,7 +235,7 @@ _UNPORTED_FLAGS = {
 
 def _engine_config(args):
     """The EngineConfig of ``serve --backend gpu``; raises SystemExit with
-    the port-queue item for a knob this slice does not run."""
+    the port-queue item for a knob the port does not run yet."""
     from p2p_llm_tunnel_tpu_torch.engine.engine import (
         EngineConfig,
         NotPorted,
@@ -226,9 +258,12 @@ def _engine_config(args):
         fused_decode_layer=args.fused_decode_layer,
         prefix_cache=args.prefix_cache,
         prefix_cache_dir=args.prefix_cache_dir,
-        conv_cache=args.conv_cache, spill_pages=args.spill_pages,
+        prefix_pool_blocks=args.prefix_pool_blocks,
+        conv_cache=args.conv_cache and args.prefix_cache,
+        prefix_evict=args.prefix_evict, spill_pages=args.spill_pages,
         spec_ngram=args.spec_ngram, prefill_chunk=args.prefill_chunk,
         ragged_prefill=args.ragged_prefill, mux=args.mux,
+        mux_budget_tokens=args.mux_budget_tokens,
         max_waiting=args.max_waiting, fair_admission=args.fair_admission,
         tenant_weights=args.tenant_weights,
         watchdog_budget_s=args.watchdog_budget, role=args.role,

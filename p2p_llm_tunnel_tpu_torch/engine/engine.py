@@ -1,13 +1,22 @@
-"""The inference engine: prefill waves and pipelined decode bursts over a
-slot-batched KV cache, in PyTorch (port of
-p2p_llm_tunnel_tpu/engine/engine.py, the non-mux serving path).
+"""The inference engine: prefill waves, chunked prefill segments and
+pipelined decode bursts over a slot-batched KV cache, in PyTorch (port of
+p2p_llm_tunnel_tpu/engine/engine.py: the serve CLI's default engine —
+mux, prefix pool and conversation cache — and the plain non-mux loop, at
+raw bf16/fp32 KV).
 
 Continuous batching as in the reference: the KV cache has ``num_slots``
 fixed rows plus one scratch row; every decode burst runs ``steps`` decode
 steps over all rows with on-device sampling feedback (inactive rows compute
 but are parked out of range and masked at accounting); prompts prefill in
 ``prefill_rows``-wide waves padded to power-of-two length buckets, pad rows
-writing into the scratch slot.
+writing into the scratch slot.  With ``prefill_chunk`` long prompts advance
+one segment per loop iteration (``chunk_prefill_into_cache``); under
+``mux`` each iteration dispatches one decode burst plus a token budget of
+segment rows (``scheduler.MuxController``), and with the prefix cache a
+shared not-yet-pooled prefix is prefilled once by its first requester while
+later ones park and fan out from the pool (``engine/prefix_cache.py``).
+``ragged_prefill`` routes every chunk dispatch through the ragged grouped
+kernel instead (``ragged_prefill_into_cache``).
 
 Async contract (unchanged): ``generate()`` yields TokenEvents as bursts
 land; requests admit/evict between bursts; every tensor operation runs on
@@ -16,7 +25,7 @@ Burst n is dispatched before burst n-1's tokens are fetched: the fetch
 waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
-What this slice does not port raises at construction (``EngineConfig``
+What this port does not run yet raises at construction (``EngineConfig``
 knobs set away from their off value) or answers ``NotPorted`` (embeddings,
 KV page export/import); ROADMAP.md lists each in the port queue.
 """
@@ -25,16 +34,28 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import math
 import time
-from dataclasses import dataclass
-from typing import AsyncIterator, Dict, List, Optional, Tuple
+from collections import deque
+from dataclasses import dataclass, replace as dc_replace
+from typing import AsyncIterator, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from p2p_llm_tunnel_tpu_torch.engine import sampling
+from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import (
+    PrefixIndex,
+    init_pool,
+    make_batch_copy_ops,
+    pad_rows,
+    plan_group_admission,
+    plan_inserts,
+    pool_packed_keys,
+)
 from p2p_llm_tunnel_tpu_torch.engine.scheduler import (
     GenRequest,
+    MuxController,
     RunningSlot,
     Scheduler,
     TenantOverLimit,
@@ -48,13 +69,16 @@ from p2p_llm_tunnel_tpu_torch.engine.tokenizer import (
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig, get_config
 from p2p_llm_tunnel_tpu_torch.models.transformer import (
     NotPorted,
+    chunk_prefill_into_cache,
     decode_step,
     init_kv_cache,
     init_params,
     prefill_into_cache,
+    ragged_prefill_into_cache,
     resolve_device,
 )
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
+from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import plan_ragged_group
 from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox, global_flight
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 from p2p_llm_tunnel_tpu_torch.utils.metrics import (
@@ -89,13 +113,18 @@ class DeadlineExceeded(Exception):
 
 @dataclass
 class EngineConfig:
-    """The reference's EngineConfig, field for field.
+    """The reference's EngineConfig, field for field and default for
+    default: mux, prefix cache and conversation cache are off here and ON
+    in the serve CLI, as in the reference.
 
-    Knobs this slice does not port must stay at their off value
+    Knobs the port does not run yet must stay at their off value
     (``_UNPORTED``); construction raises otherwise.  ``flash_decode`` and
     ``flash_sgrid`` choose between XLA and Pallas on a TPU and choose
-    nothing here: on the card the model layer always runs the two Hopper
+    nothing here: on the card the model layer always runs the Hopper
     attention kernels, on the CPU their plain versions.
+    ``ragged_prefill`` keeps its reference meaning: it routes every chunk
+    dispatch through the ragged grouped kernel; off, chunk dispatches run
+    ``chunk_prefill_into_cache``'s einsum attention on either device.
     """
 
     model: str = "tiny"
@@ -151,16 +180,11 @@ _UNPORTED = {
     "quant": (("none", ""), "quantized weights and KV"),
     "kv_quant": (("none", ""), "quantized weights and KV"),
     "prefill_act_quant": ((False,), "quantized weights and KV"),
-    "mux": ((False,), "mux + prefix pool + conversation cache"),
-    "prefix_cache": ((False,), "mux + prefix pool + conversation cache"),
-    "conv_cache": ((False,), "mux + prefix pool + conversation cache"),
-    "prefix_cache_dir": ((None, ""), "mux + prefix pool + conversation cache"),
-    "prefill_chunk": ((0,), "chunk/ragged prefill (kernel 6)"),
-    "ragged_prefill": ((False,), "chunk/ragged prefill (kernel 6)"),
+    "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
     "fused_decode_layer": ((False,), "fused decode layer (kernel 4)"),
     "spec_ngram": ((0,), "spec decode (kernel 5)"),
-    "spill_pages": ((0,), "spill/KV_PAGES"),
-    "role": (("both",), "spill/KV_PAGES"),
+    "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
+    "role": (("both",), "spill tier, snapshots and KV_PAGES"),
     "ckpt_path": ((None, ""), "checkpoints and MoE"),
     "tp": ((1,), "parallel/"),
     "sp": ((1,), "parallel/"),
@@ -195,6 +219,7 @@ class _ActiveRequest:
     t_admitted: Optional[float] = None
     trace: Optional[TraceContext] = None
     trace_span: Optional[str] = None
+    t_parked: Optional[float] = None  # prefix-group park start (waiters)
     finish: Optional[str] = None
 
 
@@ -279,9 +304,78 @@ class InferenceEngine:
             tenant_weights=parse_tenant_weights(self.ecfg.tenant_weights),
             fair=self.ecfg.fair_admission,
         )
-        # Nothing is fenced at startup: unported knobs raise instead.
+        if self.ecfg.prefix_evict not in ("cost", "lru"):
+            raise ValueError(
+                f"unknown prefix_evict mode {self.ecfg.prefix_evict!r}"
+            )
+        # Composition-fence registry: every knob the engine auto-disables
+        # at startup lands here WITH its reason (the /healthz "config"
+        # section); unported knobs raise instead.
         self.config_fences: List[Dict[str, str]] = []
-        global_metrics.set_info("config_fences", [])
+        # Conversation-cache scratch: finished slots whose KV awaits a
+        # batched pool insert this iteration, per-rid page-reservation
+        # grants, the per-token prefill-ms EMA feeding cost-aware eviction,
+        # and the last-published index counters (delta-inc bookkeeping).
+        self._conv_pending: List[Tuple[int, List[int]]] = []
+        self._page_reserved: Dict[int, int] = {}
+        self._prefill_ms_per_token = 0.0
+        self._prefix_published: Dict[str, int] = {}
+        self.degraded = False
+        self.degraded_reason = ""
+        self._thrash_window: Deque[Tuple[int, int]] = deque(maxlen=64)
+        self._thrash_last: Tuple[int, int] = (0, 0)
+
+        # Multiplexing: chunked prefill is the production path, so pick a
+        # default segment width when none was configured (128: wide enough
+        # that a shared-prefix owner drains in a few sub-batches, narrow
+        # enough that one segment's compute stays comparable to a burst).
+        if self.ecfg.mux and self.ecfg.prefill_chunk <= 0:
+            self.ecfg = dc_replace(
+                self.ecfg,
+                prefill_chunk=max(self.ecfg.min_prefill_bucket, min(128, s)),
+            )
+        self._init_ragged_geometry()
+
+        # Prefix cache: host index + device block pool + batched copy ops.
+        self._prefix: Optional[PrefixIndex] = None
+        if self.ecfg.conv_cache and not self.ecfg.prefix_cache:
+            self._fence(
+                "conv_cache", False,
+                "the conversation cache stores finished streams' KV in "
+                "the prefix pool, which prefix_cache=False leaves "
+                "uninitialised",
+            )
+        if self.ecfg.prefix_cache:
+            blk = self.ecfg.min_prefill_bucket
+            self._prefix_block = blk
+            self._prefix_max_blocks = max(1, s // blk)
+            # Tail buckets of the cached-wave chunk path; longer tails fall
+            # back to plain prefill (the reference's compiled-program set,
+            # kept so both engines route the same requests the same way).
+            self._chunk_buckets = [
+                blk * (2 ** i)
+                for i in range(max(1, self.ecfg.prefix_tail_buckets))
+                if blk * (2 ** i) <= s
+            ]
+            self._prefix = PrefixIndex(
+                blk, self.ecfg.prefix_pool_blocks, evict=self.ecfg.prefix_evict,
+            )
+            self._pool = init_pool(self.kv_cache, blk,
+                                   self.ecfg.prefix_pool_blocks)
+            self._prefix_block_bytes = sum(
+                arr.numel() * arr.element_size() for arr in self._pool.values()
+            ) // max(1, self.ecfg.prefix_pool_blocks)
+            self._publish_prefix_gauges()
+            # Row-batched copies: one indexed copy per prefill_rows-wide
+            # sub-batch, not per request.
+            self._copy_in, self._copy_out = make_batch_copy_ops(
+                blk, self._prefix_max_blocks, self.ecfg.prefill_rows,
+                packed_keys=pool_packed_keys(self.kv_cache),
+            )
+            # Page reservation at admission; grants are released when the
+            # insert lands or in generate()'s finally (every death path).
+            self.scheduler.page_reserve = self._reserve_pages
+        global_metrics.set_info("config_fences", list(self.config_fences))
 
         # Host-side per-slot state driving each decode burst.
         self._last_token = np.zeros((rows,), np.int32)
@@ -298,6 +392,26 @@ class InferenceEngine:
         self._ov_mask = np.zeros((rows,), bool)
 
         self._requests: Dict[int, _ActiveRequest] = {}
+        # Chunked-prefill state: slot -> (run, next segment start), FIFO;
+        # each iteration advances up to prefill_rows of these by one
+        # prefill_chunk-token segment (_dispatch_segments).
+        self._segmented: Dict[int, Tuple[RunningSlot, int]] = {}
+        # Multiplexed admission: slot-holding whole-prompt rows awaiting a
+        # budgeted wave, the in-flight shared-prefix registry (chain key ->
+        # owner rid), per-owner bookkeeping, the parked group waiters, and
+        # the rids already counted as dedup hits.
+        self._pending_plain: List[RunningSlot] = []
+        self._inflight_prefix: Dict[bytes, int] = {}
+        self._owner_keys: Dict[int, Tuple[RunningSlot, List[bytes]]] = {}
+        self._prefix_waiters: List[Tuple[RunningSlot, int]] = []
+        self._dedup_counted: set = set()
+        self._mux_ctl: Optional[MuxController] = None
+        if self.ecfg.mux:
+            self._mux_ctl = MuxController(
+                self.ecfg.prefill_chunk or self.ecfg.min_prefill_bucket,
+                self.ecfg.prefill_rows,
+                self.ecfg.mux_budget_tokens,
+            )
         self._next_request_id = 1
         # Unseeded draws only (every request gets a seed in generate()).
         self._gen = torch.Generator(device=self.device)
@@ -311,9 +425,11 @@ class InferenceEngine:
         self._warmup_done = False
         self._last_progress = time.monotonic()
         self._watchdog_task: Optional[asyncio.Task] = None
-        self.degraded = False
-        self.degraded_reason = ""
+        # Flight-recorder scratch: per-iteration observations stashed by
+        # the methods that own them, read once by the loop's record.
         self._flight_admitted = 0
+        self._flight_conv = 0
+        self._last_mux: Dict[str, object] = {}
         self._last_burst: Tuple[int, int] = (0, 0)
         global_blackbox.set_engine_provider(self._blackbox_state)
         # Dedicated single thread for every tensor operation.
@@ -396,13 +512,41 @@ class InferenceEngine:
             last_logits, _ = prefill_into_cache(
                 self.mcfg, self.params, tokens, lengths, self.kv_cache, slots,
             )
-        # Prefill rows are packed; each row reads its SLOT's bias plane.
-        first = sampling.sample(last_logits, samp, self._gen, pos=lengths,
+        first, lp = self._sample_rows(last_logits, samp, lengths, slots)
+        return first, lp, prompt_lps
+
+    def _sample_rows(self, last_logits, samp, pos, slots):
+        """First token per prefill row (rows are packed; each reads its
+        SLOT's bias plane) and its logprob data when any row asked."""
+        first = sampling.sample(last_logits, samp, self._gen, pos=pos,
                                 bias=self._bias[slots])
         lp = None
         if (samp.logprobs > 0).any():
             lp = sampling.logprob_data(last_logits, first)
-        return first, lp, prompt_lps
+        return first, lp
+
+    def _chunk_prefill_fn(self, tokens, lengths, starts, slots, samp,
+                          kv_view: int):
+        """Tail-only prefill against reused history KV (prefix-cache tails
+        and chunked-prefill segments), cache written IN PLACE; attention
+        reads ``cache[:kv_view]``."""
+        last_logits, _ = chunk_prefill_into_cache(
+            self.mcfg, self.params, tokens, lengths, starts, self.kv_cache,
+            slots, kv_view=kv_view,
+        )
+        return self._sample_rows(last_logits, samp, starts + lengths, slots)
+
+    def _ragged_prefill_fn(self, tokens, descs, sample_idx, samp_pos, slots,
+                           samp):
+        """Ragged GROUPED tail prefill: the whole group's variable-length
+        segments in one ``ragged_prefill_attention`` launch per layer.
+        ``sample_idx``/``samp_pos``/``slots`` are per ROW: each row's
+        last-real-token logits sample exactly like the chunk path's."""
+        last_logits, _ = ragged_prefill_into_cache(
+            self.mcfg, self.params, tokens, *descs, sample_idx, self.kv_cache,
+            block_q=self._ragged_bq,
+        )
+        return self._sample_rows(last_logits, samp, samp_pos, slots)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -526,7 +670,19 @@ class InferenceEngine:
             "device": str(self.device),
             "scheduler": self.scheduler.snapshot(),
             "requests_in_flight": len(self._requests),
+            "segmented_slots": sorted(self._segmented),
+            "pending_plain": len(self._pending_plain),
+            "prefix_waiters": len(self._prefix_waiters),
+            "inflight_prefix_keys": len(self._inflight_prefix),
             "config_fences": list(self.config_fences),
+            "prefix_pool": None if self._prefix is None else {
+                "pages_used": self._prefix.used_blocks,
+                "pages_free": self._prefix.free_blocks,
+                "pages_reserved": self._prefix.reserved_pages,
+                "evictions": self._prefix.evictions,
+                "conv_pending": len(self._conv_pending),
+                "thrash_reallocs": self._prefix.thrash_reallocs,
+            },
             "degraded": self.degraded,
             "degraded_reason": self.degraded_reason,
             "crashed": self._crashed,
@@ -538,7 +694,7 @@ class InferenceEngine:
     def admission_check(self, n: int = 1, tenant: str = "") -> Optional[str]:
         """Pre-flight admission verdict: None (admit), ``"busy"`` or
         ``"tenant_overlimit"`` — the reference's queue arithmetic (this
-        slice has no KV pool, so never ``"memory"``)."""
+        port has no spill tier, so never ``"memory"``)."""
         mw = self.ecfg.max_waiting
         if mw <= 0:
             return None
@@ -682,12 +838,26 @@ class InferenceEngine:
         finally:
             self._requests.pop(rid, None)
             self.scheduler.cancel(rid)
+            # Page-reservation release on EVERY exit path (finish, deadline,
+            # cancel, shed, crash): the leak-gate contract.  Idempotent.
+            self._release_pages(rid)
             global_metrics.tenant_end(tenant)
             if state.first_token_at is None and state.finish:
                 # Ended server-side without a first token: a bad TTFT event.
                 global_slo.record("ttft", False)
             if state.trace is not None:
                 t_end = time.monotonic()
+                if state.t_parked is not None:
+                    # Still parked behind a prefix owner at exit: close the
+                    # park span here.
+                    global_tracer.add_span(
+                        "engine.prefix_park",
+                        trace_id=state.trace.trace_id,
+                        parent_id=state.trace_span, track="engine",
+                        t0=state.t_parked, t1=t_end,
+                        attrs={"terminated": state.finish or "cancelled"},
+                    )
+                    state.t_parked = None
                 global_tracer.add_event(
                     "engine.stream_end", trace_id=state.trace.trace_id,
                     parent_id=state.trace_span, track="engine", t=t_end,
@@ -765,11 +935,23 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _dispatch_prefill_batch(self, runs: List[RunningSlot], t: int,
+                                hists: Optional[List[int]] = None,
                                 echo: bool = False) -> _HostCopy:
         """Dispatch one wave of admitted prompts (bucket width ``t``) and
         start the copy of its first tokens to the host WITHOUT waiting for
         it; rows are padded to ``prefill_rows``, pad rows write the
-        scratch slot."""
+        scratch slot.
+
+        With ``hists`` (prefix-cache path) row i's first ``hists[i]``
+        tokens are already in the cache (copied from the pool before this
+        dispatch, same executor, same stream order) and only the tail is
+        computed through the chunk path; ``t`` then buckets the TAIL."""
+        if hists is not None:
+            rows = [
+                (run, hist, run.request.prompt_ids[hist:], True)
+                for run, hist in zip(runs, hists)
+            ]
+            return self._dispatch_chunk_rows(rows, t)
         n = len(runs)
         nb = max(self.ecfg.prefill_rows, n)
         tokens = np.zeros((nb, t), np.int32)
@@ -807,6 +989,113 @@ class InferenceEngine:
         global_metrics.inc("engine_prefill_tokens_total", total)
         return _HostCopy((first, lp, plp))
 
+    def _row_controls(self, rows, nb: int):
+        """Sampling controls for packed rows of ``(run, start, seg,
+        sample?)``: non-sampled rows (mid-prompt segments) get zeroed
+        controls and their returned token is discarded.  Penalties are zero:
+        the FIRST token has no generated predecessors."""
+        temp = np.zeros((nb,), np.float32)
+        top_k = np.zeros((nb,), np.int32)
+        top_p = np.ones((nb,), np.float32)
+        lps = np.zeros((nb,), np.int32)
+        seeds = np.zeros((nb,), np.uint32)
+        bias_on = np.zeros((nb,), bool)
+        for i, (run, _start, _seg, sample) in enumerate(rows):
+            if sample:
+                temp[i] = run.request.temperature
+                top_k[i] = run.request.top_k
+                top_p[i] = run.request.top_p
+                lps[i] = run.request.logprobs
+                seeds[i] = run.request.seed
+                bias_on[i] = bool(run.request.logit_bias)
+        self._apply_logit_bias([run for (run, _s, _g, sample) in rows if sample])
+        zeros = np.zeros((nb,), np.float32)
+        return sampling.SamplingParams(temp, top_k, top_p, zeros, zeros, lps,
+                                       seeds, bias_on)
+
+    @torch.inference_mode()
+    def _dispatch_chunk_rows(self, rows, t: int) -> _HostCopy:
+        """Pack rows of ``(run, start, segment_ids, sample?)`` into ONE
+        chunk-prefill dispatch at tail width ``t`` (executor thread) — the
+        single home of the padding/scratch-slot/sampling-row packing shared
+        by prefix-cache tails and chunked-prefill segments.
+
+        With ``ragged_prefill`` the SAME rows go to the ragged grouped
+        launch instead: every chunk consumer (mux segments, prefix tails,
+        the non-mux cached wave) shares it without changing its routing."""
+        if self.ecfg.ragged_prefill:
+            return self._dispatch_ragged_rows(rows)
+        nb = max(self.ecfg.prefill_rows, len(rows))
+        tokens = np.zeros((nb, t), np.int32)
+        lengths = np.ones((nb,), np.int32)
+        starts = np.zeros((nb,), np.int32)
+        slots = np.full((nb,), self._scratch_slot, np.int64)
+        total = 0
+        for i, (run, start, seg, _sample) in enumerate(rows):
+            tokens[i, : len(seg)] = seg
+            lengths[i] = len(seg)
+            starts[i] = start
+            slots[i] = run.slot
+            total += len(seg)
+        samp = self._row_controls(rows, nb)
+        # Smallest view covering every row's history + padded tail.
+        view = self._chunk_view_bucket(int(starts.max()) + t)
+        first, lp = self._chunk_prefill_fn(
+            self._host(tokens), self._host(lengths), self._host(starts),
+            self._host(slots), samp, view,
+        )
+        global_metrics.inc("engine_prefill_tokens_total", total)
+        return _HostCopy((first, lp, None))
+
+    @torch.inference_mode()
+    def _dispatch_ragged_rows(self, rows) -> _HostCopy:
+        """Ragged grouped launch (executor thread): pack rows of ``(run,
+        start, segment_ids, sample?)`` into the flat-token bucket and
+        dispatch ONE grouped program — the ragged twin of
+        :meth:`_dispatch_chunk_rows` with identical row-order outputs, so
+        every consumer is oblivious to which path ran."""
+        bq = self._ragged_bq
+        entries = [(run.slot, start, len(seg)) for run, start, seg, _s in rows]
+        tot = self._ragged_tot
+        need = sum(-(-ln // bq) * bq for _sl, _st, ln in entries)
+        if need > tot:
+            # Defensive only: dispatch sites cap rows at prefill_rows and
+            # per-row tails at the arithmetic _ragged_tot was sized from.
+            tot = -(-need // bq) * bq
+        slot_of, start_of, qoff_of, _qlen_of, base_of, offs = plan_ragged_group(
+            entries, bq, tot, self._scratch_slot,
+            max_row_blocks=self._ragged_row_blocks,
+        )
+        tokens = np.zeros((tot,), np.int32)
+        nb = max(self.ecfg.prefill_rows, len(rows))
+        sample_idx = np.zeros((nb,), np.int64)
+        samp_pos = np.zeros((nb,), np.int32)
+        slots = np.full((nb,), self._scratch_slot, np.int64)
+        total = 0
+        for i, ((run, start, seg, _sample), off) in enumerate(zip(rows, offs)):
+            tokens[off : off + len(seg)] = seg
+            sample_idx[i] = off + len(seg) - 1
+            samp_pos[i] = start + len(seg)
+            slots[i] = run.slot
+            total += len(seg)
+        samp = self._row_controls(rows, nb)
+        first, lp = self._ragged_prefill_fn(
+            self._host(tokens),
+            [self._host(x) for x in (slot_of, start_of, qoff_of, base_of)],
+            self._host(sample_idx), self._host(samp_pos), self._host(slots),
+            samp,
+        )
+        global_metrics.inc("engine_prefill_tokens_total", total)
+        return _HostCopy((first, lp, None))
+
+    def _chunk_view_bucket(self, need: int) -> int:
+        """Smallest kv-view bucket covering ``need`` cache positions — the
+        decode bucket set (_view_buckets)."""
+        for view in self._view_buckets():
+            if view >= need:
+                return view
+        return self.ecfg.max_seq
+
     def _view_buckets(self) -> List[int]:
         """kv-view buckets: powers of two from 128 up, clamped to max_seq."""
         buckets = []
@@ -834,10 +1123,16 @@ class InferenceEngine:
     def _burst_steps(self) -> int:
         """Full burst normally; the eager burst while work waits AND an
         admission could land soon (a free slot, or one finishing within a
-        full burst)."""
+        full burst).  Under mux a non-empty prefill backlog (segments,
+        pending whole-prompt rows, parked group waiters) also selects the
+        eager burst: backlogged rows advance once per loop iteration, so
+        the burst length IS their wait."""
         eager = self.ecfg.decode_steps_eager
         if not (eager and 0 < eager < self.ecfg.decode_steps):
             return self.ecfg.decode_steps
+        if self.ecfg.mux and (self._segmented or self._pending_plain
+                              or self._prefix_waiters):
+            return eager
         if self.scheduler.queue_depth == 0:
             return self.ecfg.decode_steps
         full = self.ecfg.decode_steps
@@ -964,6 +1259,15 @@ class InferenceEngine:
         evicted = self.scheduler.slots[slot] is None
         if evicted:
             self._active_mask[slot] = False
+            if self._prefix is not None and self.ecfg.conv_cache:
+                # Every record_token eviction is a NATURAL finish.  The
+                # finished stream's KV covers positions [0, cache_len-1)
+                # (the final token was never fed back); queue its full-page
+                # prefix for the end-of-iteration batched insert, so a
+                # next turn that resends the conversation matches through.
+                seq = out.request.prompt_ids + out.generated[:-1]
+                if len(seq) >= self._prefix_block:
+                    self._conv_pending.append((slot, seq))
         else:
             self._last_token[slot] = tok
             # The generated token's own position: the decode step that
@@ -971,13 +1275,57 @@ class InferenceEngine:
             self._positions[slot] = out.cache_len - 1
         self._emit(out, tok, evicted, lp_info, prompt_lps)
 
+    def _prefix_copy_in(self, hits: List[Tuple[int, List[int]]]) -> None:
+        """Copy matched pool blocks into the hit slots (executor thread):
+        ``hits`` is [(slot, pool_ids)], ONE batched copy per
+        prefill_rows-wide sub-batch."""
+        pr = self.ecfg.prefill_rows
+        for lo in range(0, len(hits), pr):
+            entries = [
+                (slot, ids, list(range(len(ids))))
+                for slot, ids in hits[lo : lo + pr]
+            ]
+            slots, pids, bnos = pad_rows(
+                entries, pr, self._prefix_max_blocks, scratch=None
+            )
+            with torch.inference_mode():
+                self._copy_in(self.kv_cache, self._pool, slots, pids, bnos)
+
+    def _prefix_insert(self, runs: List[RunningSlot]) -> None:
+        """Save the runs' now-prefilled, not-yet-pooled prompt blocks into
+        the pool (executor thread), one batched copy per prefill_rows;
+        same-wave eviction hazards are planned out by ``plan_inserts``."""
+        entries = plan_inserts(
+            self._prefix,
+            [(run.slot, run.request.prompt_ids) for run in runs],
+            ms_per_token=self._prefill_ms_per_token or 1.0,
+        )
+        total = sum(len(ids) for _, ids, _ in entries)
+        self._copy_out_entries(entries)
+        if total:
+            global_metrics.inc("engine_prefix_saved_blocks_total", total)
+
+    def _copy_out_entries(self, entries) -> None:
+        pr = self.ecfg.prefill_rows
+        for lo in range(0, len(entries), pr):
+            slots, pids, bnos = pad_rows(
+                entries[lo : lo + pr], pr, self._prefix_max_blocks, scratch=0,
+            )
+            with torch.inference_mode():
+                self._copy_out(self._pool, self.kv_cache, slots, pids, bnos)
+
     async def _admit_pending(self, loop) -> None:
-        """Admit what the scheduler allows and prefill it: every wave is
-        DISPATCHED first, then fetched in dispatch order, so wave n+1
-        computes while wave n's first tokens travel to the host."""
+        """Non-mux admission: admit what the scheduler allows and prefill
+        it (see _dispatch_plain_waves)."""
         admitted = self.scheduler.admit()
         if not admitted:
             return
+        self._note_admission(admitted)
+        await self._dispatch_plain_waves(loop, admitted)
+
+    def _note_admission(self, admitted: List[RunningSlot]) -> None:
+        """Stamp slot-admission time and record the queue-wait half of the
+        TTFT decomposition."""
         now = time.monotonic()
         global_metrics.inc("engine_admissions_total", len(admitted))
         self._flight_admitted += len(admitted)
@@ -988,26 +1336,97 @@ class InferenceEngine:
                 global_metrics.observe(
                     "engine_queue_wait_ms", (now - st.t_submit) * 1000.0
                 )
-        groups: Dict[Tuple[int, bool], List[RunningSlot]] = {}
+
+    async def _dispatch_plain_waves(
+        self, loop, admitted: List[RunningSlot]
+    ) -> None:
+        """Dispatch one admission wave's prefills.  Every wave is
+        DISPATCHED first, then fetched in dispatch order, so wave n+1
+        computes while wave n's first tokens travel to the host.
+
+        With the prefix cache each prompt is first matched against the
+        pool: matched runs get their history copied into their slot
+        (dispatched before their prefill, same executor, same stream
+        order) and are grouped by TAIL bucket.  Long tails go to the
+        chunked-prefill queue instead.  After a run's prefill lands its
+        uncached full blocks are saved back to the pool, off the
+        TTFT-critical path.  Callers: the non-mux admission path (whole
+        wave), the mux echo route, and the mux budgeted whole-prompt
+        drain."""
+        hist_of: Dict[int, int] = {}
+        pool_ids_of: Dict[int, List[int]] = {}
         for run in admitted:
-            t = self._bucket(len(run.request.prompt_ids))
-            groups.setdefault((t, bool(run.request.echo_logprobs)), []).append(run)
+            hist = 0
+            # Echo/scoring requests need logits for EVERY prompt position:
+            # they always take the whole-prompt plain path.
+            if self._prefix is not None and not run.request.echo_logprobs:
+                hist, ids = self._prefix.match(run.request.prompt_ids)
+                if hist:
+                    pool_ids_of[run.slot] = ids
+            hist_of[run.slot] = hist
+        if self.ecfg.prefill_chunk > 0:
+            # Long tails advance one segment per loop iteration; their
+            # prefix copy-in dispatches NOW, ahead of every segment.
+            seg_hits: List[Tuple[int, List[int]]] = []
+            for run in list(admitted):
+                if run.request.echo_logprobs:
+                    continue
+                hist = hist_of[run.slot]
+                if len(run.request.prompt_ids) - hist > self.ecfg.prefill_chunk:
+                    if hist:
+                        seg_hits.append((run.slot, pool_ids_of[run.slot]))
+                        global_metrics.inc(
+                            "engine_prefix_hit_tokens_total", hist
+                        )
+                    self._segmented[run.slot] = (run, hist)
+                    admitted.remove(run)
+            if seg_hits:
+                await loop.run_in_executor(
+                    self._executor, self._prefix_copy_in, seg_hits
+                )
+        # Group by (tail bucket, cached?, echo): a matched prefix whose tail
+        # exceeds every chunk bucket drops back to the plain path, as in
+        # the reference.
+        groups: Dict[Tuple[int, bool, bool], List[RunningSlot]] = {}
+        for run in admitted:
+            hist = hist_of[run.slot]
+            if hist and (
+                len(run.request.prompt_ids) - hist > self._chunk_buckets[-1]
+            ):
+                hist = hist_of[run.slot] = 0
+            if hist:
+                global_metrics.inc("engine_prefix_hit_tokens_total", hist)
+            t = self._bucket(len(run.request.prompt_ids) - hist)
+            echo = bool(run.request.echo_logprobs)
+            groups.setdefault((t, hist > 0, echo), []).append(run)
         pr = self.ecfg.prefill_rows
         dispatched = []
-        for (t, echo), runs in sorted(groups.items()):
+        for (t, cached, echo), runs in sorted(groups.items()):
             for i in range(0, len(runs), pr):
                 wave = runs[i : i + pr]
                 t0 = time.monotonic()
+                if cached:
+                    await loop.run_in_executor(
+                        self._executor, self._prefix_copy_in,
+                        [(run.slot, pool_ids_of[run.slot]) for run in wave],
+                    )
+                hists = [hist_of[r.slot] for r in wave] if cached else None
                 pending = await loop.run_in_executor(
-                    self._executor, self._dispatch_prefill_batch, wave, t, echo,
+                    self._executor, self._dispatch_prefill_batch, wave, t,
+                    hists, echo,
                 )
                 dispatched.append((wave, pending, t0))
+        inserts: List[RunningSlot] = []
         for runs, pending, t0 in dispatched:
             firsts, lp, plp = await loop.run_in_executor(
                 self._executor, pending.get
             )
-            global_metrics.observe(
-                "engine_prefill_ms", (time.monotonic() - t0) * 1000.0
+            wall_ms = (time.monotonic() - t0) * 1000.0
+            global_metrics.observe("engine_prefill_ms", wall_ms)
+            self._note_prefill_cost(
+                sum(len(r.request.prompt_ids) - hist_of.get(r.slot, 0)
+                    for r in runs),
+                wall_ms,
             )
             for i, run in enumerate(runs):
                 if self.scheduler.slots[run.slot] is not run:
@@ -1019,6 +1438,449 @@ class InferenceEngine:
                     n = len(run.request.prompt_ids)
                     plp_row = [float(x) for x in plp[i][:n]]
                 self._account_token(run.slot, int(firsts[i]), lp_row, plp_row)
+                if self._prefix is not None:
+                    inserts.append(run)
+        # Pool inserts run after EVERY first token of the wave is out.
+        live = [r for r in inserts if self.scheduler.slots[r.slot] is r]
+        if live:
+            await loop.run_in_executor(
+                self._executor, self._prefix_insert, live
+            )
+            self._release_pages_for(live)
+
+    # -- multiplexed admission ---------------------------------------------
+
+    async def _admit_mux(self, loop) -> None:
+        """Multiplexed admission: bind waiting requests to slots (FIFO) and
+        ROUTE them — echo/scoring requests to the whole-prompt wave,
+        everything else into the prefill backlog — WITHOUT dispatching
+        prefill work here; the backlog drains under the iteration token
+        budget in the main loop, interleaved with decode bursts.  With the
+        prefix cache the wave is grouped by PrefixIndex block keys first:
+        a shared not-yet-pooled prefix is computed by its FIFO-first
+        requester only, later members park (_mux_wake)."""
+        admitted = self.scheduler.admit()
+        if not admitted:
+            return
+        self._note_admission(admitted)
+        echo = [r for r in admitted if r.request.echo_logprobs]
+        if echo:
+            await self._dispatch_plain_waves(loop, echo)
+        rest = [r for r in admitted if not r.request.echo_logprobs]
+        if not rest:
+            return
+        if self._prefix is None:
+            if self.ecfg.prefill_chunk > 0:
+                for run in rest:
+                    self._segmented[run.slot] = (run, 0)
+            else:
+                self._pending_plain.extend(rest)
+            return
+        await self._plan_mux_wave(loop, rest)
+
+    async def _plan_mux_wave(self, loop, runs: List[RunningSlot]) -> None:
+        """Group ``runs`` (FIFO order) against the pool and the in-flight
+        prefix registry; enqueue the owners, park the waiters.  Shared by
+        fresh admissions and waiter re-planning (_mux_wake), so a woken
+        waiter can itself become the owner of its remaining blocks."""
+        by_rid = {run.request.request_id: run for run in runs}
+        owners, waiters = plan_group_admission(
+            self._prefix, self._inflight_prefix,
+            [(run.request.request_id, run.request.prompt_ids) for run in runs],
+        )
+        for rid, owner_rid in waiters:
+            self._prefix_waiters.append((by_rid[rid], owner_rid))
+            state = self._requests.get(rid)
+            if (state is not None and state.trace is not None
+                    and state.t_parked is None):
+                state.t_parked = time.monotonic()
+            if rid not in self._dedup_counted:
+                self._dedup_counted.add(rid)
+                global_metrics.inc("engine_prefix_dedup_hits_total")
+        hits: List[Tuple[int, List[int]]] = []
+        for rid, hist, pool_ids, keys in owners:
+            run = by_rid[rid]
+            self._dedup_counted.discard(rid)
+            state = self._requests.get(rid)
+            if state is not None and state.trace is not None:
+                if state.t_parked is not None:
+                    global_tracer.add_span(
+                        "engine.prefix_park",
+                        trace_id=state.trace.trace_id,
+                        parent_id=state.trace_span, track="engine",
+                        t0=state.t_parked,
+                        attrs={"promoted_owner": bool(keys)},
+                    )
+                    state.t_parked = None
+                if keys:
+                    global_tracer.add_event(
+                        "engine.prefix_own",
+                        trace_id=state.trace.trace_id,
+                        parent_id=state.trace_span, track="engine",
+                        attrs={"keys": len(keys), "hist_tokens": hist},
+                    )
+            if keys:
+                self._owner_keys[rid] = (run, keys)
+            if hist:
+                hits.append((run.slot, pool_ids))
+                global_metrics.inc("engine_prefix_hit_tokens_total", hist)
+            self._segmented[run.slot] = (run, hist)
+        if hits:
+            # Before any of the wave's segments (same executor, same
+            # stream order): reused history is in place for the first one.
+            await loop.run_in_executor(
+                self._executor, self._prefix_copy_in, hits
+            )
+
+    async def _mux_wake(self, loop) -> None:
+        """Release dead owners' in-flight prefix claims and RE-PLAN waiters
+        whose owner finished (its blocks are pooled — _finish_segments
+        inserts before this runs) or died mid-prefill (the first waiter is
+        promoted to owner).  Once per loop iteration."""
+        for rid, (run, _keys) in list(self._owner_keys.items()):
+            seg = self._segmented.get(run.slot)
+            alive = (self.scheduler.slots[run.slot] is run
+                     and seg is not None and seg[0] is run)
+            if not alive:
+                self._owner_done(rid)
+        if not self._prefix_waiters:
+            return
+        ready: List[RunningSlot] = []
+        still: List[Tuple[RunningSlot, int]] = []
+        for run, owner_rid in self._prefix_waiters:
+            if self.scheduler.slots[run.slot] is not run:
+                # Cancelled/expired while parked; slot reclaimed.
+                self._dedup_counted.discard(run.request.request_id)
+                continue
+            if owner_rid in self._owner_keys:
+                still.append((run, owner_rid))
+            else:
+                ready.append(run)
+        self._prefix_waiters = still
+        if ready:
+            await self._plan_mux_wave(loop, ready)
+
+    def _owner_done(self, rid: int) -> None:
+        """Drop a finished/dead owner's claims from the in-flight prefix
+        registry so its waiters re-plan at the next _mux_wake."""
+        entry = self._owner_keys.pop(rid, None)
+        if entry is None:
+            return
+        for key in entry[1]:
+            if self._inflight_prefix.get(key) == rid:
+                del self._inflight_prefix[key]
+
+    def _mux_budget(self) -> int:
+        """This iteration's prefill budget in SEGMENT ROWS, from the
+        controller's token budget (published as engine_mux_budget_tokens).
+        The backlog counts remaining DISPATCH rows — a half-done long
+        prompt contributes its remaining segment count."""
+        chunk = max(1, self._mux_ctl.unit)
+        backlog = len(self._pending_plain)
+        for run, start in self._segmented.values():
+            rest = len(run.request.prompt_ids) - start
+            backlog += max(1, -(-rest // chunk))
+        n = self.ecfg.num_slots
+        active = int(np.count_nonzero(self._active_mask[:n]))
+        now = time.monotonic()
+        # Every place a not-yet-decoding request can sit: a tight deadline
+        # in ANY of them triggers the controller's rescue drain.
+        slacks = [req.deadline - now for req in self.scheduler.waiting
+                  if req.deadline is not None]
+        slacks += [run.request.deadline - now
+                   for run, _start in self._segmented.values()
+                   if run.request.deadline is not None]
+        slacks += [run.request.deadline - now for run in self._pending_plain
+                   if run.request.deadline is not None]
+        slacks += [run.request.deadline - now
+                   for run, _owner in self._prefix_waiters
+                   if run.request.deadline is not None]
+        min_slack = min(slacks) if slacks else None
+        tokens = self._mux_ctl.budget_tokens(
+            queue_depth=self.scheduler.queue_depth,
+            backlog_rows=backlog,
+            active_rows=active,
+            min_slack_s=min_slack,
+        )
+        global_metrics.set_gauge("engine_mux_budget_tokens", tokens)
+        self._last_mux = {
+            "backlog_rows": backlog,
+            "min_slack_s": (round(min_slack, 3)
+                            if min_slack is not None else None),
+            "budget_tokens": tokens,
+        }
+        return tokens // self._mux_ctl.unit
+
+    def _dispatch_segments(self, max_rows: Optional[int] = None):
+        """Advance up to ``prefill_rows`` chunked-prefill slots (or the
+        iteration's ``max_rows`` budget under mux, whichever is smaller)
+        by ONE segment each, as one chunk dispatch (executor thread).
+
+        Returns (rows, pending, t_dispatch, n_tokens) — rows is
+        [(run, was_final)] in row order, n_tokens counts REAL segment
+        tokens — or None when nothing is pending.  A final (short)
+        segment's pad positions write junk KV past the prompt end, which
+        decode overwrites before it ever becomes attendable."""
+        limit = self.ecfg.prefill_rows
+        if max_rows is not None:
+            limit = min(limit, max_rows)
+        if not self._segmented or limit <= 0:
+            return None
+        chunk = self.ecfg.prefill_chunk
+        picked: List[Tuple[RunningSlot, int]] = []
+        for slot in list(self._segmented):
+            run, start = self._segmented[slot]
+            if self.scheduler.slots[slot] is not run:  # cancelled
+                del self._segmented[slot]
+                continue
+            picked.append((run, start))
+            if len(picked) == limit:
+                break
+        if not picked:
+            return None
+        chunk_rows = []
+        rows: List[Tuple[RunningSlot, bool]] = []
+        n_tokens = 0
+        for run, start in picked:
+            ids = run.request.prompt_ids
+            seg = ids[start : start + chunk]
+            final = start + len(seg) >= len(ids)
+            if final:
+                del self._segmented[run.slot]
+            else:
+                self._segmented[run.slot] = (run, start + len(seg))
+            chunk_rows.append((run, start, seg, final))
+            rows.append((run, final))
+            n_tokens += len(seg)
+        t_dispatch = time.monotonic()
+        pending = self._dispatch_chunk_rows(chunk_rows, chunk)
+        global_metrics.inc("engine_prefill_segments_total", len(rows))
+        return rows, pending, t_dispatch, n_tokens
+
+    async def _finish_segments(self, loop, seg) -> None:
+        """Fetch a segment dispatch's sampled block (pinned copy + CUDA
+        event, never a blocking ``.cpu()``); activate final rows."""
+        rows, pending, t_dispatch, n_tokens = seg
+        firsts, lp, _plp = await loop.run_in_executor(
+            self._executor, pending.get
+        )
+        # REAL segment tokens: pad positions would underprice every page
+        # for cost-aware eviction.
+        self._note_prefill_cost(
+            n_tokens, (time.monotonic() - t_dispatch) * 1000.0,
+        )
+        if global_tracer.enabled:
+            global_tracer.add_span(
+                "engine.prefill_segment", trace_id=None, track="engine-loop",
+                t0=t_dispatch,
+                attrs={"rows": len(rows),
+                       "final": sum(1 for _r, f in rows if f)},
+            )
+        inserts: List[RunningSlot] = []
+        for i, (run, final) in enumerate(rows):
+            if not final or self.scheduler.slots[run.slot] is not run:
+                continue
+            self._admit_one(run)
+            lp_row = None if lp is None else (lp[0][i], lp[1][i], lp[2][i])
+            self._account_token(run.slot, int(firsts[i]), lp_row)
+            if self._prefix is not None:
+                inserts.append(run)
+        if inserts:
+            await loop.run_in_executor(
+                self._executor, self._prefix_insert, inserts
+            )
+            self._release_pages_for(inserts)
+
+    def _init_ragged_geometry(self) -> None:
+        """Ragged grouped prefill geometry and the gates that apply on the
+        card.  The q-block width must divide every chunk start (page and
+        segment multiples), so it is the largest power-of-two divisor of
+        both units, capped at 128; the flat bucket holds prefill_rows rows
+        of the widest per-row tail (a mux segment or the largest prefix
+        tail bucket)."""
+        self._ragged_bq = 0
+        self._ragged_tot = 0
+        self._ragged_row_blocks = 0
+        if not self.ecfg.ragged_prefill:
+            return
+        from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import _SUPPORTED_D
+
+        unit = self.ecfg.prefill_chunk or self.ecfg.min_prefill_bucket
+        div = math.gcd(self.ecfg.min_prefill_bucket, unit)
+        bq = next((c for c in (128, 64, 32, 16, 8) if div % c == 0), 0)
+        if bq == 0:
+            self._fence(
+                "ragged_prefill", False,
+                f"no power-of-2 q-block width >= 8 divides both "
+                f"min_prefill_bucket={self.ecfg.min_prefill_bucket} and "
+                f"prefill_chunk={unit} — chunk starts would misalign the "
+                f"grouped cache-append blocks",
+            )
+        elif self.ecfg.max_seq % bq:
+            self._fence(
+                "ragged_prefill", False,
+                f"max_seq {self.ecfg.max_seq} is not a multiple of the "
+                f"q-block width {bq}: the last append block would overrun "
+                f"the cache",
+            )
+        elif (self.device.type == "cuda"
+              and self.mcfg.head_dim not in _SUPPORTED_D):
+            self._fence(
+                "ragged_prefill", False,
+                f"head_dim {self.mcfg.head_dim} is not a width the ragged "
+                f"prefill kernel is built for {_SUPPORTED_D}",
+            )
+        else:
+            self._ragged_bq = bq
+            per_row = unit
+            if self.ecfg.prefix_cache:
+                per_row = max(
+                    per_row,
+                    self.ecfg.min_prefill_bucket
+                    * 2 ** max(0, self.ecfg.prefix_tail_buckets - 1),
+                )
+            per_row = -(-per_row // bq) * bq
+            self._ragged_tot = self.ecfg.prefill_rows * per_row
+            self._ragged_row_blocks = per_row // bq
+
+    def _fence(self, knob: str, off, reason: str) -> None:
+        """Auto-disable ``knob`` and RECORD it in ``config_fences`` (the
+        /healthz ``config`` section) instead of only logging it."""
+        log.warning("%s disabled: %s", knob, reason)
+        self.config_fences.append({"knob": knob, "reason": reason})
+        self.ecfg = dc_replace(self.ecfg, **{knob: off})
+
+    def _reserve_pages(self, req: GenRequest) -> None:
+        """Scheduler admission hook: reserve pool pages for the request's
+        prompt insert, evicting cost-aware under pressure NOW rather than
+        mid-wave.  Pure host work; the grant is advisory accounting, and
+        every grant is RELEASED (after the insert lands, or in generate()'s
+        finally on any death path)."""
+        if self._prefix is None:
+            return
+        need = len(self._prefix.missing(req.prompt_ids))
+        if need <= 0:
+            return
+        granted = self._prefix.reserve(need)
+        if granted:
+            self._page_reserved[req.request_id] = granted
+
+    def _release_pages(self, rid: int) -> None:
+        """EVENT-LOOP THREAD ONLY, so the reserved-pages counter's
+        read-modify-write never interleaves across threads."""
+        n = self._page_reserved.pop(rid, None)
+        if n and self._prefix is not None:
+            self._prefix.release(n)
+
+    def _release_pages_for(self, runs: List[RunningSlot]) -> None:
+        """Release the admission grants of runs whose prompt insert just
+        landed (loop thread, after the executor insert returned)."""
+        for run in runs:
+            self._release_pages(run.request.request_id)
+
+    def _note_prefill_cost(self, tokens: int, wall_ms: float) -> None:
+        """Per-token prefill-ms EMA: the live estimate cost-aware eviction
+        weighs pool pages with."""
+        if tokens <= 0 or wall_ms <= 0:
+            return
+        per = wall_ms / tokens
+        ema = self._prefill_ms_per_token
+        self._prefill_ms_per_token = per if ema <= 0 else 0.8 * ema + 0.2 * per
+
+    def _conv_insert(self, pending: List[Tuple[int, List[int]]]) -> None:
+        """Save finished conversations' full-page KV — prompt AND generated
+        tokens — into the pool (executor thread), one batched copy per
+        prefill_rows sub-batch."""
+        entries = plan_inserts(
+            self._prefix, pending, conv=True,
+            ms_per_token=self._prefill_ms_per_token or 1.0,
+        )
+        total = sum(len(ids) for _, ids, _ in entries)
+        self._copy_out_entries(entries)
+        if total:
+            global_metrics.inc("engine_conv_saved_pages_total", total)
+            global_metrics.inc("engine_prefix_saved_blocks_total", total)
+
+    async def _drain_conv_inserts(self, loop) -> None:
+        """End-of-iteration conversation-cache drain: batch-insert every
+        slot _account_token finished this iteration.  It is ENQUEUED on the
+        executor (and so on its stream) before the next iteration's
+        admission can dispatch a prefill that overwrites the slot's KV —
+        the ordering tests/test_torch_mux.py pins."""
+        if not self._conv_pending:
+            return
+        pending, self._conv_pending = self._conv_pending, []
+        self._flight_conv = len(pending)
+        await loop.run_in_executor(self._executor, self._conv_insert, pending)
+
+    def _publish_prefix_gauges(self) -> None:
+        """Prefix-pool memory accounting: pages used/free/reserved,
+        resident KV bytes, and the eviction + conversation-cache counters
+        (delta-inc from the index's tallies).  Host arithmetic only."""
+        if self._prefix is None:
+            return
+        used = self._prefix.used_blocks
+        global_metrics.set_gauge("engine_prefix_pool_blocks_used", used)
+        global_metrics.set_gauge(
+            "engine_prefix_pool_blocks_free", self._prefix.free_blocks
+        )
+        global_metrics.set_gauge(
+            "engine_prefix_pool_kv_bytes", used * self._prefix_block_bytes
+        )
+        global_metrics.set_gauge(
+            "engine_prefix_pool_pages_reserved", self._prefix.reserved_pages
+        )
+        for metric, attr in (
+            ("engine_prefix_evictions_total", "evictions"),
+            ("engine_conv_hits_total", "conv_hits"),
+            ("engine_conv_hit_tokens_total", "conv_hit_tokens"),
+        ):
+            now = getattr(self._prefix, attr)
+            delta = now - self._prefix_published.get(attr, 0)
+            if delta > 0:
+                global_metrics.inc(metric, delta)
+                self._prefix_published[attr] = now
+        self._thrash_tick()
+
+    def _thrash_tick(self) -> None:
+        """One thrash-detector step (one per gauge publish): window the
+        (eviction, recent-realloc) deltas, mark the engine degraded
+        (reason "memory") on a churn-dominated window, clear on a quiet
+        one."""
+        ev = self._prefix.evictions
+        re_alloc = self._prefix.thrash_reallocs
+        d_ev = ev - self._thrash_last[0]
+        d_re = re_alloc - self._thrash_last[1]
+        self._thrash_last = (ev, re_alloc)
+        if d_ev or d_re or self._thrash_window:
+            self._thrash_window.append((d_ev, d_re))
+        window_re = sum(r for _, r in self._thrash_window)
+        window_ev = sum(e for e, _ in self._thrash_window)
+        threshold = max(8, self._prefix.capacity - 1)
+        if (window_re >= threshold and window_ev >= threshold
+                and not self.degraded):
+            log.error(
+                "memory-thrash detector: %d re-allocations of recently "
+                "evicted pages across %d evictions in the detector window; "
+                "marking engine degraded (reason=memory)",
+                window_re, window_ev,
+            )
+            global_metrics.inc("engine_thrash_trips_total")
+            self.degraded = True
+            self.degraded_reason = "memory"
+            global_metrics.set_gauge("engine_degraded", 1.0)
+            global_metrics.set_info("engine_degraded_reason", "memory")
+            global_blackbox.capture("memory", attribution="prefix_pool_thrash")
+            self._thrash_window.clear()
+        elif (self.degraded and self.degraded_reason == "memory"
+                and window_re == 0
+                and self._prefix.free_blocks >= self.ecfg.spill_low_water):
+            log.info("memory-thrash detector: pressure subsided; "
+                     "clearing degraded")
+            self.degraded = False
+            self.degraded_reason = ""
+            global_metrics.set_gauge("engine_degraded", 0.0)
+            global_metrics.set_info("engine_degraded_reason", "")
 
     async def _process_burst(self, outs, assign: List) -> None:
         """Account one fetched token block [R, k] against current
@@ -1049,38 +1911,88 @@ class InferenceEngine:
             attrs={"rows": sum(1 for a in assign if a is not None)},
         )
 
-    def _flight_record(self, it_t0: float, t_admit: float,
-                       t_dispatch: float, t_fetch: float,
-                       plain_rows: int) -> None:
-        """One flight-recorder row per non-idle loop iteration."""
+    def _flight_record(self, it_t0: float, t_admit: float, t_prefill: float,
+                       t_dispatch: float, t_fetch: float, plain_rows: int,
+                       seg_rows: int) -> None:
+        """One flight-recorder row per non-idle loop iteration: pure host
+        bookkeeping over the scratch the iteration's methods stashed."""
         now = time.monotonic()
         slots = self.scheduler.slots
+        mux = self._last_mux
+        backlog = mux.get("backlog_rows")
+        if backlog is None:
+            # Non-mux iterations: the row-count proxy (no controller ran).
+            backlog = (len(self._segmented) + len(self._pending_plain)
+                       + len(self._prefix_waiters))
+        pi = self._prefix
         global_flight.record_iteration(
             t=it_t0,
             dur_ms=round((now - it_t0) * 1000.0, 3),
             queue_depth=self.scheduler.queue_depth,
-            backlog_rows=0,
-            budget_tokens=0,
+            backlog_rows=int(backlog),
+            min_slack_s=mux.get("min_slack_s"),
+            budget_tokens=int(mux.get("budget_tokens", 0) or 0),
             admitted=self._flight_admitted,
-            prefill_rows=plain_rows,
+            prefill_rows=plain_rows + seg_rows,
             decode_steps=self._last_burst[0],
             decode_rows=self._last_burst[1],
             active_slots=sum(1 for s in slots if s is not None),
             tenants=len({run.request.tenant for run in slots if run is not None}),
+            waiters=len(self._prefix_waiters),
+            prefix_blocks_used=pi.used_blocks if pi is not None else 0,
+            prefix_pages_reserved=pi.reserved_pages if pi is not None else 0,
+            conv_inserted=self._flight_conv,
             cold_compiles=0,
             admit_ms=round((t_admit - it_t0) * 1000.0, 3),
-            prefill_ms=0.0,
-            dispatch_ms=round((t_dispatch - t_admit) * 1000.0, 3),
+            prefill_ms=round((t_prefill - t_admit) * 1000.0, 3),
+            dispatch_ms=round((t_dispatch - t_prefill) * 1000.0, 3),
             fetch_ms=round((t_fetch - t_dispatch) * 1000.0, 3),
             process_ms=round((now - t_fetch) * 1000.0, 3),
         )
+
+    async def _dispatch_prefill_work(self, loop) -> Tuple[List, int]:
+        """This iteration's prefill work, dispatched before the decode
+        burst.  Non-mux: one prefill_rows-wide segment sub-batch.  Mux: the
+        controller's budgeted slice — pending whole-prompt rows and/or
+        segment sub-batches back to back (their fetches pipeline in
+        _finish_segments).  Returns (segment dispatches, plain rows)."""
+        segs: List = []
+        plain_rows = 0
+        if self.ecfg.mux:
+            rows_budget = self._mux_budget()
+            if self._pending_plain and rows_budget > 0:
+                take = min(rows_budget, len(self._pending_plain))
+                batch = [r for r in self._pending_plain[:take]
+                         if self.scheduler.slots[r.slot] is r]
+                del self._pending_plain[:take]
+                if batch:
+                    await self._dispatch_plain_waves(loop, batch)
+                    plain_rows += len(batch)
+                rows_budget -= take
+            while self._segmented and rows_budget > 0:
+                seg = await loop.run_in_executor(
+                    self._executor, self._dispatch_segments, rows_budget,
+                )
+                if seg is None:
+                    break
+                segs.append(seg)
+                rows_budget -= len(seg[0])
+        elif self._segmented:
+            seg = await loop.run_in_executor(
+                self._executor, self._dispatch_segments
+            )
+            if seg is not None:
+                segs.append(seg)
+        return segs, plain_rows
 
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
         log.info(
             "engine loop started: model=%s slots=%d max_seq=%d decode_steps=%d "
-            "device=%s", self.mcfg.name, self.ecfg.num_slots,
-            self.ecfg.max_seq, self.ecfg.decode_steps, self.device,
+            "mux=%s prefix_cache=%s ragged=%s device=%s", self.mcfg.name,
+            self.ecfg.num_slots, self.ecfg.max_seq, self.ecfg.decode_steps,
+            self.ecfg.mux, self.ecfg.prefix_cache, self.ecfg.ragged_prefill,
+            self.device,
         )
         # Crash containment: a dispatch exception surfaces loudly and
         # unblocks every consumer.
@@ -1099,18 +2011,31 @@ class InferenceEngine:
 
                 it_t0 = time.monotonic()
                 self._flight_admitted = 0
+                self._flight_conv = 0
                 self._last_burst = (0, 0)
+                self._last_mux = {}
+                plain_rows = 0
                 global_flight.set_phase("admit")
                 self._expire_deadlines()
-                # Whole-prompt admission waves run inline: their rows are
-                # this iteration's prefill work.
-                await self._admit_pending(loop)
-                plain_rows = self._flight_admitted
+                if self.ecfg.mux:
+                    await self._admit_mux(loop)
+                    await self._mux_wake(loop)
+                else:
+                    # Whole-prompt admission waves run inline: their rows
+                    # are this iteration's prefill work.
+                    await self._admit_pending(loop)
+                    plain_rows += self._flight_admitted
                 t_admit = time.monotonic()
                 global_metrics.set_gauge("engine_batch_occupancy",
                                          self.scheduler.occupancy)
                 global_metrics.set_gauge("engine_queue_depth",
                                          self.scheduler.queue_depth)
+                self._publish_prefix_gauges()
+                global_flight.set_phase("prefill_dispatch")
+                segs, more = await self._dispatch_prefill_work(loop)
+                plain_rows += more
+                t_prefill = time.monotonic()
+                seg_rows = sum(len(s[0]) for s in segs)
 
                 # Pipeline: dispatch burst n, THEN fetch burst n-1 — the
                 # fetch waits only for burst n-1 while burst n runs.
@@ -1137,9 +2062,17 @@ class InferenceEngine:
                     self._trace_burst(t_disp, assign)
                 else:
                     t_fetch = t_dispatch
+                global_flight.set_phase("segments")
+                for seg in segs:
+                    # Fetched after the decode dispatch, so each segment
+                    # sub-batch's device-to-host copy rides under compute.
+                    await self._finish_segments(loop, seg)
+                # Conversation-cache inserts for slots that finished this
+                # iteration — BEFORE the next admission can re-prefill them.
+                await self._drain_conv_inserts(loop)
                 in_flight = current
-                self._flight_record(it_t0, t_admit, t_dispatch, t_fetch,
-                                    plain_rows)
+                self._flight_record(it_t0, t_admit, t_prefill, t_dispatch,
+                                    t_fetch, plain_rows, seg_rows)
         except Exception:
             log.exception(
                 "engine loop crashed; failing %d in-flight requests",

@@ -1,7 +1,11 @@
 """Decoder-only transformer (llama/gemma families) in plain PyTorch — the
-port of p2p_llm_tunnel_tpu/models/transformer.py, subset the non-mux
-serving path runs: random init, the raw ``[L, B, S, K, D]`` KV cache,
-prefill (whole prompts, batched) and one-token-per-slot decode.
+port of p2p_llm_tunnel_tpu/models/transformer.py, the subset the serve
+CLI's default engine (mux, prefix pool, conversation cache) and the plain
+non-mux loop run: random init, the raw ``[L, B, S, K, D]`` KV cache,
+prefill (whole prompts, batched), tail prefill against reused history
+(``chunk_prefill_into_cache``, einsum attention as in the reference), the
+ragged grouped tail prefill (``ragged_prefill_into_cache``, one kernel-6
+launch per layer) and one-token-per-slot decode.
 
 Idiom differences from the JAX reference, all deliberate:
 
@@ -10,13 +14,16 @@ Idiom differences from the JAX reference, all deliberate:
 - the KV cache is MUTATED IN PLACE (JAX rebuilt it functionally and let
   XLA alias the buffers); every function that writes it says so and still
   returns it, so call sites read like the reference's;
-- attention always goes through the two kernel wrappers
-  (``ops/flash_attention``, ``ops/decode_attention``): on CUDA tensors they
-  launch the Hopper kernels, on CPU tensors they run the plain versions.
+- prefill and decode attention go through the kernel wrappers
+  (``ops/flash_attention``, ``ops/decode_attention``,
+  ``ops/prefill_attention``): on CUDA tensors they launch the Hopper
+  kernels, on CPU tensors they run the plain versions;
+  ``chunk_prefill_into_cache`` runs ``ops/attention.history_attention`` on
+  either device, as the reference runs einsum attention there.
   ``ModelConfig.flash``/``flash_decode`` pick between XLA and Pallas on a
   TPU and choose nothing here.
 
-Knobs of the reference this slice does not port raise ``NotPorted`` (a
+Knobs of the reference the port does not run yet raise ``NotPorted`` (a
 NotImplementedError) naming their ROADMAP.md port-queue item.
 """
 
@@ -30,9 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig
+from p2p_llm_tunnel_tpu_torch.ops.attention import history_attention
 from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
 from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
 from p2p_llm_tunnel_tpu_torch.ops.norms import rms_norm
+from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
 from p2p_llm_tunnel_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, object]
@@ -371,6 +380,108 @@ def prefill_into_cache(
          scored.to(torch.float32)], dim=1,
     )
     return last, kv_cache, prompt_lps
+
+
+def chunk_prefill_into_cache(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [Bp, T] right-padded TAIL tokens
+    lengths: torch.Tensor,  # [Bp] real tail lengths
+    starts: torch.Tensor,  # [Bp] history length per row (tail begins here)
+    kv_cache: KVCache,
+    slots: torch.Tensor,  # [Bp] cache slot per prompt
+    kv_view: Optional[int] = None,  # attend only to cache[:kv_view]
+) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill only the TAIL of each prompt against reused history KV (the
+    prefix-cache and chunked-prefill path).
+
+    Positions ``[0, starts)`` of each row's slot already hold history KV;
+    this computes the ``lengths`` tail tokens at global positions
+    ``starts + i`` (RoPE included), writes their K/V into the cache IN
+    PLACE, and attends each tail query to history + the causal part of the
+    tail through ``ops/attention.history_attention`` over
+    ``cache[:kv_view]`` — einsum attention, as in the reference, on either
+    device.  With ``starts == 0`` it computes what ``prefill_into_cache``
+    does.
+
+    Tail positions past the cache (a padded tail ending beyond ``max_seq``)
+    are pad tokens: XLA's scatter drops their writes, torch indexing would
+    fault on CUDA, so they rewrite the row's own old value at ``pos - T``
+    instead — a history position no real write of this call touches, and
+    distinct for each such pad.  Returns last-real-tail-token logits
+    ``[Bp, V]`` and the (same, updated) cache."""
+    _check_model(cfg)
+    _check_cache(kv_cache)
+    b, t = tokens.shape
+    s = kv_cache["k"].shape[2]
+    if kv_view is None or kv_view > s:
+        kv_view = s
+    x = _embed(cfg, params, tokens)
+    pos = starts.to(torch.long)[:, None] + torch.arange(t, device=tokens.device)[None, :]
+    in_cache = (pos < s)[:, :, None, None]
+    write_pos = torch.where(pos < s, pos, pos - t)
+    slot_idx = slots.to(torch.long)
+    rows = slot_idx[:, None]  # [Bp,1] broadcasts against [Bp,T]
+    for idx in range(cfg.n_layers):
+        blk = _layer(params["blocks"], idx)
+        q, k, v = _qkv(cfg, blk, _norm(cfg, x, blk["attn_norm"]), pos)
+        for name, new in (("k", k), ("v", v)):
+            plane = kv_cache[name][idx]  # [B, S, K, D] view of the cache
+            old = plane[rows, write_pos]
+            plane[rows, write_pos] = torch.where(in_cache, new, old)
+        attn = history_attention(
+            q, kv_cache["k"][idx, :, :kv_view][slot_idx],
+            kv_cache["v"][idx, :, :kv_view][slot_idx], starts,
+            scale=cfg.query_scale, softcap=cfg.attn_softcap,
+            window=_layer_window(cfg, idx, kv_view),
+        )
+        x = _block_tail(cfg, blk, x, attn)
+    last = x[torch.arange(b, device=tokens.device), (lengths - 1).to(torch.long)]
+    h_last = _norm(cfg, last[:, None], params["final_norm"])
+    return _logits(cfg, params, h_last)[:, 0], kv_cache
+
+
+def ragged_prefill_into_cache(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [TOT] flat-packed tail tokens (pads = 0)
+    slot_of, start_of, qoff_of, base_of,  # [NQB] int32 (plan_ragged_group)
+    sample_idx: torch.Tensor,  # [R] flat index of each row's last real token
+    kv_cache: KVCache,
+    block_q: int,
+    return_all_logits: bool = False,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Ragged GROUPED prefill: one ``ragged_prefill_attention`` launch per
+    layer for a whole group of variable-length tails (the ragged twin of
+    :func:`chunk_prefill_into_cache`).  Per layer the projections run over
+    the flat ``[TOT]`` axis; the attention wrapper ropes q/K at global
+    positions, appends K/V into the cache IN PLACE and attends history +
+    tail — the Hopper kernel on CUDA tensors, its plain version on CPU
+    tensors.  The descriptors are int32 tensors on the activations'
+    device; the planner has checked them against the alignment contract.
+
+    Returns the logits of each row's ``sample_idx`` token ``[R, V]`` (or
+    ``[TOT, V]`` with ``return_all_logits``) and the updated cache."""
+    _check_model(cfg)
+    _check_cache(kv_cache)
+    descs = (slot_of, start_of, qoff_of, base_of)
+    tot = tokens.shape[0]
+    s = kv_cache["k"].shape[2]
+    x = _embed(cfg, params, tokens[None])  # [1, TOT, Dm]
+    for idx in range(cfg.n_layers):
+        blk = _layer(params["blocks"], idx)
+        q, k, v = _qkv_proj(cfg, blk, _norm(cfg, x, blk["attn_norm"]))
+        attn = ragged_prefill_attention(
+            q[0], k[0], v[0], kv_cache["k"], kv_cache["v"], *descs, idx,
+            block_q=block_q, rope_theta=cfg.rope_theta,
+            scale=cfg.query_scale, softcap=cfg.attn_softcap,
+            window=_layer_window(cfg, idx, s),
+        )
+        x = _block_tail(cfg, blk, x, attn[None])
+    if return_all_logits:
+        return _logits(cfg, params, _norm(cfg, x, params["final_norm"]))[0], kv_cache
+    rows = x[0][sample_idx.to(torch.long)][None]  # [1, R, Dm]
+    return _logits(cfg, params, _norm(cfg, rows, params["final_norm"]))[0], kv_cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ so an edited source rebuilds and a stale library is never loaded.
 
 Nothing here runs at import time: the first launch of a kernel builds it
 (``load``), and ``build`` compiles several sources at once, one ``nvcc``
-process each, all started together (``chip_smoke.py`` builds both kernels
+process each, all started together (``chip_smoke.py`` builds every kernel
 that way before it drives the engine).
 """
 
@@ -31,6 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_causal_attention": "flash_causal_attention.cu",
     "flash_decode_attention": "flash_decode_attention.cu",
+    "ragged_prefill_attention": "ragged_prefill_attention.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,12 +1,14 @@
-"""The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config,
-flags of features this slice does not port are rejected with their
-ROADMAP.md port-queue item, and ``serve --backend gpu --device cpu``
-brings up a working engine backend (on the CPU, as the tests run)."""
+"""The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config
+with the JAX serve CLI's defaults, flags of features the port does not run
+yet are rejected with their ROADMAP.md port-queue item, and ``serve
+--backend gpu --device cpu`` brings up a working engine backend (on the
+CPU, as the tests run)."""
 
 import asyncio
 
 import pytest
 
+from p2p_llm_tunnel_tpu import cli as j_cli
 from p2p_llm_tunnel_tpu_torch import cli
 
 SERVE = ["serve", "--backend", "gpu", "--model", "tiny", "--slots", "4",
@@ -21,15 +23,57 @@ def test_serve_flags_map_onto_engine_config():
     assert (ecfg.model, ecfg.num_slots, ecfg.max_seq, ecfg.dtype) == (
         "tiny", 4, 128, "float32")
     assert (ecfg.decode_steps, ecfg.max_waiting) == (6, 9)
-    # The JAX serve CLI defaults these ON; the port keeps them off until
-    # they are ported.
-    assert not (ecfg.mux or ecfg.prefix_cache or ecfg.conv_cache)
+    # The JAX serve CLI's defaults: mux, prefix cache and conversation
+    # cache ON, ragged prefill off.
+    assert ecfg.mux and ecfg.prefix_cache and ecfg.conv_cache
+    assert not ecfg.ragged_prefill
+
+
+ENGINE_DEFAULTS = ("mux", "prefix_cache", "conv_cache", "ragged_prefill",
+                   "prefill_chunk", "mux_budget_tokens", "prefix_pool_blocks",
+                   "prefix_evict")
+
+
+@pytest.mark.parametrize("extra", [[], ["--no-mux"], ["--no-prefix-cache"],
+                                   ["--no-conv-cache"], ["--ragged-prefill"],
+                                   ["--prefill-chunk", "64",
+                                    "--mux-budget-tokens", "256",
+                                    "--prefix-pool-blocks", "32",
+                                    "--prefix-evict", "lru"]])
+def test_serve_engine_defaults_equal_the_jax_cli(extra, monkeypatch):
+    """``tunnel-gpu serve --backend gpu`` builds the same engine knobs as
+    ``tunnel serve --backend tpu`` from the same flags and environment."""
+    for var in ("TUNNEL_MUX", "TUNNEL_PREFIX_CACHE", "TUNNEL_CONV_CACHE",
+                "TUNNEL_RAGGED_PREFILL", "TUNNEL_PREFILL_CHUNK"):
+        monkeypatch.delenv(var, raising=False)
+    args = cli.build_parser().parse_args(SERVE + extra)
+    jargs = j_cli.build_parser().parse_args(
+        ["serve", "--backend", "tpu", "--room", "r"] + extra)
+    ecfg = cli._engine_config(args)
+    want = dict(
+        mux=jargs.mux, prefix_cache=jargs.prefix_cache,
+        conv_cache=jargs.conv_cache and jargs.prefix_cache,
+        ragged_prefill=jargs.ragged_prefill, prefill_chunk=jargs.prefill_chunk,
+        mux_budget_tokens=jargs.mux_budget_tokens,
+        prefix_pool_blocks=jargs.prefix_pool_blocks,
+        prefix_evict=jargs.prefix_evict)
+    assert {k: getattr(ecfg, k) for k in ENGINE_DEFAULTS} == want
+
+
+def test_env_names_match_the_jax_cli(monkeypatch):
+    monkeypatch.setenv("TUNNEL_MUX", "0")
+    monkeypatch.setenv("TUNNEL_CONV_CACHE", "0")
+    monkeypatch.setenv("TUNNEL_RAGGED_PREFILL", "1")
+    ecfg = cli._engine_config(cli.build_parser().parse_args(SERVE))
+    assert (ecfg.mux, ecfg.prefix_cache, ecfg.conv_cache,
+            ecfg.ragged_prefill) == (False, True, False, True)
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mux"], "mux + prefix pool"),
-    (["--prefix-cache"], "mux + prefix pool"),
+    (["--prefix-cache-dir", "/x"], "spill tier, snapshots"),
+    (["--spill-pages", "4"], "spill tier, snapshots"),
     (["--kv-quant", "int8"], "quantized weights and KV"),
+    (["--kv-quant", "int8", "--prefix-cache"], "quantized weights and KV"),
     (["--quant", "int4"], "quantized weights and KV"),
     (["--fused-decode-layer"], "fused decode layer"),
     (["--spec-ngram", "3"], "spec decode"),

@@ -164,7 +164,8 @@ def test_generate_matches_jax_with_logprobs(weights):
 
 def test_construction_guards():
     with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, mux=True), device="cpu")
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, spill_pages=4),
+                        device="cpu")
     with pytest.raises(NotPorted, match="ROADMAP"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int8"),
                         device="cpu")

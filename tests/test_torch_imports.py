@@ -58,7 +58,9 @@ def report():
 
 def test_probe_starts_clean(report):
     assert report["_startup"] == []
-    assert "p2p_llm_tunnel_tpu_torch.engine.engine" in MODULES
+    for name in ("engine.engine", "engine.prefix_cache",
+                 "ops.prefill_attention", "models.transformer"):
+        assert f"p2p_llm_tunnel_tpu_torch.{name}" in MODULES
 
 
 @pytest.mark.parametrize("module", MODULES)
