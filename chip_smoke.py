@@ -21,19 +21,32 @@ Phases (any failure exits non-zero before the result line):
    exactly one per layer (32) per prefill wave and per decode step;
 4. run one prompt's prefill and four teacher-forced decode steps through
    the kernel path and the plain path on the same weights and bound the
-   logits' difference;
+   logits' difference — with the raw cache and kernel 2, and with the int4
+   cache and the fused decode layer;
 5. serve the same weights again on the serve CLI's default engine (mux,
    prefix pool, conversation cache) with ``--ragged-prefill``: 8
    two-turn conversations sharing a ~300-token system prompt, every second
    turn resending its first turn and the answer; check every stream
    finished, the prefix / dedup / conversation counters rose, each second
    turn's pool hit reached into its first turn's answer, and the ragged
-   kernel launched exactly 32 times per ragged dispatch.
+   kernel launched exactly 32 times per ragged dispatch;
+6. the same conversations on the quantized caches: (a) ``--kv-quant int4
+   --fused-decode-layer --ragged-prefill`` — packed int4 pool pages, the
+   fused decode layer 32 times per decode step and kernel 2 never, the
+   ragged kernel 32 times per dispatch, both in their int4 forms; (b)
+   ``--kv-quant int8`` — kernel 2's int8 form 32 times per step; (c) a
+   few short streams on each engine that runs a remaining (kernel, KV
+   form) pair, so every row of the kernel table launched on a main path.
 
-The line before the last is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
-torch.profiler window over each engine with every slot busy (device busy
-share, device time by kernel) after phases 3 and 5.
+Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
+within tolerance, quantized cache bytes and scales bit-exact.  The line
+before the last is the kernel table as one JSON object, one row per
+(kernel, KV form); the last line is ``{"ok": true, "device": {...}}``.
+``--profile`` adds a torch.profiler window over the plain-loop engine and
+the mux engines of phases 5 and 6a with every slot busy (device busy
+share, device time by kernel), and the CUDA launches of one decode step
+on the two mux engines (fused decode layer off and on).
+``--kernels-only`` stops after phase 2.
 """
 
 from __future__ import annotations
@@ -58,7 +71,7 @@ MAX_TOKENS = 64  # tokens each stream asks for
 #: The kernel-table row the JSON line reports: the prefill bucket and the
 #: decode view the main path's prompts (120-400 bytes) land in.
 JSON_SHAPES = {"flash_causal_attention": "T256", "flash_decode_attention": "S512",
-               "ragged_prefill_attention": "TOT1024"}
+               "fused_decode_layer": "view512", "ragged_prefill_attention": "TOT1024"}
 # Phase 5: conversations of the mux phase, their system prompt and turns.
 N_CONV = 8
 SYSTEM_PROMPT = ("You are the tunnel's assistant. Answer briefly, cite the "
@@ -168,7 +181,35 @@ def prefill_case(b, t, h, kh, d, lengths, window=None, softcap=None, seed=0):
     return row
 
 
-def decode_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0):
+#: The KV cache forms and the bytes one cached element takes in each.
+FORMS = (None, "int8", "int4")
+ELEM_BYTES = {None: 2, "int8": 1, "int4": 0.5}
+
+
+def row_name(kname: str, form) -> str:
+    """The kernel table's name of one (kernel, KV form) row."""
+    return kname if form is None else f"{kname}_{form}"
+
+
+def cache_form(x, form, seq_axis):
+    """bf16 cache values ``x`` in ``form``: (values, k_scale or None) —
+    int8 values, or int4 values packed two tokens per byte along
+    ``seq_axis`` — through the port's own quantizers."""
+    from p2p_llm_tunnel_tpu_torch.models import quant, transformer as tr
+
+    if form is None:
+        return x, None
+    vals, scale = (tr._quant_kv4 if form == "int4" else tr._quant_kv)(x)
+    if form == "int4":
+        vals = quant.pack_int4(vals, axis=seq_axis)
+    return vals.contiguous(), scale.contiguous()
+
+
+def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
+                timed=True, **kw):
+    """Kernel 2 in ``form`` on strided [:, :S] windows of a [B, S_max, K, D]
+    cache, against its plain version; timed with its bound and an SDPA
+    yardstick over a dequantized bf16 copy (attention only)."""
     import torch
     import torch.nn.functional as F
 
@@ -176,34 +217,153 @@ def decode_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-    # Windows [:, :S] of a [B, S_max, K, D] cache, as the model passes them.
-    kc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()
-    vc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()
-    k_view, v_view = kc[:, :s], vc[:, :s]
+    kc, ks = cache_form(torch.randn((b, s_max, kh, d), generator=g,
+                                    device="cuda").bfloat16(), form, 1)
+    vc, vs = cache_form(torch.randn((b, s_max, kh, d), generator=g,
+                                    device="cuda").bfloat16(), form, 1)
+    rows = s // 2 if form == "int4" else s
+    k_view, v_view = kc[:, :rows], vc[:, :rows]
+    if form is not None:
+        kw = dict(kw, k_scale=ks[:, :s], v_scale=vs[:, :s], kv_quant=form)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    got = da.flash_decode_attention(q, k_view, v_view, pos)
-    want = da.plain(q, k_view, v_view, pos)
+    got = da.flash_decode_attention(q, k_view, v_view, pos, **kw)
+    want = da.plain(q, k_view, v_view, pos, **kw)
     torch.cuda.synchronize()
-    err = check_close(f"flash_decode_attention S={s}", got, want)
-
+    name = f"{row_name('flash_decode_attention', form)} S={s}"
+    win = kw.get("window") or (1 << 30)
+    keys = torch.arange(s, device="cuda")[None, :]
+    seen = ((keys <= pos[:, None]) & (pos[:, None] - keys < win)).any(-1)
+    if (got[~seen] != 0).any():
+        raise AssertionError(f"{name}: rows that see no key are not 0")
+    err = check_close(name, got[seen], want[seen])
+    if not timed:
+        return err
     live = [min(p, s - 1) + 1 for p in positions]  # keys each slot attends
-    nbytes = 2 * 2 * sum(live) * kh * d + 2 * 2 * b * h * d + 4 * b
+    nbytes = (2 * ELEM_BYTES[form] * sum(live) * kh * d
+              + (2 * 4 * sum(live) * kh if form else 0)
+              + 2 * 2 * b * h * d + 4 * b)
     flops = 4 * d * h * sum(live)
     row = dict(
         shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
         max_abs_err=err,
-        ms=timed_ms(lambda: da.flash_decode_attention(q, k_view, v_view, pos),
+        ms=timed_ms(lambda: da.flash_decode_attention(q, k_view, v_view, pos, **kw),
                     iters=50),
-        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos)),
+        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos, **kw)),
     )
+    kd, vd = k_view, v_view
+    if form is not None:
+        kd = da.dequant_f32(k_view, kw["k_scale"], form).bfloat16()
+        vd = da.dequant_f32(v_view, kw["v_scale"], form).bfloat16()
     qh = q.transpose(1, 2)
-    kx = k_view.transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    vx = v_view.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    kx = kd.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vx = vd.transpose(1, 2).repeat_interleave(h // kh, dim=1)
     am = (torch.arange(s, device="cuda")[None, :] <= pos[:, None].long())
     am = am[:, None, None, :]
     row["library_ms"] = timed_ms(
         lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am),
         iters=50)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return row
+
+
+#: Kernel 4's decode view in phase 2: the engine's 512 bucket over a
+#: 1024-position cache, 16 slots + scratch, one row parked at max_seq.
+FUSED_VIEW = 512
+
+
+def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
+               window=None, softcap=None, seed=0, timed=True):
+    """Kernel 4 in ``form`` against its plain version on clones of one
+    random cache: attention within tolerance on the live rows, and the
+    caches (values and scales) BIT-EXACT — which holds the appended bytes
+    and scales; beyond that, only the live slots' own rows may change, an
+    int4 append keeps its neighbour's nibble, and the parked row's cache
+    and scales stay as they were."""
+    import torch
+    import torch.nn.functional as F
+
+    from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
+    from p2p_llm_tunnel_tpu_torch.ops import fused_decode as fd
+
+    b = NUM_SLOTS + 1
+    positions = decode_positions(b, view)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    q, kn, vn = rnd(b, h, d), rnd(b, kh, d), rnd(b, kh, d)
+    kc, ks = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    vc, vs = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    orig = [kc, vc, ks, vs]
+    c1 = [None if x is None else x.clone() for x in orig]
+    c2 = [None if x is None else x.clone() for x in orig]
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    layer = layers - 1
+    kw = dict(kv_view=view, rope_theta=500000.0, kv_quant=form,
+              window=window, softcap=softcap)
+    got = fd.fused_decode_layer(q, kn, vn, *c1, pos, layer, **kw)
+    want = fd.plain(q, kn, vn, *c2, pos, layer, **kw)
+    torch.cuda.synchronize()
+    name = (f"{row_name('fused_decode_layer', form)} H{h} K{kh} D{d} "
+            f"window {window} softcap {softcap}")
+    live = [p < view for p in positions]
+    err = check_close(name, got[live], want[live])
+    for leaf, a, w in zip(("k", "v", "k_scale", "v_scale"), c1, c2):
+        if a is not None and not torch.equal(a, w):
+            raise AssertionError(f"{name}: cache leaf {leaf} differs from the "
+                                 f"plain version's in {int(a.ne(w).sum())} entries")
+    for leaf, a, o in zip(("k", "v", "k_scale", "v_scale"), c1, orig):
+        if a is None:
+            continue
+        changed = a.ne(o)
+        for slot, p in enumerate(positions):
+            if p < view:
+                row = p // 2 if (form == "int4" and leaf in ("k", "v")) else p
+                changed[layer, slot, row] = False
+        if changed.any():
+            raise AssertionError(f"{name}: {leaf} changed outside the appended "
+                                 f"rows (parked row or neighbours)")
+        if form == "int4" and leaf in ("k", "v"):
+            for slot, p in enumerate(positions):
+                if p >= view:
+                    continue
+                new_b = a[layer, slot, p // 2].to(torch.int16) & 0xFF
+                old_b = o[layer, slot, p // 2].to(torch.int16) & 0xFF
+                keep = 0x0F if p % 2 else 0xF0  # the neighbour's nibble
+                if not torch.equal(new_b & keep, old_b & keep):
+                    raise AssertionError(f"{name}: int4 append at {p} "
+                                         f"overwrote its neighbour's nibble")
+    if not timed:
+        return err
+    keys = [min(p, view) for p in positions]  # cache keys each slot reads
+    eb = ELEM_BYTES[form]
+    n_live = sum(live)
+    nbytes = (2 * eb * sum(keys) * kh * d + (2 * 4 * sum(keys) * kh if form else 0)
+              + 2 * b * h * d * 2 + 2 * 2 * b * kh * d
+              + n_live * (2 * eb * kh * d + (8 * kh if form else 0))
+              + 4 * b)
+    flops = 4 * d * h * (sum(keys) + b)
+    row = dict(
+        shape=f"B{b} view{view} S{s_max} H{h} K{kh} D{d} "
+              f"parked{sum(p >= view for p in positions)}",
+        max_abs_err=err,
+        ms=timed_ms(lambda: fd.fused_decode_layer(q, kn, vn, *c1, pos, layer, **kw),
+                    iters=50),
+        plain_ms=timed_ms(lambda: fd.plain(q, kn, vn, *c2, pos, layer, **kw)),
+    )
+    rows = view // 2 if form == "int4" else view
+    kd, vd = c1[0][layer, :, :rows], c1[1][layer, :, :rows]
+    if form is not None:
+        kd = da.dequant_f32(kd, c1[2][layer, :, :view], form)
+        vd = da.dequant_f32(vd, c1[3][layer, :, :view], form)
+    kx = kd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vx = vd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    qh = q[:, :, None, :]  # [B, H, 1, D]
+    last = pos.long().clamp(max=view - 1)
+    am = (torch.arange(view, device="cuda")[None, :] <= last[:, None])[:, None, None, :]
+    row["library_ms"] = timed_ms(
+        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -234,7 +394,9 @@ def preset_checks() -> dict:
             raise AssertionError(f"{name}: rows that see no key are not 0")
         return check_close(name, got[seen], want[seen])
 
-    errs = {"flash_causal_attention": 0.0, "flash_decode_attention": 0.0}
+    errs = {"flash_causal_attention": 0.0}
+    errs.update({row_name(k, f): 0.0 for f in FORMS
+                 for k in ("flash_decode_attention", "fused_decode_layer")})
     for preset, h, kh, d, window, softcap in (
         ("gemma2-2b", 8, 4, 256, 64, 50.0),
         ("llama3.2-1b", 32, 8, 64, None, None),
@@ -269,6 +431,20 @@ def preset_checks() -> dict:
               f"{int((~p_seen).sum())}, decode {int((~d_seen).sum())}")
         errs["flash_causal_attention"] = max(errs["flash_causal_attention"], e_p)
         errs["flash_decode_attention"] = max(errs["flash_decode_attention"], e_d)
+        more = {}
+        for form in ("int8", "int4"):
+            more[row_name("flash_decode_attention", form)] = decode_case(
+                5, 256, h, kh, d, [0, 63, 64, 200, MAX_SEQ], form=form,
+                s_max=256, seed=5, timed=False, **kw)
+        for form in FORMS:
+            more[row_name("fused_decode_layer", form)] = fused_case(
+                h, kh, d, form, view=256, s_max=512, layers=1, seed=6,
+                timed=False, **kw)
+        print(f"[kernels] {preset} quantized decode and fused layer, max|err| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in more.items())
+              + "; caches bit-exact")
+        for k, v in more.items():
+            errs[k] = max(errs[k], v)
     return errs
 
 
@@ -281,10 +457,11 @@ RAGGED_TOT = 1024
 
 
 def ragged_group(h, kh, d, rows, tot, s=MAX_SEQ, slots=NUM_SLOTS + 1,
-                 window=None, softcap=None, seed=0, layers=2):
-    """Run the ragged kernel and its plain version on copies of the same
-    random cache; check the real rows' attention and every non-scratch
-    cache row.  Returns (kernel, plain, inputs) for timing."""
+                 window=None, softcap=None, seed=0, layers=2, form=None):
+    """Run the ragged kernel and its plain version in ``form`` on copies of
+    the same random cache; check the real rows' attention and every
+    non-scratch cache row (raw: within tolerance; quantized: values and
+    scales bit-exact).  Returns (kernel, plain, inputs) for timing."""
     import torch
 
     from p2p_llm_tunnel_tpu_torch.ops import prefill_attention as pa
@@ -298,36 +475,55 @@ def ragged_group(h, kh, d, rows, tot, s=MAX_SEQ, slots=NUM_SLOTS + 1,
         return torch.randn(shape, generator=g, device="cuda").bfloat16()
 
     q, kn, vn = rnd(tot, h, d), rnd(tot, kh, d), rnd(tot, kh, d)
-    kc, vc = rnd(layers, slots, s, kh, d), rnd(layers, slots, s, kh, d)
+    kc, ks = cache_form(rnd(layers, slots, s, kh, d), form, 2)
+    vc, vs = cache_form(rnd(layers, slots, s, kh, d), form, 2)
     descs = [torch.tensor(x, device="cuda") for x in (slot_of, start_of, qoff_of, base_of)]
     kw = dict(block_q=16, rope_theta=500000.0, window=window, softcap=softcap)
+    if form is not None:
+        kw["kv_quant"] = form
     layer = layers - 1
-    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    got = pa.ragged_prefill_attention(q, kn, vn, k1, v1, *descs, layer, **kw)
-    want = pa.plain(q, kn, vn, k2, v2, *descs, layer, **kw)
+    c1 = [None if x is None else x.clone() for x in (kc, vc, ks, vs)]
+    c2 = [None if x is None else x.clone() for x in (kc, vc, ks, vs)]
+
+    def run(fn, c):
+        return fn(q, kn, vn, c[0], c[1], *descs, layer, k_scale=c[2],
+                  v_scale=c[3], **kw)
+
+    got = run(pa.ragged_prefill_attention, c1)
+    want = run(pa.plain, c2)
     torch.cuda.synchronize()
-    name = f"ragged_prefill_attention H{h} K{kh} D{d} window {window} softcap {softcap}"
+    name = (f"{row_name('ragged_prefill_attention', form)} H{h} K{kh} D{d} "
+            f"window {window} softcap {softcap}")
     real = torch.cat([torch.arange(o, o + ln, device="cuda")
                       for (_, _, ln), o in zip(entries, offs)])
     err = check_close(name, got[real], want[real])
-    cache_err = max(check_close(name + " cache", a[:, :-1], b[:, :-1])
-                    for a, b in ((k1, k2), (v1, v2)))
-    return dict(entries=entries, offs=offs, err=max(err, cache_err),
-                run=lambda: pa.ragged_prefill_attention(q, kn, vn, k1, v1, *descs, layer, **kw),
-                run_plain=lambda: pa.plain(q, kn, vn, k2, v2, *descs, layer, **kw),
-                q=q, k1=k1, v1=v1, layer=layer)
+    if form is None:
+        err = max([err] + [check_close(name + " cache", a[:, :-1], b[:, :-1])
+                           for a, b in zip(c1[:2], c2[:2])])
+    else:
+        for leaf, a, b in zip(("k", "v", "k_scale", "v_scale"), c1, c2):
+            if not torch.equal(a[:, :-1], b[:, :-1]):
+                raise AssertionError(
+                    f"{name}: cache leaf {leaf} differs from the plain "
+                    f"version's in {int(a[:, :-1].ne(b[:, :-1]).sum())} entries")
+    return dict(entries=entries, offs=offs, err=err,
+                run=lambda: run(pa.ragged_prefill_attention, c1),
+                run_plain=lambda: run(pa.plain, c2),
+                q=q, cache=c1, layer=layer)
 
 
-def ragged_case(h, kh, d):
+def ragged_case(h, kh, d, form=None):
     """The serving group shape, timed: kernel, plain version, and an
     attention-only yardstick — scaled_dot_product_attention with an
     explicit boolean mask over the same rows padded to [rows, H, tail,
-    start + tail] (it does no rope and no append; the port never calls
-    it)."""
+    start + tail], over a dequantized bf16 copy of the cache (it does no
+    rope, no quantization and no append; the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
-    c = ragged_group(h, kh, d, RAGGED_ROWS, RAGGED_TOT)
+    from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
+
+    c = ragged_group(h, kh, d, RAGGED_ROWS, RAGGED_TOT, form=form)
     rows = len(RAGGED_ROWS)
     t_max = max(ln for _, ln in RAGGED_ROWS)
     s_max = max(st + ln for st, ln in RAGGED_ROWS)
@@ -335,10 +531,14 @@ def ragged_case(h, kh, d):
     kp = torch.zeros((rows, h, s_max, d), dtype=torch.bfloat16, device="cuda")
     vp = torch.zeros_like(kp)
     mask = torch.zeros((rows, 1, t_max, s_max), dtype=torch.bool, device="cuda")
+    kc, vc, ks, vs = c["cache"]
     for r, ((slot, st, ln), off) in enumerate(zip(c["entries"], c["offs"])):
         qp[r, :, :ln] = c["q"][off:off + ln].transpose(0, 1)
-        for dst, src in ((kp, c["k1"]), (vp, c["v1"])):
-            dst[r, :, :st + ln] = src[c["layer"], slot, :st + ln].transpose(
+        for dst, src, sc in ((kp, kc, ks), (vp, vc, vs)):
+            plane = src[c["layer"], slot][None]
+            if form is not None:
+                plane = da.dequant_f32(plane, sc[c["layer"], slot][None], form)
+            dst[r, :, :st + ln] = plane[0, :st + ln].bfloat16().transpose(
                 0, 1).repeat_interleave(h // kh, dim=0)
         i = torch.arange(ln, device="cuda")[:, None]
         j = torch.arange(s_max, device="cuda")[None, :]
@@ -346,9 +546,13 @@ def ragged_case(h, kh, d):
     real = sum(ln for _, ln in RAGGED_ROWS)
     pairs = sum(st * ln + ln * (ln + 1) // 2 for st, ln in RAGGED_ROWS)
     hist = sum(st for st, _ in RAGGED_ROWS)
-    # q + k_new + v_new + out + appended K/V, each real row once, plus the
-    # history each row reads; bf16.
-    nbytes = 2 * (real * (2 * h + 4 * kh) * d + 2 * hist * kh * d)
+    eb = ELEM_BYTES[form]
+    # q + out (bf16), k_new + v_new (bf16), the appended K/V in the cache's
+    # form, and the history each row reads, each once; scales beside
+    # quantized rows.
+    nbytes = (2 * real * 2 * h * d + 2 * real * 2 * kh * d
+              + (real + hist) * kh * d * 2 * eb
+              + ((real + hist) * kh * 8 if form else 0))
     row = dict(
         shape=f"rows{rows} TOT{RAGGED_TOT} BQ16 H{h} K{kh} D{d} "
               f"hist{sorted({st for st, _ in RAGGED_ROWS})}",
@@ -362,12 +566,13 @@ def ragged_case(h, kh, d):
     return row
 
 
-def ragged_preset_checks() -> float:
-    """Untimed: the ragged kernel's other head-dim and grouping instances
-    at the presets' head geometry (gemma2-2b with window 64 + softcap 50,
-    llama3.2-1b D 64, llama3-70b G 8, qwen2-7b G 7, tiny-gemma D 16 with
-    window 8 + softcap 50).  Returns the max |kernel - plain|."""
-    worst = 0.0
+def ragged_preset_checks() -> dict:
+    """Untimed: the ragged kernel's other head-dim and grouping instances,
+    in every KV form, at the presets' head geometry (gemma2-2b with window
+    64 + softcap 50, llama3.2-1b D 64, llama3-70b G 8, qwen2-7b G 7,
+    tiny-gemma D 16 with window 8 + softcap 50).  Returns the max
+    |kernel - plain| per form's row."""
+    worst = {row_name("ragged_prefill_attention", f): 0.0 for f in FORMS}
     rows = [(0, 40), (32, 17), (96, 64)]
     for preset, h, kh, d, window, softcap in (
         ("gemma2-2b", 8, 4, 256, 64, 50.0),
@@ -376,11 +581,16 @@ def ragged_preset_checks() -> float:
         ("qwen2-7b", 28, 4, 128, None, None),
         ("tiny-gemma", 4, 2, 16, 8, 50.0),
     ):
-        c = ragged_group(h, kh, d, rows, 160, s=256, slots=5, window=window,
-                         softcap=softcap, seed=4, layers=1)
+        errs = {}
+        for form in FORMS:
+            c = ragged_group(h, kh, d, rows, 160, s=256, slots=5, window=window,
+                             softcap=softcap, seed=4, layers=1, form=form)
+            errs[row_name("ragged_prefill_attention", form)] = c["err"]
         print(f"[kernels] ragged {preset} heads {h}/{kh} D {d} window "
-              f"{window} softcap {softcap}: max|err| {c['err']:.3e}")
-        worst = max(worst, c["err"])
+              f"{window} softcap {softcap}: max|err| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
     return worst
 
 
@@ -395,8 +605,9 @@ def decode_positions(b: int, s: int) -> list:
 
 
 def kernel_phase(cfg) -> dict:
+    """Every (kernel, KV form) row at the main path's shapes, timed."""
     h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rows = {"flash_causal_attention": [], "flash_decode_attention": []}
+    rows = {"flash_causal_attention": []}
     for t in (128, 200, 256, 512):
         rows["flash_causal_attention"].append(prefill_case(8, t, h, kh, d, [t] * 8))
     rows["flash_causal_attention"].append(prefill_case(
@@ -404,13 +615,17 @@ def kernel_phase(cfg) -> dict:
     rows["flash_causal_attention"].append(prefill_case(
         8, 512, h, kh, d, [512, 300, 17, 128, 129, 1, 450, 64], seed=2))
     b = NUM_SLOTS + 1  # the engine's rows: every slot plus the scratch row
-    for s in (128, 256, 512, 1024):
-        rows["flash_decode_attention"].append(
-            decode_case(b, s, h, kh, d, decode_positions(b, s)))
-    rows["ragged_prefill_attention"] = [ragged_case(h, kh, d)]
+    for form in FORMS:
+        rows[row_name("flash_decode_attention", form)] = [
+            decode_case(b, s, h, kh, d, decode_positions(b, s), form=form)
+            for s in ((128, 256, 512, 1024) if form is None else (512,))]
+    for form in FORMS:
+        rows[row_name("fused_decode_layer", form)] = [fused_case(h, kh, d, form)]
+    for form in FORMS:
+        rows[row_name("ragged_prefill_attention", form)] = [ragged_case(h, kh, d, form)]
     for name, cases in rows.items():
-        print(f"[kernels] {name} (bf16 in, fp32 math; tolerance "
-              f"{ATOL} + {RTOL}*|ref|)")
+        print(f"[kernels] {name} (bf16 activations, fp32 math; tolerance "
+              f"{ATOL} + {RTOL}*|ref|; quantized caches bit-exact)")
         for r in cases:
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
@@ -418,6 +633,70 @@ def kernel_phase(cfg) -> dict:
                   f"library {lib} ms  bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+def _kernels() -> dict:
+    from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
+    from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
+    from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fused_decode_layer
+    from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
+
+    return {"flash_causal_attention": flash_causal_attention,
+            "flash_decode_attention": flash_decode_attention,
+            "fused_decode_layer": fused_decode_layer,
+            "ragged_prefill_attention": ragged_prefill_attention}
+
+
+def reset_counters() -> None:
+    """Zero every wrapper's launch counters (total and per KV form)."""
+    for fn in _kernels().values():
+        fn.launches = 0
+        for key in getattr(fn, "form_launches", {}):
+            fn.form_launches[key] = 0
+
+
+def read_counters() -> dict:
+    """Launches since the last reset, per kernel-table row."""
+    out = {}
+    for kname, fn in _kernels().items():
+        if not hasattr(fn, "form_launches"):
+            out[kname] = fn.launches
+            continue
+        for form in FORMS:
+            out[row_name(kname, form)] = fn.form_launches[form or "none"]
+    return out
+
+
+def engine_form(engine):
+    return None if engine.ecfg.kv_quant in ("none", "") else engine.ecfg.kv_quant
+
+
+def check_engine_launches(engine, launches: dict, steps: int,
+                          dispatches: int) -> None:
+    """The engine's decode kernel in its KV form launched once per layer
+    per decode step and the other decode kernel never; with ragged prefill
+    the ragged kernel in that form once per layer per ragged dispatch."""
+    n_layers = engine.mcfg.n_layers
+    form = engine_form(engine)
+    fused = engine.mcfg.fused_decode_layer
+    dec, other = (("fused_decode_layer", "flash_decode_attention") if fused
+                  else ("flash_decode_attention", "fused_decode_layer"))
+    if steps == 0 or launches[row_name(dec, form)] != n_layers * steps:
+        raise AssertionError(
+            f"{row_name(dec, form)} launches {launches[row_name(dec, form)]} "
+            f"!= {n_layers} x {steps} decode steps")
+    if any(launches[row_name(other, f)] for f in FORMS):
+        raise AssertionError(f"{other} launched on an engine that decodes "
+                             f"with {dec}: {launches}")
+    rag = row_name("ragged_prefill_attention", form)
+    if engine.ecfg.ragged_prefill:
+        if dispatches == 0 or launches[rag] != n_layers * dispatches:
+            raise AssertionError(f"{rag} launches {launches[rag]} != "
+                                 f"{n_layers} x {dispatches} ragged dispatches")
 
 
 # ---------------------------------------------------------------------------
@@ -474,15 +753,20 @@ async def _stream(base: str, i: int, max_tokens: int, prompt: str):
 
 
 async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
+    """Concurrent streams through the tunnel (SSE chat and NDJSON generate
+    alternating, prompts of 120-400 bytes) on one engine (phases 3 and
+    6c); checks every stream finished and each kernel of the engine's path
+    launched once per layer per prefill wave, decode step or ragged
+    dispatch."""
     from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
     from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
     from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
-    from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
-    from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
     from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
 
-    waves, steps = [0], [0]
-    dispatch_prefill, decode_fn = engine._dispatch_prefill_batch, engine._decode_fn
+    waves, steps, dispatches = [0], [0], [0]
+    dispatch_prefill, decode_fn, ragged_rows = (
+        engine._dispatch_prefill_batch, engine._decode_fn,
+        engine._dispatch_ragged_rows)
 
     def counted_prefill(*a, **kw):
         waves[0] += 1
@@ -492,8 +776,13 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
         steps[0] += a[5]  # (ov_mask, ov_tok, ov_pos, samp, view, steps)
         return decode_fn(*a, **kw)
 
+    def counted_ragged(rows):
+        dispatches[0] += 1
+        return ragged_rows(rows)
+
     engine._dispatch_prefill_batch = counted_prefill
     engine._decode_fn = counted_decode
+    engine._dispatch_ragged_rows = counted_ragged
 
     serve_ch, proxy_ch = loopback_pair()
     ready = asyncio.get_running_loop().create_future()
@@ -508,15 +797,13 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
             (f"Request {i}: summarise the tunnel design. " * (4 + 3 * i))[: 120 + 40 * i]
             for i in range(n_requests)
         ]
-        flash_causal_attention.launches = 0
-        flash_decode_attention.launches = 0
+        reset_counters()
         t0 = time.monotonic()
         results = await asyncio.gather(*[
             _stream(base, i, max_tokens, p) for i, p in enumerate(prompts)
         ])
         wall = time.monotonic() - t0
-        launches = {"flash_causal_attention": flash_causal_attention.launches,
-                    "flash_decode_attention": flash_decode_attention.launches}
+        launches = read_counters()
     finally:
         serve_task.cancel()
         proxy_task.cancel()
@@ -524,24 +811,22 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
         await asyncio.gather(serve_task, proxy_task, return_exceptions=True)
         engine._dispatch_prefill_batch = dispatch_prefill
         engine._decode_fn = decode_fn
+        engine._dispatch_ragged_rows = ragged_rows
     for r in results:
         if r["tokens"] != max_tokens or r["finish"] != "length":
             raise AssertionError(f"stream ended early: {r}")
     n_layers = engine.mcfg.n_layers
     if engine.device.type == "cuda":
+        # Under mux whole-prompt waves are only the echo route: none here.
         if (launches["flash_causal_attention"] != n_layers * waves[0]
-                or waves[0] == 0):
+                or (waves[0] == 0 and not engine.ecfg.mux)):
             raise AssertionError(
                 f"prefill kernel launches {launches['flash_causal_attention']}"
                 f" != {n_layers} x {waves[0]} prefill waves")
-        if (launches["flash_decode_attention"] != n_layers * steps[0]
-                or steps[0] == 0):
-            raise AssertionError(
-                f"decode kernel launches {launches['flash_decode_attention']}"
-                f" != {n_layers} x {steps[0]} decode steps")
+        check_engine_launches(engine, launches, steps[0], dispatches[0])
     ttfts = [r["ttft"] for r in results]
     return dict(results=results, wall=wall, launches=launches,
-                waves=waves[0], steps=steps[0],
+                waves=waves[0], steps=steps[0], dispatches=dispatches[0],
                 tok_s=sum(r["tokens"] for r in results) / wall,
                 ttft_p50_ms=statistics.median(ttfts) * 1e3,
                 ttft_max_ms=max(ttfts) * 1e3)
@@ -609,13 +894,22 @@ def print_profile(tag: str, pr: dict, name: str) -> None:
 # phase 4: logits through the kernel path and the plain path
 # ---------------------------------------------------------------------------
 
-def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4) -> dict:
+def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
+                 quant=None, fused: bool = False) -> dict:
+    """One prompt's prefill and ``forced`` teacher-forced decode steps
+    through the kernel path and through the plain path (every kernel
+    wrapper swapped for its plain version) on the same weights, with a
+    ``quant`` KV cache and the unfused or fused decode layer."""
+    import dataclasses
+
     import torch
 
     from p2p_llm_tunnel_tpu_torch.models import transformer as tr
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
     from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
+    from p2p_llm_tunnel_tpu_torch.ops import fused_decode as fd
 
+    cfg = dataclasses.replace(cfg, fused_decode_layer=fused)
     dev = params["embed"].device
     g = torch.Generator(device=dev).manual_seed(7)
     toks = torch.randint(0, 256, (1, prompt_len), generator=g, device=dev)
@@ -623,7 +917,7 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4) -> dict:
 
     def run():
         cache = tr.init_kv_cache(cfg, 1, 512, dtype=params["embed"].dtype,
-                                 device=dev)
+                                 quant=quant, device=dev)
         lengths = torch.tensor([prompt_len], device=dev)
         slots = torch.tensor([0], device=dev)
         last, _ = tr.prefill_into_cache(cfg, params, toks, lengths, cache, slots)
@@ -635,14 +929,18 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4) -> dict:
             out.append(logits[0])
         return torch.stack(out)
 
+    swaps = {"flash_causal_attention": fa.plain, "flash_decode_attention": da.plain,
+             "fused_decode_layer": fd.plain}
     with torch.inference_mode():
         kernel = run()
-        tr.flash_causal_attention, tr.flash_decode_attention = fa.plain, da.plain
+        saved = {name: getattr(tr, name) for name in swaps}
+        for name, fn in swaps.items():
+            setattr(tr, name, fn)
         try:
             plain = run()
         finally:
-            tr.flash_causal_attention = fa.flash_causal_attention
-            tr.flash_decode_attention = da.flash_decode_attention
+            for name, fn in saved.items():
+                setattr(tr, name, fn)
     if not torch.isfinite(kernel).all():
         raise AssertionError("kernel-path logits are not finite")
     diff = (kernel - plain).abs().max().item()
@@ -653,9 +951,10 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4) -> dict:
     limit = 0.05 * scale
     if diff > limit:
         raise AssertionError(
-            f"kernel-path logits drift {diff:.4g} > {limit:.4g} from the plain path")
+            f"kernel-path logits drift {diff:.4g} > {limit:.4g} from the plain "
+            f"path (kv_quant {quant}, fused {fused})")
     return dict(max_abs_diff=diff, logit_scale=scale, limit=limit,
-                argmax_agree=agree, rows=forced + 1)
+                argmax_agree=agree, rows=forced + 1, quant=quant, fused=fused)
 
 
 # ---------------------------------------------------------------------------
@@ -707,13 +1006,12 @@ async def _conv_turn(base: str, prompt_ids, max_tokens: int, ndjson: bool):
 
 
 async def mux_phase(engine) -> dict:
-    """8 two-turn conversations through the tunnel on the mux engine."""
+    """8 two-turn conversations through the tunnel on a mux engine (phases
+    5 and 6); the kernel checks follow the engine's KV form, decode kernel
+    and ragged switch."""
     from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
     from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
     from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
-    from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
-    from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
-    from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
     from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
     from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
 
@@ -754,9 +1052,7 @@ async def mux_phase(engine) -> dict:
     try:
         base = f"http://127.0.0.1:{await asyncio.wait_for(ready, 30.0)}"
         before = {c: global_metrics.counter(c) for c in counters}
-        flash_causal_attention.launches = 0
-        flash_decode_attention.launches = 0
-        ragged_prefill_attention.launches = 0
+        reset_counters()
         t0 = time.monotonic()
         one = await asyncio.gather(*[
             _conv_turn(base, p, TURN1_TOKENS, ndjson=i % 2 == 1)
@@ -766,9 +1062,7 @@ async def mux_phase(engine) -> dict:
         two = await asyncio.gather(*[
             _conv_turn(base, p, TURN2_TOKENS, ndjson=False) for p in seconds])
         wall = time.monotonic() - t0
-        launches = {"flash_causal_attention": flash_causal_attention.launches,
-                    "flash_decode_attention": flash_decode_attention.launches,
-                    "ragged_prefill_attention": ragged_prefill_attention.launches}
+        launches = read_counters()
         deltas = {c: global_metrics.counter(c) - before[c] for c in counters}
     finally:
         serve_task.cancel()
@@ -794,16 +1088,7 @@ async def mux_phase(engine) -> dict:
                 f"conversation {i}: turn-2 hit {hist} tokens does not reach "
                 f"past the system prompt ({sys_pages}) into turn 1's answer "
                 f"(turn 1 prompt {len(p1)} tokens)")
-    n_layers = engine.mcfg.n_layers
-    if (dispatches[0] == 0
-            or launches["ragged_prefill_attention"] != n_layers * dispatches[0]):
-        raise AssertionError(
-            f"ragged kernel launches {launches['ragged_prefill_attention']} != "
-            f"{n_layers} x {dispatches[0]} ragged dispatches")
-    if launches["flash_decode_attention"] != n_layers * steps[0] or steps[0] == 0:
-        raise AssertionError(
-            f"decode kernel launches {launches['flash_decode_attention']} != "
-            f"{n_layers} x {steps[0]} decode steps")
+    check_engine_launches(engine, launches, steps[0], dispatches[0])
     if engine._page_reserved or engine._prefix.reserved_pages:
         raise AssertionError("pool pages still reserved after every stream ended")
     ttfts = [r["ttft"] for r in one + two]
@@ -818,13 +1103,127 @@ async def mux_phase(engine) -> dict:
                 turn2_ttft_p50_ms=statistics.median(r["ttft"] for r in two) * 1e3)
 
 
+def decode_launches(engine, steps: int = 4) -> float:
+    """``--profile``: CUDA kernels (and copies) the model launches per
+    decode step on this engine's weights and cache — every slot live at
+    position 200, view 256, no sampling — counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    rows = engine.ecfg.num_slots + 1
+    toks = torch.ones((rows,), dtype=torch.long, device=engine.device)
+    pos = torch.full((rows,), 200, dtype=torch.int32, device=engine.device)
+
+    def step():
+        tr.decode_step(engine.mcfg, engine.params, engine.kv_cache, toks, pos,
+                       kv_view=256)
+
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / steps
+
+
+def cli_engine(params, cfg, *flags):
+    """The engine ``tunnel-gpu serve --backend gpu`` builds from ``flags``
+    (16 slots, 1024 positions), on the given weights."""
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+
+    ecfg = cli._engine_config(cli.build_parser().parse_args([
+        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", MODEL,
+        "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ), *flags]))
+    engine = InferenceEngine(engine_cfg=ecfg, params=params,
+                             tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size))
+    if engine.config_fences:
+        raise AssertionError(f"engine {flags} fenced: {engine.config_fences}")
+    return engine
+
+
+def run_engine(engine, phase, profile: bool = False):
+    """Start the engine, warm it up, run ``phase(engine)`` (and the
+    ``--profile`` window), stop it; returns (seconds to ready, result)."""
+    t0 = time.monotonic()
+
+    async def drive():
+        await engine.start()
+        try:
+            await engine.warmup()
+            t_ready = time.monotonic() - t0
+            out = await phase(engine)
+            if profile:
+                out["profile"] = await profile_phase(engine, NUM_SLOTS, MAX_TOKENS)
+                out["launches_per_step"] = decode_launches(engine)
+            return t_ready, out
+        finally:
+            await engine.stop()
+
+    return asyncio.run(drive())
+
+
+def free_engine(engine) -> None:
+    """Drop an engine's device state (cache, pool) before the next is built."""
+    import gc
+
+    import torch
+
+    engine.kv_cache = None
+    engine._pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
+    ec = engine.ecfg
+    print(f"{tag} {MODEL} bf16 serve-CLI defaults (mux {ec.mux}, prefix cache "
+          f"{ec.prefix_cache}, conv cache {ec.conv_cache}, ragged "
+          f"{ec.ragged_prefill}, kv_quant {ec.kv_quant}, fused decode layer "
+          f"{ec.fused_decode_layer}, prefill_chunk {ec.prefill_chunk}, ragged "
+          f"TOT {engine._ragged_tot}) ready in {t_ready:.1f} s; "
+          f"{N_CONV} conversations x 2 turns ({TURN1_TOKENS} + {TURN2_TOKENS} "
+          f"tokens), system prompt {len(SYSTEM_PROMPT)} tokens")
+    for r in mux["one"] + mux["two"]:
+        print(f"{tag}   {r['kind']:<6} tokens {len(r['ids'])} finish "
+              f"{r['finish']} ttft {r['ttft'] * 1e3:.1f} ms total "
+              f"{r['seconds']:.2f} s")
+    print(f"{tag} counters {mux['deltas']}; turn-2 pool hits {mux['hists']} "
+          f"tokens (system prompt pages {mux['sys_pages']} tokens)")
+    nonzero = {k: v for k, v in mux["launches"].items() if v}
+    print(f"{tag} ragged dispatches {mux['dispatches']}, decode steps "
+          f"{mux['steps']}, launch counts {nonzero}")
+    print(f"{tag} {mux['tok_s']:.1f} tok/s ({name}; both turns, client side "
+          f"through the tunnel)")
+    print(f"{tag} TTFT p50 {mux['ttft_p50_ms']:.1f} ms, max "
+          f"{mux['ttft_max_ms']:.1f} ms (turn 1 p50 "
+          f"{mux['turn1_ttft_p50_ms']:.1f} ms, turn 2 p50 "
+          f"{mux['turn2_ttft_p50_ms']:.1f} ms; {name})")
+    if "profile" in mux:
+        print_profile(f"{tag} profile", mux["profile"], name)
+        print(f"{tag} profile: {mux['launches_per_step']:.1f} CUDA launches per "
+              f"decode step (model only, {engine.mcfg.n_layers} layers; fused "
+              f"decode layer {engine.mcfg.fused_decode_layer})")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3 and 5, profile each engine with "
-                         "every slot busy (device busy share, time by kernel)")
+                    help="after phases 3, 5 and 6a, profile each engine with "
+                         "every slot busy (device busy share, time by kernel) "
+                         "and count the CUDA launches of one decode step")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build and kernel checks); "
+                         "prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -863,7 +1262,9 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     rows = kernel_phase(cfg)
     other_errs = preset_checks()
-    other_errs["ragged_prefill_attention"] = ragged_preset_checks()
+    other_errs.update(ragged_preset_checks())
+    if args.kernels_only:
+        return 0
 
     # Phase 3: the serving path through the tunnel (and --profile).
     from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
@@ -890,7 +1291,14 @@ def main() -> int:
             await engine.stop()
 
     t_ready, serve = asyncio.run(drive())
-    launches = serve["launches"]
+    # Launches per kernel-table row, summed over the main-path phases.
+    launches = dict.fromkeys(read_counters(), 0)
+
+    def add_launches(counts: dict) -> None:
+        for key, n in counts.items():
+            launches[key] += n
+
+    add_launches(serve["launches"])
     print(f"[serve] {MODEL} bf16 ready in {t_ready:.1f} s (init + warmup); "
           f"{N_REQUESTS} streams x {MAX_TOKENS} tokens, "
           f"{serve['waves']} prefill waves, {serve['steps']} decode steps")
@@ -901,76 +1309,72 @@ def main() -> int:
     print(f"[serve] {serve['tok_s']:.1f} tok/s, TTFT p50 "
           f"{serve['ttft_p50_ms']:.1f} ms, max {serve['ttft_max_ms']:.1f} ms "
           f"({name}; client side through the tunnel, launch counts "
-          f"{launches})")
+          f"{ {k: v for k, v in serve['launches'].items() if v} })")
     if "profile" in serve:
         print_profile("[profile]", serve["profile"], name)
 
-    # Phase 4: kernel path vs plain path on the same weights.
-    lg = logits_phase(cfg, engine.params)
-    print(f"[logits] prefill + {lg['rows'] - 1} teacher-forced decode steps: "
-          f"max |kernel - plain| {lg['max_abs_diff']:.4g} (limit "
-          f"{lg['limit']:.4g} = 5% of max |logit| {lg['logit_scale']:.4g}), "
-          f"argmax agreement {lg['argmax_agree']:.2f}")
+    # Phase 4: kernel path vs plain path on the same weights — the raw
+    # cache with kernel 2, and the int4 cache with the fused decode layer.
+    for quant, fused in ((None, False), ("int4", True)):
+        lg = logits_phase(cfg, engine.params, quant=quant, fused=fused)
+        print(f"[logits] kv_quant {quant}, fused decode layer {fused}: prefill "
+              f"+ {lg['rows'] - 1} teacher-forced decode steps: max |kernel - "
+              f"plain| {lg['max_abs_diff']:.4g} (limit {lg['limit']:.4g} = 5% "
+              f"of max |logit| {lg['logit_scale']:.4g}), argmax agreement "
+              f"{lg['argmax_agree']:.2f}")
 
     # Phase 5: the serve CLI's default engine + --ragged-prefill on the same
-    # weights; the first engine's cache is freed before the second is built.
-    from p2p_llm_tunnel_tpu_torch import cli
-
+    # weights; each engine's cache is freed before the next is built.
     params = engine.params
-    engine.kv_cache = None
+    free_engine(engine)
     del engine
-    torch.cuda.empty_cache()
-    mux_cfg = cli._engine_config(cli.build_parser().parse_args([
-        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", MODEL,
-        "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ),
-        "--ragged-prefill"]))
-    t0 = time.monotonic()
-    mux_engine = InferenceEngine(
-        engine_cfg=mux_cfg, params=params,
-        tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size))
-    if not (mux_engine.ecfg.mux and mux_engine.ecfg.prefix_cache
-            and mux_engine.ecfg.conv_cache and mux_engine.ecfg.ragged_prefill):
-        raise AssertionError(f"mux engine fenced: {mux_engine.config_fences}")
+    mux_engine = cli_engine(params, cfg, "--ragged-prefill")
+    t_ready, mux = run_engine(mux_engine, mux_phase, args.profile)
+    print_mux("[mux]", mux_engine, mux, t_ready, name)
+    add_launches(mux["launches"])
+    free_engine(mux_engine)
+    del mux_engine
 
-    async def drive_mux():
-        await mux_engine.start()
-        try:
-            await mux_engine.warmup()
-            t_ready = time.monotonic() - t0
-            mux = await mux_phase(mux_engine)
-            if args.profile:
-                mux["profile"] = await profile_phase(
-                    mux_engine, NUM_SLOTS, MAX_TOKENS)
-            return t_ready, mux
-        finally:
-            await mux_engine.stop()
+    # Phase 6: the quantized caches on the same defaults and conversations.
+    # 6a: int4 + fused decode layer + ragged prefill (kernels 4 and 6 in
+    # their int4 forms, kernel 2 idle, packed int4 pool pages).
+    e6a = cli_engine(params, cfg, "--kv-quant", "int4", "--fused-decode-layer",
+                     "--ragged-prefill")
+    from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import pool_packed_keys
 
-    t_ready, mux = asyncio.run(drive_mux())
-    ec = mux_engine.ecfg
-    print(f"[mux] {MODEL} bf16 serve-CLI defaults (mux {ec.mux}, prefix cache "
-          f"{ec.prefix_cache}, conv cache {ec.conv_cache}, ragged "
-          f"{ec.ragged_prefill}, prefill_chunk {ec.prefill_chunk}, ragged "
-          f"TOT {mux_engine._ragged_tot}) ready in {t_ready:.1f} s; "
-          f"{N_CONV} conversations x 2 turns ({TURN1_TOKENS} + {TURN2_TOKENS} "
-          f"tokens), system prompt {len(SYSTEM_PROMPT)} tokens")
-    for r in mux["one"] + mux["two"]:
-        print(f"[mux]   {r['kind']:<6} tokens {len(r['ids'])} finish "
-              f"{r['finish']} ttft {r['ttft'] * 1e3:.1f} ms total "
-              f"{r['seconds']:.2f} s")
-    print(f"[mux] counters {mux['deltas']}; turn-2 pool hits {mux['hists']} "
-          f"tokens (system prompt pages {mux['sys_pages']} tokens)")
-    print(f"[mux] ragged dispatches {mux['dispatches']}, decode steps "
-          f"{mux['steps']}, launch counts {mux['launches']}")
-    print(f"[mux] {mux['tok_s']:.1f} tok/s ({name}; both turns, client side "
-          f"through the tunnel)")
-    print(f"[mux] TTFT p50 {mux['ttft_p50_ms']:.1f} ms, max "
-          f"{mux['ttft_max_ms']:.1f} ms (turn 1 p50 "
-          f"{mux['turn1_ttft_p50_ms']:.1f} ms, turn 2 p50 "
-          f"{mux['turn2_ttft_p50_ms']:.1f} ms; {name})")
-    if "profile" in mux:
-        print_profile("[profile mux]", mux["profile"], name)
-    launches["ragged_prefill_attention"] = mux["launches"]["ragged_prefill_attention"]
-    del mux_engine, params
+    if (pool_packed_keys(e6a.kv_cache) != frozenset({"k", "v"})
+            or e6a._pool["k"].shape[2] * 2 != e6a._prefix_block
+            or e6a._pool["k_scale"].shape[2] != e6a._prefix_block):
+        raise AssertionError("int4 engine's pool pages are not packed half pages")
+    t_ready, m6a = run_engine(e6a, mux_phase, args.profile)
+    print_mux("[6a]", e6a, m6a, t_ready, name)
+    if any(m6a["launches"][row_name("flash_decode_attention", f)] for f in FORMS):
+        raise AssertionError("kernel 2 launched on the fused engine")
+    add_launches(m6a["launches"])
+    free_engine(e6a)
+    del e6a
+    # 6b: int8 on the defaults (unfused: kernel 2's int8 form).
+    e6b = cli_engine(params, cfg, "--kv-quant", "int8")
+    t_ready, m6b = run_engine(e6b, mux_phase)
+    print_mux("[6b]", e6b, m6b, t_ready, name)
+    add_launches(m6b["launches"])
+    free_engine(e6b)
+    del e6b
+    # 6c: the remaining (kernel, KV form) pairs, a few short streams each.
+    for flags in (("--kv-quant", "int8", "--fused-decode-layer", "--ragged-prefill"),
+                  ("--fused-decode-layer",),
+                  ("--kv-quant", "int4", "--no-mux")):
+        e6c = cli_engine(params, cfg, *flags)
+        t_ready, short = run_engine(e6c, lambda e: serve_phase(e, 4, 16))
+        nonzero = {k: v for k, v in short["launches"].items() if v}
+        print(f"[6c] {' '.join(flags)}: ready in {t_ready:.1f} s; 4 streams x "
+              f"16 tokens finished; {short['waves']} prefill waves, "
+              f"{short['steps']} decode steps, {short['dispatches']} ragged "
+              f"dispatches, launch counts {nonzero}")
+        add_launches(short["launches"])
+        free_engine(e6c)
+        del e6c
+    del params
 
     source = {
         "flash_causal_attention": (
@@ -979,19 +1383,26 @@ def main() -> int:
         "flash_decode_attention": (
             "p2p_llm_tunnel_tpu_torch/csrc/flash_decode_attention.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:446"),
+        "fused_decode_layer": (
+            "p2p_llm_tunnel_tpu_torch/csrc/fused_decode_layer.cu",
+            "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:877"),
         "ragged_prefill_attention": (
             "p2p_llm_tunnel_tpu_torch/csrc/ragged_prefill_attention.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_prefill_attention.py:563"),
     }
     table = []
-    for kname, cases in rows.items():
-        tag = JSON_SHAPES[kname]
-        pick = next(r for r in cases if f" {tag} " in f" {r['shape']} ")
+    for rname, cases in rows.items():
+        kname = next(k for k in source if rname == k or rname.startswith(k + "_"))
+        tag = JSON_SHAPES.get(kname)
+        pick = next((r for r in cases if tag and f" {tag} " in f" {r['shape']} "),
+                    cases[0])
+        if launches[rname] <= 0:
+            raise AssertionError(f"{rname} was launched no time on the main path")
         table.append(dict(
-            name=kname, route="cuda", source=source[kname][0],
-            replaces=source[kname][1], launches=launches[kname],
+            name=rname, route="cuda", source=source[kname][0],
+            replaces=source[kname][1], launches=launches[rname],
             max_abs_err=max([r["max_abs_err"] for r in cases]
-                            + [other_errs[kname]]),
+                            + [other_errs.get(rname, 0.0)]),
             ms=pick["ms"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
             library_ms=pick["library_ms"], shape=pick["shape"],

@@ -183,6 +183,17 @@ def build_parser() -> argparse.ArgumentParser:
                        default=_env("TUNNEL_RAGGED_PREFILL", "") == "1",
                        help="route every chunk-prefill dispatch through the "
                             "ragged grouped prefill kernel (default off)")
+    serve.add_argument("--kv-quant", choices=("none", "int8", "int4"),
+                       default=_env("TUNNEL_KV_QUANT", "none"),
+                       help="KV-cache storage: int8 halves, int4 (two tokens "
+                            "per byte) quarters the KV read stream; per-"
+                            "(token, head) f32 scales; pool pages follow")
+    serve.add_argument("--fused-decode-layer",
+                       action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_FUSED_DECODE", "") == "1",
+                       help="fused decode-layer kernel: rope + new-row KV "
+                            "quantization + in-place cache append + "
+                            "attention in one launch per layer")
     # The JAX serve CLI's engine knobs that the port does not run yet:
     # accepted at their off value only (see _engine_config).
     for flag, kw in _UNPORTED_FLAGS.items():
@@ -217,10 +228,8 @@ _BOOL = dict(action=argparse.BooleanOptionalAction, default=False)
 #: flag -> argparse kwargs; every default is the off value.
 _UNPORTED_FLAGS = {
     "--quant": dict(default="none"),
-    "--kv-quant": dict(default="none"),
     "--prefill-act-quant": _BOOL,
     "--prefix-cache-dir": dict(default=None),
-    "--fused-decode-layer": _BOOL,
     "--spec-ngram": dict(type=int, default=0),
     "--spill-pages": dict(type=int, default=0),
     "--role": dict(default="both"),

@@ -1,19 +1,27 @@
 // Slot-decode attention on Hopper (sm_90a): one query token per slot against
-// that slot's raw bf16 KV cache, fp32 softmax and accumulation.
+// that slot's KV cache — raw bf16, int8, or packed int4 — with fp32 softmax
+// and accumulation.
 //
 // Replaces: p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py
-// flash_decode_attention_sgrid, raw-KV form (body _decode_kernel_sgrid).
-// Same function: q [B,1,H,D], k/v cache [B,S,K,D] (any slot stride — the
-// model passes a strided [:, :view] window of the [L,B,S_max,K,D] cache, so
-// no copy), positions [B] -> out [B,1,H,D]; key j is attended iff
-// j <= pos and pos - j < window, scores optionally soft-capped; parked rows
-// (pos >= S) attend the whole view and never read out of bounds.
+// flash_decode_attention_sgrid and its _int8 / _int4 entries (one body,
+// _decode_kernel_sgrid, for the three cache forms).  Same function: q
+// [B,1,H,D], k/v cache [B,S,K,D] (any slot stride — the model passes a
+// strided [:, :view] window of the [L,B,S_max,K,D] cache, so no copy),
+// positions [B] -> out [B,1,H,D]; key j is attended iff j <= pos and
+// pos - j < window, scores optionally soft-capped; parked rows (pos >= S)
+// attend the whole view and never read out of bounds.  Quantized forms read
+// int8 values [B,S,K,D] or packed int4 bytes [B,S/2,K,D] (token 2i in the
+// low nibble of byte i, 2i+1 in the high) plus f32 per-(token, head) scales
+// [B,S,K], and dequantize in fp32 (value x scale, never rounded to bf16, as
+// the Pallas body does after its DMA).
 //
 // Bound on the card (published peaks of an H100 SXM at its 700 W limit,
 // 3.35 TB/s): decode reads the live K/V prefix once — B * (frontier+1) *
-// K * D * 2 bytes * 2 — for ~G FLOPs per byte read, far below the card's
-// ~295 FLOP/byte ridge: HBM bandwidth bounds it (PERF.md has the measured
-// times, which sit far above that bound in this first version).
+// K * D * (2 bytes bf16 | 1 byte int8 | 0.5 byte int4) * 2, plus 4-byte
+// scales per (token, head) when quantized — for ~G FLOPs per cache element,
+// far below the card's ~295 FLOP/byte ridge: HBM bandwidth bounds it
+// (PERF.md has the measured times, which sit far above that bound in this
+// first version).
 //
 // Design: one block per (KV head, slot) carries all G = H/K query rows of
 // that head, so each K/V element is loaded from HBM once per step (the
@@ -21,17 +29,21 @@
 // tiles only from the window floor up to the slot's frontier
 // min(pos, S-1): tiles past it are never loaded (the TPU kernel's
 // index-map clamp).  Scores: one warp per key, lanes reading contiguous
-// bf16 pairs (coalesced 256-byte rows at D 128) and shuffle-reducing the G
-// dot products; V tiles are staged in shared memory as fp32 for the PV
-// accumulation.  First version: no split over S, no async copies.
+// element pairs (coalesced rows) and shuffle-reducing the G dot products;
+// V tiles are staged in shared memory as fp32 for the PV accumulation.  The
+// cache form is a template parameter of the pair loader, so the softmax,
+// masking and frontier logic is one body for all three forms (the Pallas
+// kernel's own rule).  First version: no split over S, no async copies.
 //
-// C ABI (loaded with ctypes): flash_decode_attention_bf16 returns the
+// C ABI (loaded with ctypes): flash_decode_attention_launch returns the
 // cudaError_t of the launch (0 = launched).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "kv_forms.cuh"
 
 namespace {
 
@@ -40,6 +52,8 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_G = 8;           // query rows per KV head
 constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
+
+using namespace kv_forms;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -60,15 +74,17 @@ __host__ __device__ constexpr size_t smem_floats(int D, int G) {
   return size_t(2) * G * D + size_t(G) * BS + size_t(BS) * D + 3 * size_t(G);
 }
 
-template <int D>
+template <int D, int FORM>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+                    const void* __restrict__ k, const void* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ positions,
                     __nv_bfloat16* __restrict__ out,
                     int S, int H, int KH, int G, long long slot_stride,
-                    float scale, float softcap, int window) {
+                    long long scale_slot_stride, float scale, float softcap,
+                    int window) {
   extern __shared__ __align__(16) float sm[];
   float* qf = sm;                 // [G, D]
   float* acc = qf + G * D;        // [G, D]
@@ -85,9 +101,14 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int pos = positions[b];
 
   const size_t q_off = (size_t(b) * H + size_t(kh) * G) * D;
-  const __nv_bfloat16* kb = k + size_t(b) * slot_stride + size_t(kh) * D;
-  const __nv_bfloat16* vb = v + size_t(b) * slot_stride + size_t(kh) * D;
-  const size_t pitch = size_t(KH) * D;  // between consecutive positions
+  const size_t ebytes = FORM == RAW ? 2 : 1;
+  const size_t head_off = (size_t(b) * slot_stride + size_t(kh) * D) * ebytes;
+  const void* kb = static_cast<const char*>(k) + head_off;
+  const void* vb = static_cast<const char*>(v) + head_off;
+  const size_t pitch = size_t(KH) * D;  // between consecutive cache rows
+  const size_t scale_off = size_t(b) * scale_slot_stride + kh;
+  const float* ksb = FORM == RAW ? nullptr : k_scale + scale_off;
+  const float* vsb = FORM == RAW ? nullptr : v_scale + scale_off;
 
   for (int i = threadIdx.x; i < G * D; i += THREADS) {
     qf[i] = __bfloat162float(q[q_off + i]);
@@ -106,18 +127,17 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int first = first_ll < 0 ? 0 : (first_ll > S ? S : (int)first_ll);
 
   for (int k0 = (first / BS) * BS; k0 <= last; k0 += BS) {
-    // Scores: warp per key, lanes over D in bf16 pairs.
+    // Scores: warp per key, lanes over D in element pairs.
     for (int j = warp; j < BS; j += WARPS) {
       const int kp = k0 + j;
       float part[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) part[g] = 0.f;
       if (kp <= last) {
-        const __nv_bfloat16* kr = kb + size_t(kp) * pitch;
+        const float ksc = FORM == RAW ? 1.f : ksb[size_t(kp) * KH];
 #pragma unroll
         for (int d = 2 * lane; d < D; d += 64) {
-          const float2 kv =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + d));
+          const float2 kv = load_pair<FORM>(kb, kp, pitch, d, ksc);
 #pragma unroll
           for (int g = 0; g < MAX_G; ++g)
             if (g < G) part[g] += qf[g * D + d] * kv.x + qf[g * D + d + 1] * kv.y;
@@ -144,9 +164,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = 2 * (i - j * (D / 2));
       const int kp = k0 + j;
       float2 val = make_float2(0.f, 0.f);
-      if (kp <= last)
-        val = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            vb + size_t(kp) * pitch + c));
+      if (kp <= last) {
+        const float vsc = FORM == RAW ? 1.f : vsb[size_t(kp) * KH];
+        val = load_pair<FORM>(vb, kp, pitch, c, vsc);
+      }
       vt[j * D + c] = val.x;
       vt[j * D + c + 1] = val.y;
     }
@@ -192,57 +213,84 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int FORM>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* k_scale, const void* v_scale,
                    const void* positions, void* out, int B, int S, int H,
-                   int KH, long long slot_stride, float scale, float softcap,
-                   int window, cudaStream_t stream) {
+                   int KH, long long slot_stride, long long scale_slot_stride,
+                   float scale, float softcap, int window, cudaStream_t stream) {
   const int G = H / KH;
   const size_t smem = smem_floats(D, G) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_decode_kernel<D, FORM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   dim3 grid(KH, B);
-  flash_decode_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(positions),
-      static_cast<__nv_bfloat16*>(out), S, H, KH, G, slot_stride, scale,
-      softcap, window);
+  flash_decode_kernel<D, FORM><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(positions), static_cast<__nv_bfloat16*>(out), S,
+      H, KH, G, slot_stride, scale_slot_stride, scale, softcap, window);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_form(int form, const void* q, const void* k, const void* v,
+                        const void* k_scale, const void* v_scale,
+                        const void* positions, void* out, int B, int S, int H,
+                        int KH, long long slot_stride,
+                        long long scale_slot_stride, float scale,
+                        float softcap, int window, cudaStream_t stream) {
+  switch (form) {
+    case RAW:
+      return launch<D, RAW>(q, k, v, k_scale, v_scale, positions, out, B, S, H,
+                            KH, slot_stride, scale_slot_stride, scale, softcap,
+                            window, stream);
+    case INT8:
+      return launch<D, INT8>(q, k, v, k_scale, v_scale, positions, out, B, S,
+                             H, KH, slot_stride, scale_slot_stride, scale,
+                             softcap, window, stream);
+    case INT4:
+      return launch<D, INT4>(q, k, v, k_scale, v_scale, positions, out, B, S,
+                             H, KH, slot_stride, scale_slot_stride, scale,
+                             softcap, window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int flash_decode_attention_bf16(
-    const void* q, const void* k, const void* v, const void* positions,
-    void* out, int B, int S, int H, int KH, int D, long long slot_stride,
-    float scale, float softcap, int window, void* stream) {
+// S is the view's token count (for int4 the byte planes hold S/2 rows);
+// slot_stride is in cache elements (bf16 for raw, bytes for int8/int4),
+// scale_slot_stride in floats; form 0 raw, 1 int8, 2 int4.
+extern "C" int flash_decode_attention_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* positions, void* out, int B, int S,
+    int H, int KH, int D, long long slot_stride, long long scale_slot_stride,
+    int form, float scale, float softcap, int window, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || H / KH > MAX_G ||
-      window <= 0)
+      window <= 0 || form < RAW || form > INT4 || (form == INT4 && S % 2) ||
+      (form != RAW && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FDA_CASE(DD)                                                           \
+  case DD:                                                                     \
+    return static_cast<int>(launch_form<DD>(                                   \
+        form, q, k, v, k_scale, v_scale, positions, out, B, S, H, KH,          \
+        slot_stride, scale_slot_stride, scale, softcap, window, s));
   switch (D) {
-    case 16:
-      return static_cast<int>(launch<16>(q, k, v, positions, out, B, S, H, KH,
-                                         slot_stride, scale, softcap, window, s));
-    case 32:
-      return static_cast<int>(launch<32>(q, k, v, positions, out, B, S, H, KH,
-                                         slot_stride, scale, softcap, window, s));
-    case 64:
-      return static_cast<int>(launch<64>(q, k, v, positions, out, B, S, H, KH,
-                                         slot_stride, scale, softcap, window, s));
-    case 128:
-      return static_cast<int>(launch<128>(q, k, v, positions, out, B, S, H, KH,
-                                          slot_stride, scale, softcap, window, s));
-    case 256:
-      return static_cast<int>(launch<256>(q, k, v, positions, out, B, S, H, KH,
-                                          slot_stride, scale, softcap, window, s));
+    FDA_CASE(16)
+    FDA_CASE(32)
+    FDA_CASE(64)
+    FDA_CASE(128)
+    FDA_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FDA_CASE
 }
 
 extern "C" const char* flash_decode_attention_error_string(int err) {

@@ -1,8 +1,9 @@
 """The inference engine: prefill waves, chunked prefill segments and
 pipelined decode bursts over a slot-batched KV cache, in PyTorch (port of
 p2p_llm_tunnel_tpu/engine/engine.py: the serve CLI's default engine —
-mux, prefix pool and conversation cache — and the plain non-mux loop, at
-raw bf16/fp32 KV).
+mux, prefix pool and conversation cache — and the plain non-mux loop, with
+a raw, int8 or packed-int4 KV cache and the unfused or fused decode
+layer).
 
 Continuous batching as in the reference: the KV cache has ``num_slots``
 fixed rows plus one scratch row; every decode burst runs ``steps`` decode
@@ -16,7 +17,10 @@ segment rows (``scheduler.MuxController``), and with the prefix cache a
 shared not-yet-pooled prefix is prefilled once by its first requester while
 later ones park and fan out from the pool (``engine/prefix_cache.py``).
 ``ragged_prefill`` routes every chunk dispatch through the ragged grouped
-kernel instead (``ragged_prefill_into_cache``).
+kernel instead (``ragged_prefill_into_cache``); ``kv_quant`` stores the KV
+cache (and the pool's pages) as int8 or packed int4 with per-(token, head)
+scales; ``fused_decode_layer`` runs each decode layer's attention
+sub-block as one kernel-4 launch.
 
 Async contract (unchanged): ``generate()`` yields TokenEvents as bursts
 land; requests admit/evict between bursts; every tensor operation runs on
@@ -125,6 +129,8 @@ class EngineConfig:
     ``ragged_prefill`` keeps its reference meaning: it routes every chunk
     dispatch through the ragged grouped kernel; off, chunk dispatches run
     ``chunk_prefill_into_cache``'s einsum attention on either device.
+    ``kv_quant`` ("none" | "int8" | "int4") and ``fused_decode_layer``
+    keep theirs too (the cache's storage form; kernel 4 for decode).
     """
 
     model: str = "tiny"
@@ -177,11 +183,9 @@ class EngineConfig:
 
 #: knob -> (values that mean "off", ROADMAP.md port-queue item)
 _UNPORTED = {
-    "quant": (("none", ""), "quantized weights and KV"),
-    "kv_quant": (("none", ""), "quantized weights and KV"),
-    "prefill_act_quant": ((False,), "quantized weights and KV"),
+    "quant": (("none", ""), "weight quantization"),
+    "prefill_act_quant": ((False,), "weight quantization"),
     "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
-    "fused_decode_layer": ((False,), "fused decode layer (kernel 4)"),
     "spec_ngram": ((0,), "spec decode (kernel 5)"),
     "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
     "role": (("both",), "spill tier, snapshots and KV_PAGES"),
@@ -285,6 +289,11 @@ class InferenceEngine:
         self.mcfg = model_cfg or get_config(
             self.ecfg.model, vocab_size=self.tokenizer.vocab_size
         )
+        if self.ecfg.kv_quant not in ("none", "", "int8", "int4"):
+            raise ValueError(f"unknown kv_quant mode {self.ecfg.kv_quant!r}")
+        # One-directional promotion into the model config, as the reference.
+        if self.ecfg.fused_decode_layer and not self.mcfg.fused_decode_layer:
+            self.mcfg = dc_replace(self.mcfg, fused_decode_layer=True)
         dtype = _DTYPES[self.ecfg.dtype]
         if params is None:
             log.info("initialising random params for %s on %s",
@@ -298,6 +307,7 @@ class InferenceEngine:
         rows = b + 1
         self._scratch_slot = b
         self.kv_cache = init_kv_cache(self.mcfg, rows, s, dtype,
+                                      quant=self.ecfg.kv_quant,
                                       device=self.device)
         self.scheduler = Scheduler(
             b, s, max_waiting=self.ecfg.max_waiting,
@@ -334,7 +344,9 @@ class InferenceEngine:
                 self.ecfg,
                 prefill_chunk=max(self.ecfg.min_prefill_bucket, min(128, s)),
             )
+        self._align_int4_pages()
         self._init_ragged_geometry()
+        self._gate_fused_decode()
 
         # Prefix cache: host index + device block pool + batched copy ops.
         self._prefix: Optional[PrefixIndex] = None
@@ -1742,6 +1754,53 @@ class InferenceEngine:
             per_row = -(-per_row // bq) * bq
             self._ragged_tot = self.ecfg.prefill_rows * per_row
             self._ragged_row_blocks = per_row // bq
+
+    def _align_int4_pages(self) -> None:
+        """The packed int4 page-alignment pass, AFTER the mux default so the
+        effective segment width is what gets rounded (the reference's): an
+        odd ``prefill_chunk`` rounds up to even, and an odd pool page
+        fences the prefix cache — packed segment writes and page copies
+        must cover whole bytes."""
+        if self.ecfg.kv_quant != "int4":
+            return
+        from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
+            INT4_PACK_TOKENS,
+            page_alignment_violations,
+        )
+
+        chunk = self.ecfg.prefill_chunk
+        if chunk % INT4_PACK_TOKENS:
+            fixed = chunk + INT4_PACK_TOKENS - chunk % INT4_PACK_TOKENS
+            log.info("rounding prefill_chunk %d up to %d: packed int4 KV "
+                     "segments must be page-aligned", chunk, fixed)
+            self.ecfg = dc_replace(self.ecfg, prefill_chunk=fixed)
+        if self.ecfg.prefix_cache:
+            for why in page_alignment_violations(
+                    "int4", self.ecfg.min_prefill_bucket,
+                    self.ecfg.prefill_chunk):
+                self._fence("prefix_cache", False, why)
+
+    def _gate_fused_decode(self) -> None:
+        """On the card, fence the fused decode layer when the model's head
+        geometry has no kernel-4 instance (the TPU's % 128 tiling gates do
+        not apply here)."""
+        from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
+            _MAX_GROUP,
+            _SUPPORTED_D,
+        )
+
+        cfg = self.mcfg
+        if not (self.ecfg.fused_decode_layer and self.device.type == "cuda"):
+            return
+        group = cfg.n_heads // cfg.n_kv_heads
+        if cfg.head_dim not in _SUPPORTED_D or group > _MAX_GROUP:
+            self._fence(
+                "fused_decode_layer", False,
+                f"head_dim {cfg.head_dim} / {group} query heads per KV head "
+                f"is not a geometry the fused decode kernel is built for "
+                f"(head_dim {_SUPPORTED_D}, <= {_MAX_GROUP} per KV head)",
+            )
+            self.mcfg = dc_replace(self.mcfg, fused_decode_layer=False)
 
     def _fence(self, knob: str, off, reason: str) -> None:
         """Auto-disable ``knob`` and RECORD it in ``config_fences`` (the

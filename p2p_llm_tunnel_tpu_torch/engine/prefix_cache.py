@@ -15,12 +15,13 @@ numpy in place of ``jnp``; its operation sequences, evictions and plans
 are identical (tests/test_torch_prefix_cache.py drives both with the same
 random sequences).  The device half is plain tensor indexing: one batched
 in-place indexed copy per ``prefill_rows``-wide sub-batch, pad rows going
-to pool block 0 (never matched) or repeating a real row.
+to pool block 0 (never matched) or repeating a real row.  Quantized
+caches pool every leaf, scale planes included; the packed int4 value
+planes move in half-size byte pages.
 
 Not ported yet (ROADMAP.md, port queue: spill tier, snapshots and
 KV_PAGES): the host-RAM spill tier, pool snapshots and page pins.  The
-engine refuses the knobs that would need them; quantized (int8/int4)
-caches raise ``NotPorted`` here.
+engine refuses the knobs that would need them.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
 
 
 class _Entry:
@@ -359,22 +358,33 @@ def pad_ids(
 
 
 def pool_packed_keys(kv_cache: Dict[str, torch.Tensor]) -> frozenset:
-    """The cache leaves whose sequence axis is byte-packed: none for the
-    raw caches this port holds (a quantized cache raises)."""
-    if "k_scale" in kv_cache:
-        raise NotPorted("prefix pool over a quantized KV cache",
-                        "quantized weights and KV")
+    """The cache leaves whose sequence axis is BYTE-packed (two tokens per
+    byte — the ``kv_quant="int4"`` value planes, recognized as
+    ``transformer.kv_cache_quant_mode`` does).  Pages of these leaves are
+    ``block // 2`` bytes; everything else (scales, raw and int8 planes) is
+    ``block`` positions."""
+    if ("k_scale" in kv_cache
+            and kv_cache["k"].shape[2] * 2 == kv_cache["k_scale"].shape[2]):
+        return frozenset({"k", "v"})
     return frozenset()
 
 
 def init_pool(kv_cache: Dict[str, torch.Tensor], block: int,
               capacity: int) -> Dict[str, torch.Tensor]:
-    """Pool tensors mirroring the cache's dtypes and device: cache
-    ``[L, Slots, S, K, D]`` -> pool ``[L, capacity, block, K, D]``."""
-    pool_packed_keys(kv_cache)
+    """Pool tensors mirroring the cache's leaves, dtypes and device: cache
+    ``[L, Slots, S, ...]`` -> pool ``[L, capacity, block, ...]``, scale
+    planes included; packed int4 value leaves store ``block // 2`` BYTES
+    per page (``block`` must be even under int4 — the page alignment the
+    engine enforces)."""
+    packed = pool_packed_keys(kv_cache)
+    if packed and block % 2:
+        raise ValueError(
+            f"packed int4 pool pages must be even-sized, got block={block}"
+        )
     return {
-        key: torch.zeros((arr.shape[0], capacity, block) + tuple(arr.shape[3:]),
-                         dtype=arr.dtype, device=arr.device)
+        key: torch.zeros(
+            (arr.shape[0], capacity, block // 2 if key in packed else block)
+            + tuple(arr.shape[3:]), dtype=arr.dtype, device=arr.device)
         for key, arr in kv_cache.items()
     }
 
@@ -385,17 +395,19 @@ def make_batch_copy_ops(block: int, max_blocks: int, rows: int,
     ``rows`` requests' blocks (per-request copies were the reference's
     measured TTFT regression).  Both update their first argument IN PLACE
     and return it; index arrays are the fixed [R] / [R, Nmax] shapes of
-    :func:`pad_rows` (numpy or tensors)."""
-    if packed_keys:
-        raise NotPorted("packed int4 pool pages", "quantized weights and KV")
+    :func:`pad_rows` (numpy or tensors).  ``packed_keys`` leaves (the int4
+    value planes) move in ``block // 2``-byte page units — pages start on
+    whole bytes by the page alignment, so packed copies are plain indexed
+    copies too."""
 
     def _idx(x, device):
         return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                                else x, device=device).to(torch.long)
 
-    def _pos(blk_nos):  # [R, Nmax] -> [R, Nmax*block] cache positions
-        offs = torch.arange(block, device=blk_nos.device)
-        return (blk_nos[:, :, None] * block + offs).reshape(rows, -1)
+    def _pos(key, blk_nos):  # [R, Nmax] -> [R, Nmax*unit] cache rows
+        unit = block // 2 if key in packed_keys else block
+        offs = torch.arange(unit, device=blk_nos.device)
+        return (blk_nos[:, :, None] * unit + offs).reshape(rows, -1)
 
     def blocks_to_cache(cache, pool, slots, pool_ids, blk_nos):
         """cache[slots[r]] positions [blk_nos[r,i]*B, +B) <- pool[pool_ids[r,i]].
@@ -403,8 +415,8 @@ def make_batch_copy_ops(block: int, max_blocks: int, rows: int,
         bytes, so their order cannot matter."""
         dev = next(iter(cache.values())).device
         slots, pool_ids, blk_nos = (_idx(a, dev) for a in (slots, pool_ids, blk_nos))
-        pos = _pos(blk_nos)
         for key, arr in cache.items():
+            pos = _pos(key, blk_nos)
             vals = pool[key][:, pool_ids]  # [L, R, Nmax, B, ...]
             flat = vals.reshape((vals.shape[0], rows, pos.shape[1])
                                 + tuple(vals.shape[4:]))
@@ -417,11 +429,11 @@ def make_batch_copy_ops(block: int, max_blocks: int, rows: int,
         (plan_inserts guarantees it)."""
         dev = next(iter(pool.values())).device
         slots, pool_ids, blk_nos = (_idx(a, dev) for a in (slots, pool_ids, blk_nos))
-        pos = _pos(blk_nos)
         flat_ids = pool_ids.reshape(-1)
         for key, arr in pool.items():
-            vals = cache[key][:, slots[:, None], pos]  # [L, R, Nmax*B, ...]
-            vals = vals.reshape((vals.shape[0], rows * max_blocks, block)
+            pos = _pos(key, blk_nos)
+            vals = cache[key][:, slots[:, None], pos]  # [L, R, Nmax*unit, ...]
+            vals = vals.reshape((vals.shape[0], rows * max_blocks, arr.shape[2])
                                 + tuple(vals.shape[3:]))
             arr[:, flat_ids] = vals
         return pool

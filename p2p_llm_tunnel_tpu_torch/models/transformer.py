@@ -1,11 +1,14 @@
 """Decoder-only transformer (llama/gemma families) in plain PyTorch — the
 port of p2p_llm_tunnel_tpu/models/transformer.py, the subset the serve
 CLI's default engine (mux, prefix pool, conversation cache) and the plain
-non-mux loop run: random init, the raw ``[L, B, S, K, D]`` KV cache,
-prefill (whole prompts, batched), tail prefill against reused history
-(``chunk_prefill_into_cache``, einsum attention as in the reference), the
-ragged grouped tail prefill (``ragged_prefill_into_cache``, one kernel-6
-launch per layer) and one-token-per-slot decode.
+non-mux loop run: random init, the ``[L, B, S, K, D]`` KV cache (raw, int8
+with per-(token, head) scales, or int4 packed two tokens per byte along
+the sequence axis), prefill (whole prompts, batched), tail prefill against
+reused history (``chunk_prefill_into_cache``, einsum attention as in the
+reference), the ragged grouped tail prefill (``ragged_prefill_into_cache``,
+one kernel-6 launch per layer) and one-token-per-slot decode, unfused
+(kernel 2) or through the fused decode layer (kernel 4, one launch per
+layer).
 
 Idiom differences from the JAX reference, all deliberate:
 
@@ -21,7 +24,11 @@ Idiom differences from the JAX reference, all deliberate:
   ``chunk_prefill_into_cache`` runs ``ops/attention.history_attention`` on
   either device, as the reference runs einsum attention there.
   ``ModelConfig.flash``/``flash_decode`` pick between XLA and Pallas on a
-  TPU and choose nothing here.
+  TPU and choose nothing here; ``fused_decode_layer`` picks kernel 4 over
+  kernel 2 for decode (``ops/fused_decode``), on the card and, as its
+  plain version, on the CPU.
+- quantized KV writes are plain torch ops (the reference's are XLA ops
+  outside any Pallas kernel) through ``models/quant``'s whole-byte helpers.
 
 Knobs of the reference the port does not run yet raise ``NotPorted`` (a
 NotImplementedError) naming their ROADMAP.md port-queue item.
@@ -37,15 +44,28 @@ import torch
 import torch.nn.functional as F
 
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig
+from p2p_llm_tunnel_tpu_torch.models.quant import (
+    _quantize_act,
+    append_packed_token,
+    quantize_sym,
+    write_packed_chunk,
+    write_packed_prefix,
+)
 from p2p_llm_tunnel_tpu_torch.ops.attention import history_attention
-from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
+from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
+    dequant_f32,
+    flash_decode_attention,
+)
 from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
+from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fused_decode_layer, rope_rows
 from p2p_llm_tunnel_tpu_torch.ops.norms import rms_norm
 from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
 from p2p_llm_tunnel_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, object]
-KVCache = Dict[str, torch.Tensor]  # {'k','v': [L, B, S, K, D]}
+#: {'k','v': [L, B, S, K, D]} raw or int8, [L, B, S/2, K, D] packed int4;
+#: quantized caches add {'k_scale','v_scale': [L, B, S, K]} f32.
+KVCache = Dict[str, torch.Tensor]
 
 
 class NotPorted(NotImplementedError):
@@ -79,17 +99,10 @@ def resolve_device(device=None) -> torch.device:
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
     if cfg.n_experts:
         raise NotPorted("mixture-of-experts (n_experts)", "checkpoints and MoE")
-    if cfg.fused_decode_layer:
-        raise NotPorted("fused_decode_layer", "fused decode layer (kernel 4)")
     if cfg.act_quant:
-        raise NotPorted("act_quant (w8a8)", "quantized weights and KV")
+        raise NotPorted("act_quant (w8a8)", "weight quantization")
     if mesh is not None:
         raise NotPorted("device meshes (tp/sp/ep)", "parallel/")
-
-
-def _check_cache(kv_cache: KVCache) -> None:
-    if "k_scale" in kv_cache:
-        raise NotPorted("quantized KV caches", "quantized weights and KV")
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +185,7 @@ def params_from_numpy(tree, device, dtype=torch.bfloat16) -> Params:
     if not isinstance(tree, np.ndarray):
         raise NotPorted(
             f"params leaf of type {type(tree).__name__} (quantized weights?)",
-            "quantized weights and KV",
+            "weight quantization",
         )
     arr = np.ascontiguousarray(tree.astype(np.float32))
     return torch.from_numpy(arr).to(device=torch.device(device), dtype=dtype)
@@ -182,15 +195,83 @@ def init_kv_cache(
     cfg: ModelConfig, num_slots: int, max_seq: int, dtype=torch.bfloat16,
     quant=False, device=None,
 ) -> KVCache:
-    """Raw slot cache ``{'k', 'v': [L, num_slots, max_seq, K, D]}``."""
-    if quant not in (False, None, "none", ""):
-        raise NotPorted(f"KV cache quant={quant!r}", "quantized weights and KV")
+    """Slot cache; ``quant`` selects the storage precision, as in the
+    reference: none -> ``{'k','v': [L, num_slots, max_seq, K, D]}`` in
+    ``dtype``; ``True``/``"int8"`` -> int8 values plus f32 ``k_scale`` /
+    ``v_scale`` ``[L, num_slots, max_seq, K]``; ``"int4"`` -> two adjacent
+    tokens per int8 byte along the sequence axis, ``[L, num_slots,
+    max_seq/2, K, D]``, with the same full-resolution scales (``max_seq``
+    must be even)."""
+    modes = {False: None, True: "int8", None: None, "none": None, "": None,
+             "int8": "int8", "int4": "int4"}
+    if quant not in modes:
+        raise ValueError(
+            f"unknown KV quant mode {quant!r}; expected one of "
+            "False/True/None/'none'/'int8'/'int4'"
+        )
+    mode = modes[quant]
     dev = resolve_device(device)
     shape = (cfg.n_layers, num_slots, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    if mode is None:
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+        }
+    if mode == "int4":
+        if max_seq % 2:
+            raise ValueError(f"int4 KV cache needs an even max_seq, got {max_seq}")
+        shape_v = shape[:2] + (max_seq // 2,) + shape[3:]
+    else:
+        shape_v = shape
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "k": torch.zeros(shape_v, dtype=torch.int8, device=dev),
+        "v": torch.zeros(shape_v, dtype=torch.int8, device=dev),
+        "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+        "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
     }
+
+
+def kv_cache_is_quantized(kv_cache: KVCache) -> bool:
+    return "k_scale" in kv_cache
+
+
+def kv_cache_quant_mode(kv_cache: KVCache) -> Optional[str]:
+    """None | "int8" | "int4" — int4 is recognized by its byte-packed
+    sequence axis (half the scale plane's)."""
+    if "k_scale" not in kv_cache:
+        return None
+    if kv_cache["k"].shape[2] * 2 == kv_cache["k_scale"].shape[2]:
+        return "int4"
+    return "int8"
+
+
+def _seq_len(kv_cache: KVCache) -> int:
+    """Token positions per slot row (the int4 value planes hold half as
+    many bytes)."""
+    return kv_cache["k"].shape[2] * (2 if kv_cache_quant_mode(kv_cache) == "int4" else 1)
+
+
+def _quant_kv(x: torch.Tensor):
+    """Symmetric int8 over the trailing head_dim axis -> (q, scale): the
+    activation-quant formula (models/quant._quantize_act)."""
+    q, scale = _quantize_act(x)
+    return q, scale[..., 0]
+
+
+def _quant_kv4(x: torch.Tensor):
+    """Symmetric int4 over the trailing head_dim axis -> (values in [-7, 7]
+    as int8 — callers pack — and the per-(token, head) scale).  The formula
+    the fused decode and ragged prefill kernels apply to their new rows."""
+    q, scale = quantize_sym(x, 7.0)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def _write_rows(plane: torch.Tensor, rows, pos, inside, new) -> None:
+    """``plane[rows, pos] = new`` IN PLACE where ``inside``, else the old
+    value written back (the caller clamps ``pos`` into the plane)."""
+    old = plane[rows, pos]
+    mask = inside.reshape(inside.shape + (1,) * (new.dim() - inside.dim()))
+    plane[rows, pos] = torch.where(mask, new.to(plane.dtype), old)
 
 
 # ---------------------------------------------------------------------------
@@ -352,17 +433,33 @@ def prefill_into_cache(
 
     With ``return_prompt_logprobs`` additionally returns [Bp, T] log-probs
     of each prompt token given its prefix (entry 0 is 0.0), the echo path.
+
+    A quantized cache stores each layer's K/V quantized after that layer's
+    attention (which reads the unquantized prompt K/V, as the reference's
+    does); int4 pads an odd width with one zero position so the packed
+    write covers whole bytes — a position past the prompt that decode
+    overwrites before it is attendable.
     """
     _check_model(cfg, mesh)
-    _check_cache(kv_cache)
     b, t = tokens.shape
-    s_max = kv_cache["k"].shape[2]
+    mode = kv_cache_quant_mode(kv_cache)
     valid = torch.arange(t, device=tokens.device)[None, :] < lengths[:, None]
-    t_w = min(t, s_max)
+    t_w = min(t, _seq_len(kv_cache))
+    slot_idx = slots.to(torch.long)
 
     def store(idx, k, v):
-        kv_cache["k"][idx, slots, :t_w] = k[:, :t_w]
-        kv_cache["v"][idx, slots, :t_w] = v[:, :t_w]
+        for name, new in (("k", k[:, :t_w]), ("v", v[:, :t_w])):
+            if mode is None:
+                kv_cache[name][idx, slot_idx, :t_w] = new
+                continue
+            vals, sc = (_quant_kv4 if mode == "int4" else _quant_kv)(new)
+            kv_cache[name + "_scale"][idx, slot_idx, :t_w] = sc
+            if mode == "int8":
+                kv_cache[name][idx, slot_idx, :t_w] = vals
+                continue
+            if t_w % 2:
+                vals = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
+            write_packed_prefix(kv_cache[name][idx:idx + 1], slot_idx, vals[None])
 
     x = _embed(cfg, params, tokens)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid, store_kv=store)
@@ -409,29 +506,59 @@ def chunk_prefill_into_cache(
     fault on CUDA, so they rewrite the row's own old value at ``pos - T``
     instead — a history position no real write of this call touches, and
     distinct for each such pad.  Returns last-real-tail-token logits
-    ``[Bp, V]`` and the (same, updated) cache."""
+    ``[Bp, V]`` and the (same, updated) cache.
+
+    Quantized caches: the tail is quantized and written (int4 as whole
+    bytes — every start and the padded width ``T`` must be even, which the
+    engine's page alignment guarantees), then the view is read back
+    dequantized through f32 into the activation dtype before attention,
+    exactly as the reference reads it."""
     _check_model(cfg)
-    _check_cache(kv_cache)
     b, t = tokens.shape
-    s = kv_cache["k"].shape[2]
+    mode = kv_cache_quant_mode(kv_cache)
+    if mode == "int4" and t % 2:
+        raise ValueError(
+            f"packed int4 chunk prefill needs an even (page-aligned) tail "
+            f"width, got {t}; the engine pads tails to even buckets"
+        )
+    s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
     x = _embed(cfg, params, tokens)
     pos = starts.to(torch.long)[:, None] + torch.arange(t, device=tokens.device)[None, :]
-    in_cache = (pos < s)[:, :, None, None]
+    in_cache = pos < s
     write_pos = torch.where(pos < s, pos, pos - t)
     slot_idx = slots.to(torch.long)
     rows = slot_idx[:, None]  # [Bp,1] broadcasts against [Bp,T]
+    view_rows = kv_view // 2 if mode == "int4" else kv_view
+    if mode == "int4":
+        bpos = starts.to(torch.long)[:, None] // 2 + torch.arange(
+            t // 2, device=tokens.device)[None, :]
     for idx in range(cfg.n_layers):
         blk = _layer(params["blocks"], idx)
         q, k, v = _qkv(cfg, blk, _norm(cfg, x, blk["attn_norm"]), pos)
         for name, new in (("k", k), ("v", v)):
-            plane = kv_cache[name][idx]  # [B, S, K, D] view of the cache
-            old = plane[rows, write_pos]
-            plane[rows, write_pos] = torch.where(in_cache, new, old)
+            if mode is None:
+                _write_rows(kv_cache[name][idx], rows, write_pos, in_cache, new)
+                continue
+            vals, sc = (_quant_kv4 if mode == "int4" else _quant_kv)(new)
+            _write_rows(kv_cache[name + "_scale"][idx], rows, write_pos,
+                        in_cache, sc)
+            if mode == "int4":
+                write_packed_chunk(kv_cache[name], idx, rows, bpos, vals)
+            else:
+                _write_rows(kv_cache[name][idx], rows, write_pos, in_cache, vals)
+        k_all = kv_cache["k"][idx, :, :view_rows][slot_idx]
+        v_all = kv_cache["v"][idx, :, :view_rows][slot_idx]
+        if mode is not None:
+            # Dequantized through f32 into the activation dtype, as the
+            # reference's chunk path reads a quantized view.
+            k_all = dequant_f32(k_all, kv_cache["k_scale"][idx, :, :kv_view][slot_idx],
+                                mode).to(x.dtype)
+            v_all = dequant_f32(v_all, kv_cache["v_scale"][idx, :, :kv_view][slot_idx],
+                                mode).to(x.dtype)
         attn = history_attention(
-            q, kv_cache["k"][idx, :, :kv_view][slot_idx],
-            kv_cache["v"][idx, :, :kv_view][slot_idx], starts,
+            q, k_all, v_all, starts,
             scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, kv_view),
         )
@@ -461,18 +588,20 @@ def ragged_prefill_into_cache(
     device; the planner has checked them against the alignment contract.
 
     Returns the logits of each row's ``sample_idx`` token ``[R, V]`` (or
-    ``[TOT, V]`` with ``return_all_logits``) and the updated cache."""
+    ``[TOT, V]`` with ``return_all_logits``) and the updated cache.  A
+    quantized cache's scale planes ride along: the kernel quantizes each
+    appended row and writes its scale beside it."""
     _check_model(cfg)
-    _check_cache(kv_cache)
     descs = (slot_of, start_of, qoff_of, base_of)
-    tot = tokens.shape[0]
-    s = kv_cache["k"].shape[2]
+    s = _seq_len(kv_cache)
     x = _embed(cfg, params, tokens[None])  # [1, TOT, Dm]
     for idx in range(cfg.n_layers):
         blk = _layer(params["blocks"], idx)
         q, k, v = _qkv_proj(cfg, blk, _norm(cfg, x, blk["attn_norm"]))
         attn = ragged_prefill_attention(
             q[0], k[0], v[0], kv_cache["k"], kv_cache["v"], *descs, idx,
+            k_scale=kv_cache.get("k_scale"), v_scale=kv_cache.get("v_scale"),
+            kv_quant=kv_cache_quant_mode(kv_cache),
             block_q=block_q, rope_theta=cfg.rope_theta,
             scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, s),
@@ -506,29 +635,65 @@ def decode_step(
     their own old row back at a clamped position instead, on the device,
     with no host sync.  ``kv_view`` bounds how much of the cache attention
     reads (the engine's power-of-two buckets); writes target the full
-    cache."""
+    cache.
+
+    With ``cfg.fused_decode_layer`` each layer's attention sub-block —
+    rope of q and the new k, the new row's quantization, its in-place
+    append and the attention — is ONE ``fused_decode_layer`` call on the
+    pre-rope projections (kernel 4); otherwise the new row is roped,
+    quantized and written here and ``flash_decode_attention`` (kernel 2,
+    in the cache's form) reads the ``[:, :kv_view]`` view in place."""
     _check_model(cfg, mesh)
-    _check_cache(kv_cache)
     b = tokens.shape[0]
-    s = kv_cache["k"].shape[2]
+    mode = kv_cache_quant_mode(kv_cache)
+    s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
     x = _embed(cfg, params, tokens[:, None])  # [B,1,Dm]
+    if cfg.fused_decode_layer:
+        rope = rope_rows(positions, cfg.head_dim, cfg.rope_theta)  # one per step
+        for idx in range(cfg.n_layers):
+            blk = _layer(params["blocks"], idx)
+            q, k, v = _qkv_proj(cfg, blk, _norm(cfg, x, blk["attn_norm"]))
+            attn = fused_decode_layer(
+                q[:, 0], k[:, 0], v[:, 0], kv_cache["k"], kv_cache["v"],
+                kv_cache.get("k_scale"), kv_cache.get("v_scale"), positions,
+                idx, kv_view=kv_view, rope_theta=cfg.rope_theta,
+                kv_quant=mode, scale=cfg.query_scale,
+                softcap=cfg.attn_softcap, window=_layer_window(cfg, idx, s),
+                rope=rope,
+            )
+            x = _block_tail(cfg, blk, x, attn[:, None])
+        x = _norm(cfg, x, params["final_norm"])
+        return _logits(cfg, params, x)[:, 0], kv_cache
     pos2d = positions[:, None]
-    in_cache = (positions < s)[:, None, None]
+    in_cache = positions < s
     write_pos = positions.clamp(max=s - 1).to(torch.long)
     slot_ids = torch.arange(b, device=tokens.device)
+    view_rows = kv_view // 2 if mode == "int4" else kv_view
     for idx in range(cfg.n_layers):
         blk = _layer(params["blocks"], idx)
         q, k, v = _qkv(cfg, blk, _norm(cfg, x, blk["attn_norm"]), pos2d)
         for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
-            plane = kv_cache[name][idx]  # [B, S, K, D] view of the cache
-            old = plane[slot_ids, write_pos]
-            plane[slot_ids, write_pos] = torch.where(in_cache, new, old)
+            if mode is None:
+                _write_rows(kv_cache[name][idx], slot_ids, write_pos, in_cache, new)
+                continue
+            vals, sc = (_quant_kv4 if mode == "int4" else _quant_kv)(new)
+            _write_rows(kv_cache[name + "_scale"][idx], slot_ids, write_pos,
+                        in_cache, sc)
+            if mode == "int4":
+                append_packed_token(kv_cache[name], idx, slot_ids, positions, vals)
+            else:
+                _write_rows(kv_cache[name][idx], slot_ids, write_pos, in_cache, vals)
+        scales = {}
+        if mode is not None:
+            scales = dict(k_scale=kv_cache["k_scale"][idx, :, :kv_view],
+                          v_scale=kv_cache["v_scale"][idx, :, :kv_view],
+                          kv_quant=mode)
         attn = flash_decode_attention(
-            q, kv_cache["k"][idx, :, :kv_view], kv_cache["v"][idx, :, :kv_view],
+            q, kv_cache["k"][idx, :, :view_rows], kv_cache["v"][idx, :, :view_rows],
             positions, scale=cfg.query_scale, softcap=cfg.attn_softcap,
-            window=_layer_window(cfg, idx, s),
+            window=_layer_window(cfg, idx, s), **scales,
         )
         x = _block_tail(cfg, blk, x, attn)
     x = _norm(cfg, x, params["final_norm"])

@@ -1,6 +1,6 @@
 """Compute ops: rope, norms, plain attention, and the Hopper attention
-kernels (``flash_attention``, ``decode_attention``, ``prefill_attention``;
-sources in ``csrc/``)."""
+kernels (``flash_attention``, ``decode_attention``, ``fused_decode``,
+``prefill_attention``; sources in ``csrc/``)."""
 
 from p2p_llm_tunnel_tpu_torch.ops.rope import apply_rope, rope_table
 from p2p_llm_tunnel_tpu_torch.ops.norms import rms_norm

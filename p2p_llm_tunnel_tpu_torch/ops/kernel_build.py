@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` at the root of the checkout, then loaded with
-``ctypes``.  Libraries are keyed by a digest of the source and the flags,
-so an edited source rebuilds and a stale library is never loaded.
+``ctypes``.  Libraries are keyed by a digest of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and a stale library is never loaded.
 
 Nothing here runs at import time: the first launch of a kernel builds it
 (``load``), and ``build`` compiles several sources at once, one ``nvcc``
@@ -31,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_causal_attention": "flash_causal_attention.cu",
     "flash_decode_attention": "flash_decode_attention.cu",
+    "fused_decode_layer": "fused_decode_layer.cu",
     "ragged_prefill_attention": "ragged_prefill_attention.cu",
 }
 
@@ -67,8 +69,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / KERNEL_SOURCES[name]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

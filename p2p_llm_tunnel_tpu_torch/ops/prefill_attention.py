@@ -1,6 +1,6 @@
 """Ragged grouped prefill attention: the Hopper counterpart of
 p2p_llm_tunnel_tpu/ops/pallas_prefill_attention.py
-``ragged_prefill_attention`` in its raw-KV form.
+``ragged_prefill_attention`` in its raw, int8 and packed-int4 KV forms.
 
 One launch per layer covers a whole admission group.  The group's
 variable-length tail segments are flat-packed along one token axis — row
@@ -19,8 +19,19 @@ writes the cache and runs ``ops/attention.history_attention`` over the
 cache row.  The wrapper runs the plain version for tensors on the CPU, and
 only because they lie on the CPU; for CUDA tensors it launches the kernel
 or raises.  Both take RoPE from one ``ops/rope.rope_table`` table, so they
-agree on it exactly.  The int8/int4 cache forms of the TPU kernel are not
-ported yet (ROADMAP.md).
+agree on it exactly.
+
+Quantized caches (``kv_quant="int8"``: int8 ``[L, B, S, K, D]``;
+``"int4"``: ``[L, B, S/2, K, D]`` bytes, token 2i in the low nibble of byte
+i; both with f32 ``[L, B, S, K]`` scales), following the Pallas body's
+rounding points, which differ from kernels 2 and 4:
+- history is dequantized in f32 and then rounded through the activation
+  dtype (the chunk path's view read);
+- the tail's keys are quantized from their f32 rope (values from
+  ``v_new``), and attention uses the quantize -> dequantize roundtrip of
+  the tail, rounded through the activation dtype the same way;
+- the append writes whole bytes (every start and ``block_q`` are even
+  under int4) with the scales beside them.
 """
 
 from __future__ import annotations
@@ -31,8 +42,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from p2p_llm_tunnel_tpu_torch.models.quant import pack_int4, quantize_sym
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.attention import history_attention
+from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
+    INT4_PACK_TOKENS,
+    KV_FORMS,
+    _form,
+    dequant_f32,
+)
 from p2p_llm_tunnel_tpu_torch.ops.rope import rope_table
 
 _NAME = "ragged_prefill_attention"
@@ -120,13 +138,15 @@ def rope_tables(s: int, d: int, theta: float, device) -> Tuple[torch.Tensor, tor
     return tab
 
 
-def _rope_rows(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+def _rope_rows(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               dtype=None) -> torch.Tensor:
     """ops/rope.apply_rope's expression on rows ``x [N, heads, D]`` with
-    table rows ``sin/cos [N, D/2]``."""
+    table rows ``sin/cos [N, D/2]``, rounded to ``dtype`` (default: x's)."""
     s = sin[:, None, :]
     c = cos[:, None, :]
     x1, x2 = torch.chunk(x, 2, dim=-1)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype if dtype is None else dtype)
 
 
 def _rows_of(base_of: Sequence[int]) -> List[Tuple[int, int]]:
@@ -145,17 +165,20 @@ def _rows_of(base_of: Sequence[int]) -> List[Tuple[int, int]]:
 
 def ragged_prefill_plain(
     q, k_new, v_new, k_cache, v_cache, slot_of, start_of, qoff_of, base_of,
-    layer_idx, *, block_q: int = RAGGED_BLOCK_Q, rope_theta: float,
+    layer_idx, *, k_scale=None, v_scale=None, kv_quant=None,
+    block_q: int = RAGGED_BLOCK_Q, rope_theta: float,
     scale: Optional[float] = None, softcap: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version (same function, same layouts):
     per row, rope q and the tail K from the shared table, write the tail
-    K/V into ``cache[layer, slot, start:start+n]`` IN PLACE, and run
-    ``history_attention`` over the cache row.  Pad tokens of a row's last
-    block are part of its tail (causally after every real token)."""
+    K/V (quantized, for a quantized cache) into ``cache[layer, slot,
+    start:start+n]`` IN PLACE, and run ``history_attention`` over the cache
+    row (dequantized and rounded through q's dtype).  Pad tokens of a row's
+    last block are part of its tail (causally after every real token)."""
+    form = _form(k_scale, v_scale, kv_quant)
     tot, _, d = q.shape
-    s = k_cache.shape[2]
+    s = k_cache.shape[2] * (2 if form == "int4" else 1)
     layer = int(layer_idx)
     sin, cos = rope_tables(s, d, rope_theta, q.device)
     slots, starts, bases = (x.tolist() for x in (slot_of, start_of, base_of))
@@ -165,11 +188,27 @@ def ragged_prefill_plain(
         st, sl = int(starts[first]), int(slots[first])
         pos = torch.arange(st, st + n, device=q.device)
         qr = _rope_rows(q[t0:t0 + n], sin[pos], cos[pos])
-        kr = _rope_rows(k_new[t0:t0 + n], sin[pos], cos[pos])
-        k_cache[layer, sl, st:st + n] = kr
-        v_cache[layer, sl, st:st + n] = v_new[t0:t0 + n]
+        if form is None:
+            k_cache[layer, sl, st:st + n] = _rope_rows(k_new[t0:t0 + n], sin[pos], cos[pos])
+            v_cache[layer, sl, st:st + n] = v_new[t0:t0 + n]
+            k_row, v_row = k_cache[layer, sl], v_cache[layer, sl]
+        else:
+            qmax = 7.0 if form == "int4" else 127.0
+            kr = _rope_rows(k_new[t0:t0 + n], sin[pos], cos[pos], torch.float32)
+            for plane, scales, x in ((k_cache, k_scale, kr),
+                                     (v_cache, v_scale, v_new[t0:t0 + n].float())):
+                vals, sc = quantize_sym(x, qmax)
+                scales[layer, sl, st:st + n] = sc[..., 0]
+                if form == "int4":
+                    plane[layer, sl, st // 2:(st + n) // 2] = pack_int4(vals, axis=0)
+                else:
+                    plane[layer, sl, st:st + n] = vals.to(torch.int8)
+            k_row = dequant_f32(k_cache[layer, sl][None], k_scale[layer, sl][None],
+                                form)[0].to(q.dtype)
+            v_row = dequant_f32(v_cache[layer, sl][None], v_scale[layer, sl][None],
+                                form)[0].to(q.dtype)
         out[t0:t0 + n] = history_attention(
-            qr[None], k_cache[layer, sl][None], v_cache[layer, sl][None],
+            qr[None], k_row[None], v_row[None],
             torch.tensor([st], device=q.device),
             scale=scale, softcap=softcap, window=window,
         )[0]
@@ -182,16 +221,17 @@ plain = ragged_prefill_plain
 
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load(_NAME)
-    fn = lib.ragged_prefill_attention_bf16
+    fn = lib.ragged_prefill_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
 
 
-def _check_geometry(q, k_new, v_new, k_cache, v_cache, descs, block_q) -> None:
+def _check_geometry(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                    descs, block_q, form) -> None:
     if q.dim() != 3 or k_new.dim() != 3 or k_new.shape != v_new.shape:
         raise ValueError("ragged_prefill_attention takes q [TOT,H,D], k/v_new [TOT,K,D]")
     tot, h, d = q.shape
@@ -203,10 +243,19 @@ def _check_geometry(q, k_new, v_new, k_cache, v_cache, descs, block_q) -> None:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match k_new {tuple(k_new.shape)}")
     if tot % block_q:
         raise ValueError(f"flat length {tot} not a multiple of block_q {block_q}")
-    if k_cache.shape[2] % block_q:
+    if form == "int4" and block_q % INT4_PACK_TOKENS:
         raise ValueError(
-            f"max_seq {k_cache.shape[2]} is not a multiple of block_q "
+            f"packed int4 ragged prefill needs an even block_q, got "
+            f"{block_q} (two tokens share a byte)")
+    s = k_cache.shape[2] * (2 if form == "int4" else 1)
+    if s % block_q:
+        raise ValueError(
+            f"max_seq {s} is not a multiple of block_q "
             f"{block_q}: the cache-append blocks would overrun the cache")
+    if form is not None:
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(x.shape) != tuple(k_cache.shape[:2]) + (s, k_cache.shape[3]):
+                raise ValueError(f"{name} must be an [L,B,S,K] plane, got {tuple(x.shape)}")
     nqb = tot // block_q
     for x in descs:
         if tuple(x.shape) != (nqb,):
@@ -216,20 +265,27 @@ def _check_geometry(q, k_new, v_new, k_cache, v_cache, descs, block_q) -> None:
         raise ValueError(f"ragged prefill starts must be multiples of block_q {block_q}")
 
 
-def _check_kernel(q, k_new, v_new, k_cache, v_cache, descs) -> None:
+def _check_kernel(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                  descs, form) -> None:
     d = q.shape[2]
     if d not in _SUPPORTED_D:
         raise ValueError(f"ragged_prefill_attention kernel supports head_dim {_SUPPORTED_D}, got {d}")
-    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new),
-                    ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"ragged_prefill_attention kernel takes bfloat16 {name}, got {x.dtype}")
+    cache_dtype = torch.bfloat16 if form is None else torch.int8
+    tensors = [("q", q, torch.bfloat16), ("k_new", k_new, torch.bfloat16),
+               ("v_new", v_new, torch.bfloat16), ("k_cache", k_cache, cache_dtype),
+               ("v_cache", v_cache, cache_dtype)]
+    if form is not None:
+        tensors += [("k_scale", k_scale, torch.float32),
+                    ("v_scale", v_scale, torch.float32)]
+    for name, x, dtype in tensors:
+        if x.dtype != dtype:
+            raise TypeError(f"ragged_prefill_attention kernel takes {dtype} {name}, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"ragged_prefill_attention kernel needs a contiguous, 16-byte aligned {name}")
     for x in descs:
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("descriptor arrays must be contiguous int32 tensors")
-    devices = {x.device for x in (q, k_new, v_new, k_cache, v_cache, *descs)}
+    devices = {x.device for _, x, _ in tensors} | {x.device for x in descs}
     if len(devices) != 1:
         raise ValueError(f"ragged_prefill_attention inputs span devices {devices}")
 
@@ -246,6 +302,9 @@ def ragged_prefill_attention(
     base_of: torch.Tensor,
     layer_idx: int,
     *,
+    k_scale: Optional[torch.Tensor] = None,  # [L, B, S, K] f32 (quantized)
+    v_scale: Optional[torch.Tensor] = None,
+    kv_quant: Optional[str] = None,  # None | "int8" | "int4"
     block_q: int = RAGGED_BLOCK_Q,
     rope_theta: float,
     scale: Optional[float] = None,
@@ -254,43 +313,53 @@ def ragged_prefill_attention(
 ) -> torch.Tensor:
     """Ragged grouped prefill over one layer -> attention ``[TOT, H, D]``;
     the cache's ``[layer]`` plane gets each q-block's roped K and V rows
-    appended in place.  ``window`` is a per-layer Python int (None = no
-    window)."""
+    (quantized, with their scales, for a quantized cache) appended in
+    place.  ``window`` is a per-layer Python int (None = no window)."""
     descs = (slot_of, start_of, qoff_of, base_of)
-    _check_geometry(q, k_new, v_new, k_cache, v_cache, descs, block_q)
+    form = _form(k_scale, v_scale, kv_quant)
+    _check_geometry(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                    descs, block_q, form)
     if q.device.type == "cpu":
         return plain(q, k_new, v_new, k_cache, v_cache, *descs, layer_idx,
+                     k_scale=k_scale, v_scale=v_scale, kv_quant=form,
                      block_q=block_q, rope_theta=rope_theta, scale=scale,
                      softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_prefill_attention runs on cuda or cpu, not {q.device}")
-    _check_kernel(q, k_new, v_new, k_cache, v_cache, descs)
+    _check_kernel(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, descs, form)
     tot, h, d = q.shape
-    n_layers, b, s, kh, _ = k_cache.shape
+    n_layers, b, _, kh, _ = k_cache.shape
+    s = k_cache.shape[2] * (2 if form == "int4" else 1)
     layer = int(layer_idx)
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside the cache's {n_layers} layers")
     if scale is None:
         scale = d**-0.5
     sin, cos = rope_tables(s, d, rope_theta, q.device)
+    quantized = form is not None
     lib = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ragged_prefill_attention_bf16(
+        rc = lib.ragged_prefill_attention_launch(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(), sin.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None, sin.data_ptr(),
             cos.data_ptr(), slot_of.data_ptr(), start_of.data_ptr(),
             qoff_of.data_ptr(), base_of.data_ptr(), out.data_ptr(),
-            tot // block_q, h, kh, d, block_q, b, s, layer, float(scale),
-            0.0 if softcap is None else float(softcap),
+            tot // block_q, h, kh, d, block_q, b, s, layer, KV_FORMS[form],
+            float(scale), 0.0 if softcap is None else float(softcap),
             _NO_WINDOW if window is None else int(window), stream,
         )
     kernel_build.check_launch(lib, _NAME, rc)
     ragged_prefill_attention.launches += 1
+    ragged_prefill_attention.form_launches[form or "none"] += 1
     return out
 
 
-#: Kernel launches since the last reset (a plain int; chip_smoke.py zeroes
-#: it before driving the engine and reads it after).
+#: Kernel launches since the last reset (plain ints; chip_smoke.py zeroes
+#: them before driving the engine and reads them after): the total, and
+#: per cache form.
 ragged_prefill_attention.launches = 0
+ragged_prefill_attention.form_launches = {"none": 0, "int8": 0, "int4": 0}

@@ -7,6 +7,7 @@ CPU, as the tests run)."""
 import asyncio
 
 import pytest
+import torch
 
 from p2p_llm_tunnel_tpu import cli as j_cli
 from p2p_llm_tunnel_tpu_torch import cli
@@ -72,10 +73,10 @@ def test_env_names_match_the_jax_cli(monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--prefix-cache-dir", "/x"], "spill tier, snapshots"),
     (["--spill-pages", "4"], "spill tier, snapshots"),
-    (["--kv-quant", "int8"], "quantized weights and KV"),
-    (["--kv-quant", "int8", "--prefix-cache"], "quantized weights and KV"),
-    (["--quant", "int4"], "quantized weights and KV"),
-    (["--fused-decode-layer"], "fused decode layer"),
+    (["--quant", "int8"], "weight quantization"),
+    (["--quant", "w8a8", "--kv-quant", "int8"], "weight quantization"),
+    (["--quant", "int4"], "weight quantization"),
+    (["--prefill-act-quant"], "weight quantization"),
     (["--spec-ngram", "3"], "spec decode"),
     (["--tp", "2"], "parallel/"),
     (["--replicas", "2"], "parallel/"),
@@ -85,6 +86,38 @@ def test_unported_flags_exit_with_their_queue_item(extra, item):
     with pytest.raises(SystemExit) as exc:
         cli._engine_config(args)
     assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
+
+
+def test_quantized_fused_flags_build_an_engine(monkeypatch):
+    """``--kv-quant int4 --fused-decode-layer --ragged-prefill`` builds an
+    unfenced engine that serves; the env names are the JAX CLI's."""
+    args = cli.build_parser().parse_args(
+        SERVE + ["--kv-quant", "int4", "--fused-decode-layer", "--ragged-prefill"])
+    ecfg = cli._engine_config(args)
+    assert (ecfg.kv_quant, ecfg.fused_decode_layer, ecfg.ragged_prefill) == (
+        "int4", True, True)
+
+    async def run():
+        backend = await cli._engine_backend(args)
+        engine = backend.kv_import.__self__
+        try:
+            assert engine.config_fences == []
+            assert engine.mcfg.fused_decode_layer
+            assert engine.kv_cache["k"].dtype == torch.int8
+            events = [ev async for ev in engine.generate(
+                list(b"hello"), max_new_tokens=3)]
+            return [ev.token_id for ev in events]
+        finally:
+            await engine.stop()
+            cli._BACKEND = None
+
+    assert len(asyncio.run(run())) == 3
+    monkeypatch.setenv("TUNNEL_KV_QUANT", "int8")
+    monkeypatch.setenv("TUNNEL_FUSED_DECODE", "1")
+    args = cli.build_parser().parse_args(SERVE)
+    jargs = j_cli.build_parser().parse_args(["serve", "--backend", "tpu", "--room", "r"])
+    assert (args.kv_quant, args.fused_decode_layer) == (
+        jargs.kv_quant, jargs.fused_decode_layer) == ("int8", True)
 
 
 def test_engine_backend_on_cpu_serves_a_request():

@@ -167,7 +167,10 @@ def test_construction_guards():
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, spill_pages=4),
                         device="cpu")
     with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int8"),
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, quant="int8"),
+                        device="cpu")
+    with pytest.raises(ValueError, match="kv_quant"):
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int2"),
                         device="cpu")
     if not torch.cuda.is_available():
         # No card and no explicit CPU request: never run on the CPU quietly.

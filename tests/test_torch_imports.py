@@ -59,7 +59,8 @@ def report():
 def test_probe_starts_clean(report):
     assert report["_startup"] == []
     for name in ("engine.engine", "engine.prefix_cache",
-                 "ops.prefill_attention", "models.transformer"):
+                 "ops.prefill_attention", "models.transformer",
+                 "ops.fused_decode", "models.quant"):
         assert f"p2p_llm_tunnel_tpu_torch.{name}" in MODULES
 
 

@@ -14,6 +14,13 @@ the client reads the answer's ids back exactly.  Greedy streams must be
 byte-identical, with the port's ``ragged_prefill`` off and on (the JAX
 engine runs with it off: tests/test_ragged_prefill.py pins JAX's ragged ≡
 chunked).  The weight seed is tie-free for this traffic.
+
+The quantized caches run the same traffic: int8 on the serve defaults,
+int4 with the port's fused decode layer and ragged prefill on the serve
+defaults, and int4 on the non-mux loop — against the JAX engine at the
+same ``kv_quant``, unfused and without ragged prefill (the JAX package
+pins fused ≡ unfused and ragged ≡ chunked at every KV form:
+tests/test_fused_decode_layer.py, tests/test_ragged_prefill.py).
 """
 
 import asyncio
@@ -181,6 +188,47 @@ def test_serve_default_streams_byte_identical_to_jax(weights, jax_streams, ragge
     assert engine._page_reserved == {}
     assert engine._prefix.reserved_pages == 0
     assert engine.ecfg.ragged_prefill == ragged and engine.config_fences == []
+
+
+#: (port engine knobs, JAX engine knobs) per quantized configuration.
+QUANT_CASES = {
+    "int8-defaults": (dict(kv_quant="int8"), dict(kv_quant="int8")),
+    "int4-fused-ragged": (
+        dict(kv_quant="int4", fused_decode_layer=True, ragged_prefill=True),
+        dict(kv_quant="int4")),
+    "int4-no-mux": (
+        dict(kv_quant="int4", mux=False, prefill_chunk=0),
+        dict(kv_quant="int4", mux=False, prefill_chunk=0)),
+}
+_JAX_QUANT = {}
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantized_streams_byte_identical_to_jax(weights, case):
+    jp, tp = weights
+    port_kw, jax_kw = QUANT_CASES[case]
+    if case not in _JAX_QUANT:
+        _JAX_QUANT[case] = _drive(
+            JInferenceEngine(engine_cfg=JEngineConfig(**dict(ENGINE, **jax_kw)),
+                             params=jp, tokenizer=JNumeric()),
+            j_engine_backend, j_run_serve, j_run_proxy, j_loopback_pair,
+            j_metrics)
+    want, _ = _JAX_QUANT[case]
+    engine = InferenceEngine(
+        engine_cfg=EngineConfig(**dict(ENGINE, **port_kw)), params=tp,
+        tokenizer=NumericTokenizer(), device="cpu")
+    got, deltas = _drive(engine, engine_backend, run_serve, run_proxy,
+                         loopback_pair, global_metrics)
+    assert got == want
+    assert {finish for _, finish in got} == {"length"}
+    assert engine.config_fences == []
+    assert engine.mcfg.fused_decode_layer == port_kw.get("fused_decode_layer", False)
+    assert tt.kv_cache_quant_mode(engine.kv_cache) == port_kw["kv_quant"]
+    if engine.ecfg.prefix_cache:
+        assert deltas["engine_prefix_hit_tokens_total"] > 0
+        packed = port_kw["kv_quant"] == "int4"
+        assert engine._pool["k"].shape[2] == (8 if packed else 16)
+        assert engine._page_reserved == {} and engine._prefix.reserved_pages == 0
 
 
 def _herd(params, prompts, max_new=6, **kw):

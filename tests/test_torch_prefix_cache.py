@@ -18,7 +18,6 @@ import torch
 
 from p2p_llm_tunnel_tpu.engine import prefix_cache as jpc
 from p2p_llm_tunnel_tpu_torch.engine import prefix_cache as tpc
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
 
 BLOCK = 4
 
@@ -166,6 +165,9 @@ def test_batch_copy_ops_bit_exact_vs_jax(direction):
 
 
 def test_init_pool_mirrors_cache_and_refuses_quantized_caches():
+    """Raw and quantized caches pool every leaf (scale planes included);
+    packed int4 value planes take half-size byte pages, and an odd page
+    size is refused under int4 (it would split a byte)."""
     cache = {k: torch.zeros((2, 3, 32, 2, 8), dtype=torch.bfloat16)
              for k in ("k", "v")}
     pool = tpc.init_pool(cache, BLOCK, 6)
@@ -173,5 +175,13 @@ def test_init_pool_mirrors_cache_and_refuses_quantized_caches():
         "k": (2, 6, BLOCK, 2, 8), "v": (2, 6, BLOCK, 2, 8)}
     assert pool["k"].dtype == torch.bfloat16
     assert tpc.pool_packed_keys(cache) == frozenset()
-    with pytest.raises(NotPorted, match="ROADMAP"):
-        tpc.init_pool(dict(cache, k_scale=torch.zeros(2, 3, 32, 2)), BLOCK, 6)
+    scales = {k: torch.zeros(2, 3, 32, 2) for k in ("k_scale", "v_scale")}
+    int4 = {k: torch.zeros((2, 3, 16, 2, 8), dtype=torch.int8)
+            for k in ("k", "v")}
+    pool = tpc.init_pool(dict(int4, **scales), BLOCK, 6)
+    assert {k: tuple(v.shape) for k, v in pool.items()} == {
+        "k": (2, 6, BLOCK // 2, 2, 8), "v": (2, 6, BLOCK // 2, 2, 8),
+        "k_scale": (2, 6, BLOCK, 2), "v_scale": (2, 6, BLOCK, 2)}
+    assert tpc.pool_packed_keys(dict(int4, **scales)) == frozenset({"k", "v"})
+    with pytest.raises(ValueError, match="even"):
+        tpc.init_pool(dict(int4, **scales), 5, 6)
