@@ -22,7 +22,9 @@ Phases (any failure exits non-zero before the result line):
 4. run one prompt's prefill and four teacher-forced decode steps through
    the kernel path and the plain path on the same weights and bound the
    logits' difference — with the raw cache and kernel 2, and with the int4
-   cache and the fused decode layer;
+   cache and the fused decode layer; then a verify burst (kernel 5) over
+   the greedy tokens of four fused decode steps against those steps'
+   logits;
 5. serve the same weights again on the serve CLI's default engine (mux,
    prefix pool, conversation cache) with ``--ragged-prefill``: 8
    two-turn conversations sharing a ~300-token system prompt, every second
@@ -36,16 +38,26 @@ Phases (any failure exits non-zero before the result line):
    ragged kernel 32 times per dispatch, both in their int4 forms; (b)
    ``--kv-quant int8`` — kernel 2's int8 form 32 times per step; (c) a
    few short streams on each engine that runs a remaining (kernel, KV
-   form) pair, so every row of the kernel table launched on a main path.
+   form) pair, so every row of the kernel table launched on a main path;
+7. prompt-lookup speculation: the conversations of 6a on ``--kv-quant int4
+   --fused-decode-layer --ragged-prefill --spec-ngram 3 --spec-k 4
+   --spec-k-max 8`` — kernel 5 (int4) 32 times per verify burst, kernel 4
+   32 times per plain decode step, kernel 2 never, proposals made, the
+   proposer's state released; then short streams with speculation on the
+   raw and int8 fused engines and on the unfused int4 engine (the chunk
+   path's int4 splice).
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
-within tolerance, quantized cache bytes and scales bit-exact.  The line
-before the last is the kernel table as one JSON object, one row per
-(kernel, KV form); the last line is ``{"ok": true, "device": {...}}``.
+within tolerance, quantized cache bytes and scales bit-exact; kernel 5
+also bitwise against T sequential kernel-4 launches, kernel 3 (raw only;
+no serving path calls it) also against kernel 2.  The line before the
+last is the kernel table as one JSON object, one row per (kernel, KV
+form); the last line is ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a torch.profiler window over the plain-loop engine and
-the mux engines of phases 5 and 6a with every slot busy (device busy
+the mux engines of phases 5, 6a and 7 with every slot busy (device busy
 share, device time by kernel), and the CUDA launches of one decode step
-on the two mux engines (fused decode layer off and on).
+on the mux engines of phases 5 and 6a (fused decode layer off and on) and
+of one verify burst on phase 7's.
 ``--kernels-only`` stops after phase 2.
 """
 
@@ -71,7 +83,13 @@ MAX_TOKENS = 64  # tokens each stream asks for
 #: The kernel-table row the JSON line reports: the prefill bucket and the
 #: decode view the main path's prompts (120-400 bytes) land in.
 JSON_SHAPES = {"flash_causal_attention": "T256", "flash_decode_attention": "S512",
-               "fused_decode_layer": "view512", "ragged_prefill_attention": "TOT1024"}
+               "flash_decode_attention_plane": "S512",
+               "fused_decode_layer": "view512", "fused_spec_decode_layer": "view512",
+               "ragged_prefill_attention": "TOT1024"}
+#: Kernel 3 has no serving path (in the JAX package either): its row counts
+#: phase 2's launches and is exempt from the main-path launch check.
+CROSS_CHECK_ONLY = {"flash_decode_attention_plane":
+                    "cross-check only: no serving path in the JAX package either"}
 # Phase 5: conversations of the mux phase, their system prompt and turns.
 N_CONV = 8
 SYSTEM_PROMPT = ("You are the tunnel's assistant. Answer briefly, cite the "
@@ -300,8 +318,12 @@ def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
     c2 = [None if x is None else x.clone() for x in orig]
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     layer = layers - 1
+    # The step's rope table, built once per decode step on the main path
+    # (decode_step), not per layer: kernel and plain version are timed
+    # without it.
     kw = dict(kv_view=view, rope_theta=500000.0, kv_quant=form,
-              window=window, softcap=softcap)
+              window=window, softcap=softcap,
+              rope=fd.rope_rows(pos, d, 500000.0))
     got = fd.fused_decode_layer(q, kn, vn, *c1, pos, layer, **kw)
     want = fd.plain(q, kn, vn, *c2, pos, layer, **kw)
     torch.cuda.synchronize()
@@ -368,6 +390,179 @@ def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
     return row
 
 
+#: Kernel 5's burst width at the serve CLI's --spec-k 4 (K proposals + 1).
+SPEC_T = 5
+
+
+def spec_positions(b: int, view: int) -> list:
+    """Burst row 0 per slot: bursts inside a 64-key tile and straddling a
+    tile edge (60, 62, 63, 124), odd int4 starts (1, 63, 101, 255), one
+    burst crossing ``view`` (view - 2: two live tokens, three parked) and
+    one slot parked at max_seq."""
+    act = [0, 1, 60, 62, 63, 64, 101, 124, 128, 200, 255, 256, 300, 401,
+           view - 7, view - 2]
+    return (act * b)[: b - 1] + [MAX_SEQ]
+
+
+def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
+              layers=2, window=None, softcap=None, seed=0, timed=True):
+    """Kernel 5 in ``form`` on clones of one random cache: (a) against its
+    plain version — attention within tolerance on the live rows, caches
+    (values and scales) BIT-EXACT, only the live tokens' rows changed, an
+    int4 burst's neighbour nibbles and the parked row untouched; (b)
+    against ``t`` sequential kernel-4 launches on the same inputs and rope
+    rows — caches bit-exact and attention BITWISE."""
+    import torch
+    import torch.nn.functional as F
+
+    from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
+    from p2p_llm_tunnel_tpu_torch.ops import fused_decode as fd
+    from p2p_llm_tunnel_tpu_torch.ops import fused_spec_decode as fs
+
+    b = NUM_SLOTS + 1
+    positions = spec_positions(b, view)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    q, kn, vn = rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d)
+    kc, ks = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    vc, vs = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    orig = [kc, vc, ks, vs]
+    c1, c2, c3 = ([None if x is None else x.clone() for x in orig] for _ in range(3))
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    layer = layers - 1
+    rope = fs.burst_rope_rows(pos, t, d, 500000.0)
+    kw = dict(kv_view=view, rope_theta=500000.0, kv_quant=form,
+              window=window, softcap=softcap, rope=rope)
+    got = fs.fused_spec_decode_layer(q, kn, vn, *c1, pos, layer, **kw)
+    want = fs.plain(q, kn, vn, *c2, pos, layer, **kw)
+    seq = torch.stack([fd.fused_decode_layer(
+        q[:, i].contiguous(), kn[:, i].contiguous(), vn[:, i].contiguous(),
+        *c3, pos + i, layer, kv_view=view, rope_theta=500000.0,
+        kv_quant=form, window=window, softcap=softcap,
+        rope=(rope[0][:, i].contiguous(), rope[1][:, i].contiguous()))
+        for i in range(t)], dim=1)
+    torch.cuda.synchronize()
+    name = (f"{row_name('fused_spec_decode_layer', form)} T{t} H{h} K{kh} D{d} "
+            f"window {window} softcap {softcap}")
+    live = (pos[:, None].long() + torch.arange(t, device="cuda")[None, :]) < view
+    err = check_close(name, got[live], want[live])
+    if not torch.equal(got[live], seq[live]):
+        raise AssertionError(f"{name}: not bitwise equal to {t} sequential kernel-4 "
+                             f"launches ({int(got[live].ne(seq[live]).sum())} values)")
+    for ref, what in ((c2, "the plain version's"), (c3, "the sequential kernel-4 launches'")):
+        for leaf, a, w in zip(("k", "v", "k_scale", "v_scale"), c1, ref):
+            if a is not None and not torch.equal(a, w):
+                raise AssertionError(f"{name}: cache leaf {leaf} differs from "
+                                     f"{what} in {int(a.ne(w).sum())} entries")
+    for leaf, a, o in zip(("k", "v", "k_scale", "v_scale"), c1, orig):
+        if a is None:
+            continue
+        packed = form == "int4" and leaf in ("k", "v")
+        changed = a.ne(o)
+        for slot, p in enumerate(positions):
+            for tok in range(p, min(p + t, view)):
+                changed[layer, slot, tok // 2 if packed else tok] = False
+        if changed.any():
+            raise AssertionError(f"{name}: {leaf} changed outside the appended "
+                                 f"rows (parked row or tokens)")
+        if packed:
+            for slot, p in enumerate(positions):
+                end = min(p + t, view)
+                if p >= view:
+                    continue
+                edges = []
+                if p % 2:
+                    edges.append((p // 2, 0x0F))  # the committed token before
+                if end % 2:
+                    edges.append((end // 2, 0xF0))  # the token after the burst
+                for byte, keep in edges:
+                    new_b = a[layer, slot, byte].to(torch.int16) & 0xFF
+                    old_b = o[layer, slot, byte].to(torch.int16) & 0xFF
+                    if not torch.equal(new_b & keep, old_b & keep):
+                        raise AssertionError(f"{name}: burst at {p} overwrote a "
+                                             f"neighbour's nibble in byte {byte}")
+    if not timed:
+        return err
+    eb = ELEM_BYTES[form]
+    cache_keys = sum(min(p, view) for p in positions)  # read from the cache
+    n_live = int(live.sum())
+    attended = sum(min(p + i, view) + 1 for p in positions for i in range(t))
+    nbytes = (2 * eb * cache_keys * kh * d + (2 * 4 * cache_keys * kh if form else 0)
+              + 2 * b * t * h * d * 2 + 2 * 2 * b * t * kh * d + 2 * 4 * b * t * d // 2
+              + n_live * (2 * eb * kh * d + (8 * kh if form else 0)) + 4 * b)
+    row = dict(
+        shape=f"B{b} T{t} view{view} S{s_max} H{h} K{kh} D{d} "
+              f"parked{sum(p >= view for p in positions)}",
+        max_abs_err=err,
+        ms=timed_ms(lambda: fs.fused_spec_decode_layer(q, kn, vn, *c1, pos, layer, **kw),
+                    iters=50),
+        plain_ms=timed_ms(lambda: fs.plain(q, kn, vn, *c2, pos, layer, **kw), iters=5),
+    )
+    rows = view // 2 if form == "int4" else view
+    kd, vd = c1[0][layer, :, :rows], c1[1][layer, :, :rows]
+    if form is not None:
+        kd = da.dequant_f32(kd, c1[2][layer, :, :view], form)
+        vd = da.dequant_f32(vd, c1[3][layer, :, :view], form)
+    kx = kd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vx = vd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    qh = q.transpose(1, 2)  # [B, H, T, D]
+    at = pos.long()[:, None] + torch.arange(t, device="cuda")[None, :]  # [B, T]
+    am = torch.arange(view, device="cuda")[None, None, :] <= at.clamp(max=view - 1)[:, :, None]
+    am = am[:, None]  # causal T-row mask [B, 1, T, view]
+    row["library_ms"] = timed_ms(
+        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * attended)
+    return row
+
+
+def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **kw):
+    """Kernel 3 (raw) on strided [:, :S] windows of a [B, S_max, K, D]
+    cache, against its plain version and against kernel 2 on the same
+    inputs; timed with its bound and kernel 2's SDPA yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+    kc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
+    vc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    got = da.flash_decode_attention_plane(q, kc, vc, pos, **kw)
+    want = da.plain(q, kc, vc, pos, **kw)
+    k2 = da.flash_decode_attention(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    win = kw.get("window") or (1 << 30)
+    keys = torch.arange(s, device="cuda")[None, :]
+    seen = ((keys <= pos[:, None]) & (pos[:, None] - keys < win)).any(-1)
+    name = f"flash_decode_attention_plane S={s} H{h} K{kh} D{d} {kw}"
+    err = max(check_close(name, got[seen], want[seen]),
+              check_close(name + " vs kernel 2", got[seen], k2[seen]))
+    if not timed:
+        return err
+    live = [min(p, s - 1) + 1 for p in positions]
+    nbytes = 2 * 2 * sum(live) * kh * d + 2 * 2 * b * h * d + 4 * b
+    qh = q.transpose(1, 2)
+    kx = kc.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vx = vc.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    am = (keys <= pos[:, None].long())[:, None, None, :]
+    row = dict(
+        shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
+        max_abs_err=err,
+        ms=timed_ms(lambda: da.flash_decode_attention_plane(q, kc, vc, pos, **kw),
+                    iters=50),
+        plain_ms=timed_ms(lambda: da.plain(q, kc, vc, pos, **kw)),
+        library_ms=timed_ms(
+            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50),
+    )
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * sum(live))
+    return row
+
+
 def preset_checks() -> dict:
     """Correctness only, no timing: the kernels' other head-dim and
     grouping instances, at the head geometry of presets the port serves
@@ -394,9 +589,10 @@ def preset_checks() -> dict:
             raise AssertionError(f"{name}: rows that see no key are not 0")
         return check_close(name, got[seen], want[seen])
 
-    errs = {"flash_causal_attention": 0.0}
+    errs = {"flash_causal_attention": 0.0, "flash_decode_attention_plane": 0.0}
     errs.update({row_name(k, f): 0.0 for f in FORMS
-                 for k in ("flash_decode_attention", "fused_decode_layer")})
+                 for k in ("flash_decode_attention", "fused_decode_layer",
+                           "fused_spec_decode_layer")})
     for preset, h, kh, d, window, softcap in (
         ("gemma2-2b", 8, 4, 256, 64, 50.0),
         ("llama3.2-1b", 32, 8, 64, None, None),
@@ -440,9 +636,17 @@ def preset_checks() -> dict:
             more[row_name("fused_decode_layer", form)] = fused_case(
                 h, kh, d, form, view=256, s_max=512, layers=1, seed=6,
                 timed=False, **kw)
-        print(f"[kernels] {preset} quantized decode and fused layer, max|err| "
+        for form in FORMS:
+            more[row_name("fused_spec_decode_layer", form)] = spec_case(
+                h, kh, d, form, view=256, s_max=512, layers=1, seed=7,
+                timed=False, **kw)
+        more["flash_decode_attention_plane"] = plane_case(
+            5, 256, h, kh, d, [0, 63, 64, 200, MAX_SEQ], s_max=256, seed=8,
+            timed=False, **kw)
+        print(f"[kernels] {preset} quantized decode, fused layer, verify burst "
+              f"and plane kernel, max|err| "
               + ", ".join(f"{k} {v:.3e}" for k, v in more.items())
-              + "; caches bit-exact")
+              + "; caches bit-exact, verify bursts bitwise = sequential kernel 4")
         for k, v in more.items():
             errs[k] = max(errs[k], v)
     return errs
@@ -619,8 +823,15 @@ def kernel_phase(cfg) -> dict:
         rows[row_name("flash_decode_attention", form)] = [
             decode_case(b, s, h, kh, d, decode_positions(b, s), form=form)
             for s in ((128, 256, 512, 1024) if form is None else (512,))]
+    rows["flash_decode_attention_plane"] = [
+        plane_case(b, 512, h, kh, d, decode_positions(b, 512))]
     for form in FORMS:
         rows[row_name("fused_decode_layer", form)] = [fused_case(h, kh, d, form)]
+    for form in FORMS:
+        # The serving burst (--spec-k 4), and untimed the widest burst of
+        # --spec-k-max 8 (T 9) at this geometry.
+        rows[row_name("fused_spec_decode_layer", form)] = [spec_case(h, kh, d, form)]
+        spec_case(h, kh, d, form, t=9, seed=1, timed=False)
     for form in FORMS:
         rows[row_name("ragged_prefill_attention", form)] = [ragged_case(h, kh, d, form)]
     for name, cases in rows.items():
@@ -640,14 +851,20 @@ def kernel_phase(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 def _kernels() -> dict:
-    from p2p_llm_tunnel_tpu_torch.ops.decode_attention import flash_decode_attention
+    from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
+        flash_decode_attention,
+        flash_decode_attention_plane,
+    )
     from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
     from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fused_decode_layer
+    from p2p_llm_tunnel_tpu_torch.ops.fused_spec_decode import fused_spec_decode_layer
     from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
 
     return {"flash_causal_attention": flash_causal_attention,
             "flash_decode_attention": flash_decode_attention,
+            "flash_decode_attention_plane": flash_decode_attention_plane,
             "fused_decode_layer": fused_decode_layer,
+            "fused_spec_decode_layer": fused_spec_decode_layer,
             "ragged_prefill_attention": ragged_prefill_attention}
 
 
@@ -676,19 +893,31 @@ def engine_form(engine):
 
 
 def check_engine_launches(engine, launches: dict, steps: int,
-                          dispatches: int) -> None:
+                          dispatches: int, spec: int = 0) -> None:
     """The engine's decode kernel in its KV form launched once per layer
-    per decode step and the other decode kernel never; with ragged prefill
-    the ragged kernel in that form once per layer per ragged dispatch."""
+    per decode step and the other decode kernel never; with speculation on
+    the fused layer, the verify kernel (kernel 5) in that form once per
+    layer per verify burst (never when unfused: the chunk path verifies);
+    with ragged prefill the ragged kernel in that form once per layer per
+    ragged dispatch.  Kernel 3 never launches on a serving path."""
     n_layers = engine.mcfg.n_layers
     form = engine_form(engine)
     fused = engine.mcfg.fused_decode_layer
     dec, other = (("fused_decode_layer", "flash_decode_attention") if fused
                   else ("flash_decode_attention", "fused_decode_layer"))
-    if steps == 0 or launches[row_name(dec, form)] != n_layers * steps:
+    if (steps == 0 and spec == 0) or launches[row_name(dec, form)] != n_layers * steps:
         raise AssertionError(
             f"{row_name(dec, form)} launches {launches[row_name(dec, form)]} "
             f"!= {n_layers} x {steps} decode steps")
+    want_spec = n_layers * spec if fused else 0
+    for f in FORMS:
+        got = launches[row_name("fused_spec_decode_layer", f)]
+        if got != (want_spec if f == form else 0):
+            raise AssertionError(
+                f"{row_name('fused_spec_decode_layer', f)} launches {got} on an "
+                f"engine with {spec} verify bursts (fused {fused}, form {form})")
+    if launches["flash_decode_attention_plane"]:
+        raise AssertionError("kernel 3 launched on a serving path")
     if any(launches[row_name(other, f)] for f in FORMS):
         raise AssertionError(f"{other} launched on an engine that decodes "
                              f"with {dec}: {launches}")
@@ -763,10 +992,10 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
     from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
     from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
 
-    waves, steps, dispatches = [0], [0], [0]
-    dispatch_prefill, decode_fn, ragged_rows = (
+    waves, steps, dispatches, spec = [0], [0], [0], [0]
+    dispatch_prefill, decode_fn, ragged_rows, dispatch_spec = (
         engine._dispatch_prefill_batch, engine._decode_fn,
-        engine._dispatch_ragged_rows)
+        engine._dispatch_ragged_rows, engine._dispatch_spec)
 
     def counted_prefill(*a, **kw):
         waves[0] += 1
@@ -780,9 +1009,14 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
         dispatches[0] += 1
         return ragged_rows(rows)
 
+    def counted_spec(**kw):
+        spec[0] += 1
+        return dispatch_spec(**kw)
+
     engine._dispatch_prefill_batch = counted_prefill
     engine._decode_fn = counted_decode
     engine._dispatch_ragged_rows = counted_ragged
+    engine._dispatch_spec = counted_spec
 
     serve_ch, proxy_ch = loopback_pair()
     ready = asyncio.get_running_loop().create_future()
@@ -812,6 +1046,7 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
         engine._dispatch_prefill_batch = dispatch_prefill
         engine._decode_fn = decode_fn
         engine._dispatch_ragged_rows = ragged_rows
+        engine._dispatch_spec = dispatch_spec
     for r in results:
         if r["tokens"] != max_tokens or r["finish"] != "length":
             raise AssertionError(f"stream ended early: {r}")
@@ -823,10 +1058,11 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
             raise AssertionError(
                 f"prefill kernel launches {launches['flash_causal_attention']}"
                 f" != {n_layers} x {waves[0]} prefill waves")
-        check_engine_launches(engine, launches, steps[0], dispatches[0])
+        check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0])
     ttfts = [r["ttft"] for r in results]
     return dict(results=results, wall=wall, launches=launches,
                 waves=waves[0], steps=steps[0], dispatches=dispatches[0],
+                spec=spec[0],
                 tok_s=sum(r["tokens"] for r in results) / wall,
                 ttft_p50_ms=statistics.median(ttfts) * 1e3,
                 ttft_max_ms=max(ttfts) * 1e3)
@@ -840,12 +1076,16 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    steps = [0]
-    decode_fn = engine._decode_fn
+    steps, spec = [0], [0]
+    decode_fn, dispatch_spec = engine._decode_fn, engine._dispatch_spec
 
     def counted_decode(*a, **kw):
         steps[0] += a[5]
         return decode_fn(*a, **kw)
+
+    def counted_spec(**kw):
+        spec[0] += 1
+        return dispatch_spec(**kw)
 
     async def one(i):
         prompt = [(7 * i + j) % 250 + 1 for j in range(96 + 24 * i)]
@@ -853,6 +1093,7 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
             prompt, max_new_tokens=max_tokens, stop_ids=())])
 
     engine._decode_fn = counted_decode
+    engine._dispatch_spec = counted_spec
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -863,6 +1104,7 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
             wall = time.monotonic() - t0
     finally:
         engine._decode_fn = decode_fn
+        engine._dispatch_spec = dispatch_spec
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -871,7 +1113,7 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
     kernels = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:14]
-    return dict(wall_s=wall, tokens=tokens, steps=steps[0],
+    return dict(wall_s=wall, tokens=tokens, steps=steps[0], spec=spec[0],
                 busy_ms=busy_ms, busy_share=busy_ms / (wall * 1e3),
                 top=[(e.key[:70], e.count, dev_us(e) / 1e3) for e in top])
 
@@ -879,11 +1121,13 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
 def print_profile(tag: str, pr: dict, name: str) -> None:
     import torch
 
+    n = pr["steps"] + pr["spec"]
     print(f"{tag} {NUM_SLOTS} streams x {MAX_TOKENS} tokens: "
-          f"{pr['tokens']} tokens, {pr['steps']} decode steps in "
+          f"{pr['tokens']} tokens, {pr['steps']} decode steps and "
+          f"{pr['spec']} verify bursts in "
           f"{pr['wall_s']:.3f} s ({pr['tokens'] / pr['wall_s']:.1f} "
-          f"tok/s, {pr['wall_s'] * 1e3 / max(pr['steps'], 1):.2f} ms "
-          f"per step incl. prefill); device busy {pr['busy_ms']:.1f} ms "
+          f"tok/s, {pr['wall_s'] * 1e3 / max(n, 1):.2f} ms "
+          f"per step or burst incl. prefill); device busy {pr['busy_ms']:.1f} ms "
           f"= {100 * pr['busy_share']:.1f}% of the window ({name}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     for key, count, ms in pr["top"]:
@@ -957,6 +1201,59 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
                 argmax_agree=agree, rows=forced + 1, quant=quant, fused=fused)
 
 
+def spec_logits_phase(cfg, params, prompt_len: int = 200, t: int = SPEC_T) -> dict:
+    """The verify burst at model level on the int4 cache with the fused
+    layers: ``spec_verify_into_cache`` over the first token and the greedy
+    tokens of ``t - 1`` sequential ``decode_step``s, against those ``t``
+    steps' logits (within the phase's 5% bound) — argmax agreement and the
+    cache bytes that differ are reported, not required: the projections'
+    cuBLAS products differ at M = t and M = 1."""
+    import dataclasses
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(cfg, fused_decode_layer=True)
+    dev = params["embed"].device
+    g = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, 256, (1, prompt_len), generator=g, device=dev)
+    with torch.inference_mode():
+        cache = tr.init_kv_cache(cfg, 1, 512, dtype=params["embed"].dtype,
+                                 quant="int4", device=dev)
+        last, _ = tr.prefill_into_cache(cfg, params, toks,
+                                        torch.tensor([prompt_len], device=dev),
+                                        cache, torch.tensor([0], device=dev))
+        seq_cache = {k: v.clone() for k, v in cache.items()}
+        tok = last.argmax(-1)
+        burst, seq = [tok], []
+        for n in range(t):
+            pos = torch.tensor([prompt_len + n], dtype=torch.int32, device=dev)
+            logits, _ = tr.decode_step(cfg, params, seq_cache, burst[-1], pos,
+                                       kv_view=256)
+            seq.append(logits[0])
+            if n < t - 1:
+                burst.append(logits.argmax(-1))
+        seq = torch.stack(seq)
+        logits, _ = tr.spec_verify_into_cache(
+            cfg, params, torch.stack(burst, dim=1),
+            torch.tensor([prompt_len], dtype=torch.int32, device=dev), cache,
+            kv_view=256)
+        logits = logits[0]
+    if not torch.isfinite(logits).all():
+        raise AssertionError("verify-burst logits are not finite")
+    diff = (logits - seq).abs().max().item()
+    limit = 0.05 * seq.abs().max().item()
+    if diff > limit:
+        raise AssertionError(f"verify-burst logits drift {diff:.4g} > {limit:.4g} "
+                             f"from {t} sequential decode steps")
+    mismatch = {k: int(cache[k].ne(seq_cache[k]).sum()) for k in cache}
+    return dict(max_abs_diff=diff, limit=limit, rows=t,
+                argmax_agree=(logits.argmax(-1) == seq.argmax(-1)).float().mean().item(),
+                cache_mismatch=mismatch,
+                cache_entries={k: cache[k].numel() for k in cache})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the serve CLI's default engine (mux + prefix pool + conversation
 # cache) with ragged prefill, two-turn conversations through the tunnel
@@ -1015,9 +1312,10 @@ async def mux_phase(engine) -> dict:
     from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
     from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
 
-    dispatches, steps, hist_of = [0], [0], {}
-    ragged_rows, decode_fn, match = (engine._dispatch_ragged_rows,
-                                     engine._decode_fn, engine._prefix.match)
+    dispatches, steps, spec, hist_of = [0], [0], [0], {}
+    ragged_rows, decode_fn, match, dispatch_spec = (
+        engine._dispatch_ragged_rows, engine._decode_fn, engine._prefix.match,
+        engine._dispatch_spec)
 
     def counted_ragged(rows):
         dispatches[0] += 1
@@ -1033,12 +1331,19 @@ async def mux_phase(engine) -> dict:
         hist_of[key] = max(hist_of.get(key, 0), hist)
         return hist, ids
 
+    def counted_spec(**kw):
+        spec[0] += 1
+        return dispatch_spec(**kw)
+
     engine._dispatch_ragged_rows = counted_ragged
     engine._decode_fn = counted_decode
     engine._prefix.match = recorded_match
+    engine._dispatch_spec = counted_spec
     counters = ("engine_prefix_hit_tokens_total",
                 "engine_prefix_dedup_hits_total",
-                "engine_conv_saved_pages_total", "engine_conv_hits_total")
+                "engine_conv_saved_pages_total", "engine_conv_hits_total",
+                "engine_spec_proposed_tokens_total",
+                "engine_spec_accepted_tokens_total")
     system = list(SYSTEM_PROMPT.encode())
     firsts = [system + list(f"Turn one of conversation {i}: how does the "
                             f"tunnel carry request {i}? ".encode() * (1 + i % 2))
@@ -1072,6 +1377,7 @@ async def mux_phase(engine) -> dict:
         engine._dispatch_ragged_rows = ragged_rows
         engine._decode_fn = decode_fn
         engine._prefix.match = match
+        engine._dispatch_spec = dispatch_spec
     for r, want in zip(one + two, [TURN1_TOKENS] * N_CONV + [TURN2_TOKENS] * N_CONV):
         if len(r["ids"]) != want or r["finish"] != "length":
             raise AssertionError(f"conversation stream ended early: {r}")
@@ -1088,12 +1394,13 @@ async def mux_phase(engine) -> dict:
                 f"conversation {i}: turn-2 hit {hist} tokens does not reach "
                 f"past the system prompt ({sys_pages}) into turn 1's answer "
                 f"(turn 1 prompt {len(p1)} tokens)")
-    check_engine_launches(engine, launches, steps[0], dispatches[0])
+    check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0])
     if engine._page_reserved or engine._prefix.reserved_pages:
         raise AssertionError("pool pages still reserved after every stream ended")
     ttfts = [r["ttft"] for r in one + two]
     return dict(one=one, two=two, wall=wall, launches=launches,
-                dispatches=dispatches[0], steps=steps[0], deltas=deltas,
+                dispatches=dispatches[0], steps=steps[0], spec=spec[0],
+                deltas=deltas,
                 hists=[hist_of.get(tuple(p), 0) for p in seconds],
                 sys_pages=sys_pages,
                 tok_s=sum(len(r["ids"]) for r in one + two) / wall,
@@ -1105,8 +1412,9 @@ async def mux_phase(engine) -> dict:
 
 def decode_launches(engine, steps: int = 4) -> float:
     """``--profile``: CUDA kernels (and copies) the model launches per
-    decode step on this engine's weights and cache — every slot live at
-    position 200, view 256, no sampling — counted by torch.profiler."""
+    decode step — per verify burst of SPEC_T tokens on a speculating engine
+    — on this engine's weights and cache, every slot live at position 200,
+    view 256, no sampling, counted by torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1118,8 +1426,13 @@ def decode_launches(engine, steps: int = 4) -> float:
     pos = torch.full((rows,), 200, dtype=torch.int32, device=engine.device)
 
     def step():
-        tr.decode_step(engine.mcfg, engine.params, engine.kv_cache, toks, pos,
-                       kv_view=256)
+        if engine.ecfg.spec_ngram > 0:
+            tr.spec_verify_into_cache(engine.mcfg, engine.params,
+                                      toks[:, None].expand(rows, SPEC_T),
+                                      pos, engine.kv_cache, kv_view=256)
+        else:
+            tr.decode_step(engine.mcfg, engine.params, engine.kv_cache, toks,
+                           pos, kv_view=256)
 
     with torch.inference_mode():
         step()
@@ -1199,7 +1512,7 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
           f"tokens (system prompt pages {mux['sys_pages']} tokens)")
     nonzero = {k: v for k, v in mux["launches"].items() if v}
     print(f"{tag} ragged dispatches {mux['dispatches']}, decode steps "
-          f"{mux['steps']}, launch counts {nonzero}")
+          f"{mux['steps']}, verify bursts {mux['spec']}, launch counts {nonzero}")
     print(f"{tag} {mux['tok_s']:.1f} tok/s ({name}; both turns, client side "
           f"through the tunnel)")
     print(f"{tag} TTFT p50 {mux['ttft_p50_ms']:.1f} ms, max "
@@ -1208,8 +1521,10 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
           f"{mux['turn2_ttft_p50_ms']:.1f} ms; {name})")
     if "profile" in mux:
         print_profile(f"{tag} profile", mux["profile"], name)
+        what = (f"verify burst of {SPEC_T} tokens" if engine.ecfg.spec_ngram > 0
+                else "decode step")
         print(f"{tag} profile: {mux['launches_per_step']:.1f} CUDA launches per "
-              f"decode step (model only, {engine.mcfg.n_layers} layers; fused "
+              f"{what} (model only, {engine.mcfg.n_layers} layers; fused "
               f"decode layer {engine.mcfg.fused_decode_layer})")
 
 
@@ -1218,9 +1533,10 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3, 5 and 6a, profile each engine with "
-                         "every slot busy (device busy share, time by kernel) "
-                         "and count the CUDA launches of one decode step")
+                    help="after phases 3, 5, 6a and 7, profile each engine "
+                         "with every slot busy (device busy share, time by "
+                         "kernel) and count the CUDA launches of one decode "
+                         "step (phase 7: one verify burst)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks); "
                          "prints no result line")
@@ -1260,9 +1576,11 @@ def main() -> int:
     cfg = get_config(MODEL)
 
     # Phase 2: kernels against their plain versions.
+    reset_counters()
     rows = kernel_phase(cfg)
     other_errs = preset_checks()
     other_errs.update(ragged_preset_checks())
+    phase2_launches = read_counters()
     if args.kernels_only:
         return 0
 
@@ -1322,6 +1640,12 @@ def main() -> int:
               f"plain| {lg['max_abs_diff']:.4g} (limit {lg['limit']:.4g} = 5% "
               f"of max |logit| {lg['logit_scale']:.4g}), argmax agreement "
               f"{lg['argmax_agree']:.2f}")
+    sl = spec_logits_phase(cfg, engine.params)
+    print(f"[logits] int4 + fused verify burst of {sl['rows']} tokens (kernel 5) "
+          f"vs {sl['rows']} sequential decode steps (kernel 4): max |diff| "
+          f"{sl['max_abs_diff']:.4g} (limit {sl['limit']:.4g}), argmax agreement "
+          f"{sl['argmax_agree']:.2f}; cache entries that differ "
+          f"{sl['cache_mismatch']} of {sl['cache_entries']}")
 
     # Phase 5: the serve CLI's default engine + --ragged-prefill on the same
     # weights; each engine's cache is freed before the next is built.
@@ -1374,6 +1698,61 @@ def main() -> int:
         add_launches(short["launches"])
         free_engine(e6c)
         del e6c
+
+    # Phase 7: prompt-lookup speculation on the serve CLI's defaults with
+    # the int4 cache, fused layers and ragged prefill — the same
+    # conversations as 6a, every verify burst through kernel 5 (int4).
+    from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+
+    e7 = cli_engine(params, cfg, "--kv-quant", "int4", "--fused-decode-layer",
+                    "--ragged-prefill", "--spec-ngram", "3", "--spec-k", "4",
+                    "--spec-k-max", "8")
+    t_ready, m7 = run_engine(e7, mux_phase, args.profile)
+    print_mux("[7]", e7, m7, t_ready, name)
+    proposed = m7["deltas"]["engine_spec_proposed_tokens_total"]
+    accepted = m7["deltas"]["engine_spec_accepted_tokens_total"]
+    if m7["spec"] <= 0 or proposed <= 0:
+        raise AssertionError(f"phase 7 ran {m7['spec']} verify bursts, "
+                             f"{proposed} proposals")
+    if any(m7["launches"][row_name("flash_decode_attention", f)] for f in FORMS):
+        raise AssertionError("kernel 2 launched on the fused spec engine")
+    if global_metrics.gauge("engine_spec_hist_entries") != 0:
+        raise AssertionError("spec proposer state outlived its requests")
+    print(f"[7] verify bursts {m7['spec']} (kernel 5 int4 "
+          f"{m7['launches']['fused_spec_decode_layer_int4']} = "
+          f"{e7.mcfg.n_layers} x {m7['spec']}), plain decode steps {m7['steps']} "
+          f"(kernel 4 int4 {m7['launches']['fused_decode_layer_int4']}); "
+          f"proposed {proposed:.0f}, accepted {accepted:.0f}, acceptance rate "
+          f"{accepted / proposed:.3f}; {m7['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{m7['ttft_p50_ms']:.1f} ms ({name}); spec hist entries 0")
+    agree = []
+    for a, b in zip(m7["one"] + m7["two"], m6a["one"] + m6a["two"]):
+        n = next((i for i, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y),
+                 min(len(a["ids"]), len(b["ids"])))
+        agree.append(n)
+    print(f"[7] tokens before the first divergence from 6a, per stream (turn 1, "
+          f"then turn 2; printed, not required — cuBLAS products differ at "
+          f"M = B*T and M = B): {agree}")
+    add_launches(m7["launches"])
+    free_engine(e7)
+    del e7
+    # 7b: the other kernel-5 forms, and the unfused verify (the chunk path
+    # with the int4 splice), a few short streams each.
+    for flags in (("--fused-decode-layer", "--spec-ngram", "3"),
+                  ("--kv-quant", "int8", "--fused-decode-layer", "--spec-ngram", "3"),
+                  ("--kv-quant", "int4", "--spec-ngram", "3")):
+        e7b = cli_engine(params, cfg, *flags)
+        t_ready, short = run_engine(e7b, lambda e: serve_phase(e, 4, 16))
+        if short["spec"] <= 0:
+            raise AssertionError(f"{flags}: no verify burst ran")
+        nonzero = {k: v for k, v in short["launches"].items() if v}
+        print(f"[7b] {' '.join(flags)}: ready in {t_ready:.1f} s; 4 streams x "
+              f"16 tokens finished; {short['waves']} prefill waves, "
+              f"{short['steps']} decode steps, {short['spec']} verify bursts, "
+              f"launch counts {nonzero}")
+        add_launches(short["launches"])
+        free_engine(e7b)
+        del e7b
     del params
 
     source = {
@@ -1383,29 +1762,44 @@ def main() -> int:
         "flash_decode_attention": (
             "p2p_llm_tunnel_tpu_torch/csrc/flash_decode_attention.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:446"),
+        "flash_decode_attention_plane": (
+            "p2p_llm_tunnel_tpu_torch/csrc/flash_decode_attention_plane.cu",
+            "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:219"),
         "fused_decode_layer": (
             "p2p_llm_tunnel_tpu_torch/csrc/fused_decode_layer.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:877"),
+        "fused_spec_decode_layer": (
+            "p2p_llm_tunnel_tpu_torch/csrc/fused_spec_decode_layer.cu",
+            "p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py:1365"),
         "ragged_prefill_attention": (
             "p2p_llm_tunnel_tpu_torch/csrc/ragged_prefill_attention.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_prefill_attention.py:563"),
     }
     table = []
     for rname, cases in rows.items():
-        kname = next(k for k in source if rname == k or rname.startswith(k + "_"))
+        kname = max((k for k in source if rname == k or rname.startswith(k + "_")),
+                    key=len)
         tag = JSON_SHAPES.get(kname)
         pick = next((r for r in cases if tag and f" {tag} " in f" {r['shape']} "),
                     cases[0])
-        if launches[rname] <= 0:
-            raise AssertionError(f"{rname} was launched no time on the main path")
+        extra = {}
+        if rname in CROSS_CHECK_ONLY:
+            # No serving path calls it (checked above): its row counts
+            # phase 2's launches.
+            n = phase2_launches[rname]
+            extra["note"] = CROSS_CHECK_ONLY[rname]
+        else:
+            n = launches[rname]
+            if n <= 0:
+                raise AssertionError(f"{rname} was launched no time on the main path")
         table.append(dict(
             name=rname, route="cuda", source=source[kname][0],
-            replaces=source[kname][1], launches=launches[rname],
+            replaces=source[kname][1], launches=n,
             max_abs_err=max([r["max_abs_err"] for r in cases]
                             + [other_errs.get(rname, 0.0)]),
             ms=pick["ms"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
-            library_ms=pick["library_ms"], shape=pick["shape"],
+            library_ms=pick["library_ms"], shape=pick["shape"], **extra,
         ))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -194,6 +194,20 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fused decode-layer kernel: rope + new-row KV "
                             "quantization + in-place cache append + "
                             "attention in one launch per layer")
+    serve.add_argument("--spec-ngram", type=int,
+                       default=int(_env("TUNNEL_SPEC_NGRAM", "0")),
+                       help="prompt-lookup speculative decoding: match "
+                            "length (0 = off); exact-greedy verification, "
+                            "output identical to plain decode")
+    serve.add_argument("--spec-k", type=int,
+                       default=int(_env("TUNNEL_SPEC_K", "4")),
+                       help="speculative proposal length per step")
+    serve.add_argument("--spec-k-max", type=int,
+                       default=int(_env("TUNNEL_SPEC_K_MAX", "0")),
+                       help="adaptive verify-burst cap: when > --spec-k, "
+                            "each dispatch picks K from a power-of-two "
+                            "ladder up to this cap, steered by the per-slot "
+                            "acceptance EMA (0 = fixed K)")
     # The JAX serve CLI's engine knobs that the port does not run yet:
     # accepted at their off value only (see _engine_config).
     for flag, kw in _UNPORTED_FLAGS.items():
@@ -230,7 +244,6 @@ _UNPORTED_FLAGS = {
     "--quant": dict(default="none"),
     "--prefill-act-quant": _BOOL,
     "--prefix-cache-dir": dict(default=None),
-    "--spec-ngram": dict(type=int, default=0),
     "--spill-pages": dict(type=int, default=0),
     "--role": dict(default="both"),
     "--ckpt": dict(default=None),
@@ -270,7 +283,8 @@ def _engine_config(args):
         prefix_pool_blocks=args.prefix_pool_blocks,
         conv_cache=args.conv_cache and args.prefix_cache,
         prefix_evict=args.prefix_evict, spill_pages=args.spill_pages,
-        spec_ngram=args.spec_ngram, prefill_chunk=args.prefill_chunk,
+        spec_ngram=args.spec_ngram, spec_k=args.spec_k,
+        spec_k_max=args.spec_k_max, prefill_chunk=args.prefill_chunk,
         ragged_prefill=args.ragged_prefill, mux=args.mux,
         mux_budget_tokens=args.mux_budget_tokens,
         max_waiting=args.max_waiting, fair_admission=args.fair_admission,

@@ -43,31 +43,20 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "decode_tile.cuh"
 #include "kv_forms.cuh"
 
 namespace {
 
-constexpr int BS = 64;             // keys per tile (two per lane in softmax)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_G = 8;           // query rows per KV head
-constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
 
+using decode_tile::BS;             // keys per tile (two per lane in softmax)
+using decode_tile::NEG_INF;
+using decode_tile::warp_max;
+using decode_tile::warp_sum;
 using namespace kv_forms;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 __host__ __device__ constexpr size_t smem_floats(int D, int G) {
   // q [G,D] + acc [G,D] + scores [G,BS] + V tile [BS,D] + m, l, corr [G]

@@ -14,7 +14,9 @@
 // - q and the new key are roped in fp32 from the wrapper's sin/cos rows
 //   (ops/rope.rope_table) and q is multiplied by the softmax scale in fp32;
 //   rotate-half is written with __fmul_rn / __fsub_rn / __fadd_rn so no FMA
-//   contraction can move a value that the quantizer then rounds;
+//   contraction can move a value that the quantizer then rounds (the tile
+//   arithmetic is decode_tile.cuh's, shared with kernel 5, whose burst rows
+//   are bit for bit this kernel's);
 // - the new row is quantized from those fp32 values: scale = max(amax,
 //   1e-8) / qmax by IEEE division, q = rint(x / scale) (half to even)
 //   clipped to +-127 (int8) or +-7 (int4);
@@ -49,16 +51,16 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "decode_tile.cuh"
 #include "kv_forms.cuh"
 
 namespace {
 
-constexpr int BS = 64;             // keys per tile (two per lane in softmax)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_G = 8;           // query rows per KV head
-constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
 
+using namespace decode_tile;
 using namespace kv_forms;
 
 struct Args {
@@ -77,28 +79,6 @@ struct Args {
   float scale, softcap;
   int window;
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rotate-half rope of one element pair (x1 = x[dd], x2 = x[dd + D/2]) in
-// fp32: x1*cos - x2*sin, x2*cos + x1*sin, each op rounded once.
-__device__ __forceinline__ float2 rope_f32(float x1, float x2, float sn,
-                                           float cs) {
-  return make_float2(__fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn)),
-                     __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn)));
-}
 
 __host__ __device__ constexpr size_t smem_floats(int D, int G) {
   // q [G,D] + acc [G,D] + scores [G,BS] + V tile [BS,D] + m, l, corr [G]
@@ -183,15 +163,15 @@ fused_decode_kernel(const Args a) {
         xk = fmaxf(xk, red[w]);
         xv = fmaxf(xv, red[WARPS + w]);
       }
-      red[2 * WARPS] = __fdiv_rn(fmaxf(xk, 1e-8f), QMAX);
-      red[2 * WARPS + 1] = __fdiv_rn(fmaxf(xv, 1e-8f), QMAX);
+      red[2 * WARPS] = quant_scale(xk, QMAX);
+      red[2 * WARPS + 1] = quant_scale(xv, QMAX);
     }
     __syncthreads();
     const float ks = red[2 * WARPS];
     const float vs = red[2 * WARPS + 1];
     for (int d = tid; d < D; d += THREADS) {
-      const float kq = fminf(fmaxf(rintf(__fdiv_rn(kn[d], ks)), -QMAX), QMAX);
-      const float vq = fminf(fmaxf(rintf(__fdiv_rn(vn[d], vs)), -QMAX), QMAX);
+      const float kq = quant_value(kn[d], ks, QMAX);
+      const float vq = quant_value(vn[d], vs, QMAX);
       kn[d] = kq;
       vn[d] = vq;
       kd[d] = __fmul_rn(kq, ks);
@@ -231,7 +211,7 @@ fused_decode_kernel(const Args a) {
           const float2 kv = load_pair<FORM>(kb, kp, pitch, d, ksc);
 #pragma unroll
           for (int g = 0; g < MAX_G; ++g)
-            if (g < G) part[g] += qf[g * D + d] * kv.x + qf[g * D + d + 1] * kv.y;
+            if (g < G) part[g] = pair_dot(part[g], qf[g * D + d], qf[g * D + d + 1], kv);
         }
       }
 #pragma unroll
@@ -241,11 +221,7 @@ fused_decode_kernel(const Args a) {
         const bool ok = kp <= last && kp >= first && (pos - kp) < a.window;
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {
-            float s = part[g];
-            if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-            sc[g * BS + j] = ok ? s : NEG_INF;
-          }
+          if (g < G) sc[g * BS + j] = ok ? soft_cap(part[g], a.softcap) : NEG_INF;
         }
       }
     }
@@ -263,53 +239,21 @@ fused_decode_kernel(const Args a) {
     }
     __syncthreads();
 
-    for (int g = warp; g < G; g += WARPS) {
-      const float s0 = sc[g * BS + lane];
-      const float s1 = sc[g * BS + lane + 32];
-      const float mx = warp_max(fmaxf(s0, s1));
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float corr = (m_old == NEG_INF) ? 0.f : expf(m_old - m_new);
-      const float p0 = (s0 == NEG_INF) ? 0.f : expf(s0 - m_new);
-      const float p1 = (s1 == NEG_INF) ? 0.f : expf(s1 - m_new);
-      sc[g * BS + lane] = p0;
-      sc[g * BS + lane + 32] = p1;
-      const float psum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        ms[g] = m_new;
-        ls[g] = ls[g] * corr + psum;
-        cs[g] = corr;
-      }
-    }
+    for (int g = warp; g < G; g += WARPS)
+      softmax_tile(sc + g * BS, ms + g, ls + g, cs + g, lane);
     __syncthreads();
 
     for (int i = tid; i < G * D; i += THREADS) {
       const int g = i / D;
-      const int d = i - g * D;
-      const float* pr = sc + g * BS;
-      float acc_i = acc[i] * cs[g];
-#pragma unroll 8
-      for (int j = 0; j < BS; ++j) acc_i += pr[j] * vt[j * D + d];
-      acc[i] = acc_i;
+      acc[i] = pv(acc[i], cs[g], sc + g * BS, vt + (i - g * D), D);
     }
     __syncthreads();
   }
 
   // The new row's own term, folded last; warp per query row.
-  for (int g = warp; g < G; g += WARPS) {
-    float part = 0.f;
-    for (int d = lane; d < D; d += 32) part += qf[g * D + d] * kd[d];
-    float s = warp_sum(part);
-    if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-    const float m_old = ms[g];
-    const float m_new = fmaxf(m_old, s);
-    const float corr = (m_old == NEG_INF) ? 0.f : expf(m_old - m_new);
-    const float p = expf(s - m_new);
-    const float l = fmaxf(ls[g] * corr + p, 1e-30f);
-    const size_t o = (size_t(b) * a.H + size_t(kh) * G + g) * D;
-    for (int d = lane; d < D; d += 32)
-      a.out[o + d] = __float2bfloat16((acc[g * D + d] * corr + p * vd[d]) / l);
-  }
+  for (int g = warp; g < G; g += WARPS)
+    fold_emit<D>(qf + g * D, kd, vd, acc + g * D, ms[g], ls[g], a.softcap,
+                 lane, a.out + (size_t(b) * a.H + size_t(kh) * G + g) * D);
 
   // The append of this (slot, head) row; parked rows store nothing.
   if (parked) return;

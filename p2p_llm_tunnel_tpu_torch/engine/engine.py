@@ -20,7 +20,12 @@ later ones park and fan out from the pool (``engine/prefix_cache.py``).
 kernel instead (``ragged_prefill_into_cache``); ``kv_quant`` stores the KV
 cache (and the pool's pages) as int8 or packed int4 with per-(token, head)
 scales; ``fused_decode_layer`` runs each decode layer's attention
-sub-block as one kernel-4 launch.
+sub-block as one kernel-4 launch.  ``spec_ngram`` turns on prompt-lookup
+speculative decoding: each iteration proposes up to K continuation tokens
+per slot from its own history and verifies them in one synchronous burst
+(``spec_verify_into_cache``: kernel 5 under the fused decode layer, the
+chunk path otherwise), accepting the greedy-matching prefix plus one bonus
+token — greedy streams are those of plain decode.
 
 Async contract (unchanged): ``generate()`` yields TokenEvents as bursts
 land; requests admit/evict between bursts; every tensor operation runs on
@@ -80,6 +85,7 @@ from p2p_llm_tunnel_tpu_torch.models.transformer import (
     prefill_into_cache,
     ragged_prefill_into_cache,
     resolve_device,
+    spec_verify_into_cache,
 )
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import plan_ragged_group
@@ -130,7 +136,10 @@ class EngineConfig:
     dispatch through the ragged grouped kernel; off, chunk dispatches run
     ``chunk_prefill_into_cache``'s einsum attention on either device.
     ``kv_quant`` ("none" | "int8" | "int4") and ``fused_decode_layer``
-    keep theirs too (the cache's storage form; kernel 4 for decode).
+    keep theirs too (the cache's storage form; kernel 4 for decode, kernel 5
+    for verify bursts), as do ``spec_ngram`` (the proposer's match length,
+    0 = off), ``spec_k`` (proposals per burst) and ``spec_k_max`` (the
+    adaptive burst-width cap; 0 = fixed ``spec_k``).
     """
 
     model: str = "tiny"
@@ -186,7 +195,6 @@ _UNPORTED = {
     "quant": (("none", ""), "weight quantization"),
     "prefill_act_quant": ((False,), "weight quantization"),
     "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
-    "spec_ngram": ((0,), "spec decode (kernel 5)"),
     "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
     "role": (("both",), "spill tier, snapshots and KV_PAGES"),
     "ckpt_path": ((None, ""), "checkpoints and MoE"),
@@ -402,6 +410,17 @@ class InferenceEngine:
         self._sample_seed = np.zeros((rows,), np.uint32)
         self._slot_bias_on = np.zeros((rows,), bool)
         self._ov_mask = np.zeros((rows,), bool)
+        # Prompt-lookup speculation: per-slot proposer history (rid, ids,
+        # generated tokens consumed), the per-slot acceptance EMA driving
+        # the adaptive burst width, the last-64-burst (proposed, accepted)
+        # window behind engine_spec_accept_rate, and the iteration's
+        # (proposed, accepted, k) flight scratch.  Both dicts are dropped
+        # with their slot or request (_spec_drop): engine_spec_hist_entries
+        # is the leak gate.
+        self._spec_hist: Dict[int, tuple] = {}
+        self._spec_ema: Dict[int, float] = {}
+        self._spec_window: Deque[Tuple[int, int]] = deque(maxlen=64)
+        self._flight_spec = (0, 0, 0)
 
         self._requests: Dict[int, _ActiveRequest] = {}
         # Chunked-prefill state: slot -> (run, next segment start), FIFO;
@@ -560,6 +579,44 @@ class InferenceEngine:
         )
         return self._sample_rows(last_logits, samp, samp_pos, slots)
 
+    def _spec_verify_fn(self, tokens, positions, samp, kv_view: int):
+        """One speculative step over every row: the carry token and k
+        proposals at positions ``[pos .. pos+k]`` (KV written IN PLACE —
+        rejected positions hold junk the row's next step rewrites before
+        anything attends it), the longest greedy-matching proposal prefix
+        accepted, accepted + 1 tokens emitted.  Greedy rows take the
+        verifier's argmax at the first mismatch as the bonus token;
+        stochastic rows accept nothing and sample position ``pos + 1`` from
+        their own (seed, position) stream — a plain decode step.  Returns
+        (emitted ``[B, k+1]``, counts ``[B]``)."""
+        b, t = tokens.shape
+        k = t - 1
+        logits, _ = spec_verify_into_cache(
+            self.mcfg, self.params, tokens, positions, self.kv_cache,
+            kv_view=kv_view,
+        )  # [B, t, V]
+        if samp.bias_on is not None and samp.bias_on.any():
+            logits = logits + self._bias[:, None, :]
+        greedy = logits.argmax(dim=-1).to(torch.int32)  # [B, t]
+        proposals = tokens[:, 1:]
+        match = (greedy[:, :k] == proposals).to(torch.int32)
+        greedy_row = torch.as_tensor(samp.temperature <= 0.0, device=self.device)
+        n_acc = torch.where(greedy_row, torch.cumprod(match, dim=-1).sum(dim=-1),
+                            0)  # [B]
+        bonus_greedy = torch.gather(greedy, 1, n_acc[:, None].long())[:, 0]
+        # The bias is already folded into the logits.
+        sampled0 = sampling.sample(logits[:, 0], samp._replace(bias_on=None),
+                                   self._gen, pos=positions + 1)
+        bonus = torch.where(greedy_row, bonus_greedy, sampled0)
+        idx = torch.arange(t, device=self.device)[None, :]
+        prop_pad = torch.cat([proposals, torch.zeros_like(proposals[:, :1])], dim=1)
+        emitted = torch.where(
+            idx < n_acc[:, None], prop_pad,
+            torch.where(idx == n_acc[:, None], bonus[:, None],
+                        torch.zeros_like(prop_pad)),
+        )
+        return emitted, n_acc + 1
+
     # -- lifecycle ---------------------------------------------------------
 
     async def start(self) -> None:
@@ -632,14 +689,17 @@ class InferenceEngine:
 
     async def warmup(self) -> None:
         """Build the CUDA kernels (nvcc, at first use) and run one decode
-        burst and one prefill wave before serving, so no request pays for
-        either.  Eager PyTorch compiles nothing per shape, so unlike the
-        reference's per-bucket program grid one of each suffices."""
+        burst, one verify burst when speculation is on, and one prefill
+        wave before serving, so no request pays for any.  Eager PyTorch
+        compiles nothing per shape, so unlike the reference's per-bucket
+        program grid (``warmup_plan``) one of each kind suffices."""
         loop = asyncio.get_running_loop()
         t0 = time.monotonic()
         if self.device.type == "cuda":
             await loop.run_in_executor(self._executor, kernel_build.build)
         await loop.run_in_executor(self._executor, self._warm_decode)
+        if self.ecfg.spec_ngram > 0:
+            await loop.run_in_executor(self._executor, self._warm_spec)
         await loop.run_in_executor(self._executor, self._warm_prefill)
         global_metrics.set_gauge("engine_warmup_compile_s",
                                  time.monotonic() - t0)
@@ -654,6 +714,41 @@ class InferenceEngine:
         """One burst with every row parked: writes nothing."""
         self._dispatch_decode(view=self._view_buckets()[0])
         self._sync()
+
+    def _warm_spec(self) -> None:
+        """One verify burst at the widest burst with every row parked:
+        writes nothing."""
+        self._dispatch_spec(view=self._view_buckets()[0],
+                            k=self._spec_k_buckets()[-1])
+
+    def warmup_plan(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """The reference's program grid as ``(kind, bucket shape)`` pairs:
+        ``decode (view, steps)``, ``spec (view, k)`` over the adaptive
+        burst-width ladder, ``prefill (width,)``, and ``ragged (tot,)`` or
+        the ``chunk (tail, view)`` family — the shapes a serving dispatch
+        can reach.  The port compiles nothing per shape (``warmup`` runs
+        one program of each kind); the plan states what serving reaches."""
+        views = self._view_buckets()
+        steps = {self.ecfg.decode_steps}
+        if 0 < self.ecfg.decode_steps_eager < self.ecfg.decode_steps:
+            steps.add(self.ecfg.decode_steps_eager)
+        plan: List[Tuple[str, Tuple[int, ...]]] = [
+            ("decode", (v, k)) for v in views for k in sorted(steps)]
+        if self.ecfg.spec_ngram > 0:
+            plan += [("spec", (v, k))
+                     for v in views for k in self._spec_k_buckets()]
+        plan.append(("prefill", (self._bucket(1),)))
+        if self.ecfg.ragged_prefill:
+            plan.append(("ragged", (self._ragged_tot,)))
+            return plan
+        chunk_pairs = set()
+        if self._prefix is not None:
+            chunk_pairs |= {(t, v) for t in self._chunk_buckets
+                            for v in views if v >= t}
+        if self.ecfg.prefill_chunk > 0:
+            chunk_pairs |= {(self.ecfg.prefill_chunk, v) for v in views
+                            if v >= self.ecfg.prefill_chunk}
+        return plan + [("chunk", pair) for pair in sorted(chunk_pairs)]
 
     @torch.inference_mode()
     def _warm_prefill(self) -> None:
@@ -850,6 +945,9 @@ class InferenceEngine:
         finally:
             self._requests.pop(rid, None)
             self.scheduler.cancel(rid)
+            # Speculation state must not outlive its request: this is the
+            # one exit path that sees consumer cancels.
+            self._spec_drop_rid(rid)
             # Page-reservation release on EVERY exit path (finish, deadline,
             # cancel, shed, crash): the leak-gate contract.  Idempotent.
             self._release_pages(rid)
@@ -1120,13 +1218,18 @@ class InferenceEngine:
 
     def _kv_view_bucket(self) -> int:
         """Smallest bucket covering every active slot, padded by two bursts
-        (the device carry can run up to two bursts ahead of the host)."""
+        (the device carry can run up to two bursts ahead of the host) and,
+        with speculation, by the widest verify burst: its proposals' KV at
+        ``pos + K`` must be attendable, and the adaptive K can grow
+        mid-bucket."""
         n = self.ecfg.num_slots
         active = self._active_mask[:n]
         need = 1
         if active.any():
             need = int(self._positions[:n][active].max()) + 1
         need += 2 * self.ecfg.decode_steps + 1
+        if self.ecfg.spec_ngram > 0:
+            need += self._spec_k_cap()
         for view in self._view_buckets():
             if view >= need:
                 return view
@@ -1237,6 +1340,216 @@ class InferenceEngine:
         # at the next dispatch.
         self._ov_mask[i] = True
 
+    # -- speculative decoding ----------------------------------------------
+
+    #: Proposer search window: the backward n-gram scan is bounded so the
+    #: per-step host cost stays O(window), not O(context).
+    SPEC_SEARCH_WINDOW = 1024
+    #: Acceptance-EMA blend: a new burst weighs 0.2 (~5-burst memory).
+    SPEC_EMA_ALPHA = 0.2
+
+    def _spec_k_cap(self) -> int:
+        """Widest verify burst any dispatch can reach: spec_k, or
+        spec_k_max when the adaptive ladder is enabled above it."""
+        return max(self.ecfg.spec_k, self.ecfg.spec_k_max)
+
+    def _spec_adaptive(self) -> bool:
+        return self.ecfg.spec_k_max > self.ecfg.spec_k
+
+    def _spec_k_buckets(self) -> List[int]:
+        """Burst widths K a spec dispatch may select: exactly {spec_k} when
+        fixed; adaptive, the powers of two below spec_k_max plus the cap,
+        so the EMA can shrink a cold slot to K=1 and grow a hot one to the
+        cap."""
+        if not self._spec_adaptive():
+            return [self.ecfg.spec_k]
+        mx = self.ecfg.spec_k_max
+        ks = {mx}
+        k = 1
+        while k < mx:
+            ks.add(k)
+            k *= 2
+        return sorted(ks)
+
+    def _spec_pick_k(self) -> int:
+        """This dispatch's burst width: the smallest bucket covering every
+        active greedy slot's desired width (acceptance EMA x cap).  The
+        batch takes the max over slots — verify is one program over all
+        rows, so the narrowest slot just wastes a few verify columns while
+        its EMA converges."""
+        buckets = self._spec_k_buckets()
+        if not self._spec_adaptive():
+            return buckets[-1]
+        mx = self.ecfg.spec_k_max
+        init = self.ecfg.spec_k / mx
+        want = 1
+        n = self.ecfg.num_slots
+        for i in np.nonzero(self._active_mask[:n])[0]:
+            if self._temp[i] <= 0.0:
+                ema = self._spec_ema.get(int(i), init)
+                want = max(want, int(round(ema * mx)))
+        want = min(max(1, want), mx)
+        return next(b for b in buckets if b >= want)
+
+    def _spec_drop(self, slot: int) -> None:
+        """Release a slot's proposer history and acceptance EMA (eviction,
+        deadline, cancel): the registry never outlives its request."""
+        self._spec_hist.pop(slot, None)
+        self._spec_ema.pop(slot, None)
+        global_metrics.set_gauge("engine_spec_hist_entries", len(self._spec_hist))
+
+    def _spec_drop_rid(self, rid: int) -> None:
+        """Drop spec state for a request wherever it sits (the cancel path
+        knows the rid, not the slot)."""
+        for i, entry in list(self._spec_hist.items()):
+            if entry[0] == rid:
+                self._spec_drop(i)
+
+    def _propose(self, run: RunningSlot, k: int) -> np.ndarray:
+        """Prompt-lookup proposal: the continuation of the most recent
+        PRIOR occurrence of the last spec_ngram tokens in this request's
+        prompt + generation history (bounded backward search).  A bad
+        proposal is harmless — the verifier accepts only tokens greedy
+        decoding would produce — so a row without a match proposes zeros.
+        The history is cached per slot and extended incrementally."""
+        out = np.zeros((k,), np.int32)
+        n = self.ecfg.spec_ngram
+        i = run.slot
+        cached = self._spec_hist.get(i)
+        if cached is None or cached[0] != run.request.request_id:
+            # Slot reused by a new request: its predecessor's acceptance
+            # memory must not steer the newcomer's burst width.
+            self._spec_ema.pop(i, None)
+            cached = (run.request.request_id,
+                      [int(t) for t in run.request.prompt_ids], 0)
+            self._spec_hist[i] = cached
+            global_metrics.set_gauge("engine_spec_hist_entries",
+                                     len(self._spec_hist))
+        rid, hist, consumed = cached
+        gen = run.generated
+        if consumed < len(gen):
+            hist.extend(int(t) for t in gen[consumed:])
+            self._spec_hist[i] = (rid, hist, len(gen))
+        if len(hist) <= n:
+            return out
+        tail = hist[-n:]
+        lo = max(0, len(hist) - n - self.SPEC_SEARCH_WINDOW)
+        for st in range(len(hist) - n - 1, lo - 1, -1):
+            if hist[st : st + n] == tail:
+                cont = hist[st + n : st + n + k]
+                out[: len(cont)] = cont
+                break
+        return out
+
+    def _spec_usable(self) -> bool:
+        """Speculation covers rows whose features it supports: any active
+        row needing penalties or logprobs sends the whole batch down the
+        plain path, and so does a batch with no greedy row (nothing could
+        be accepted, and a synchronous step per token would lose to the
+        pipelined burst)."""
+        if self.ecfg.spec_ngram <= 0:
+            return False
+        a = self._active_mask
+        if not bool(np.any(a & (self._temp <= 0.0))):
+            return False
+        return not bool(np.any(
+            a & ((self._freq_pen != 0.0) | (self._pres_pen != 0.0)
+                 | (self._logprobs > 0))
+        ))
+
+    @torch.inference_mode()
+    def _dispatch_spec(self, *, view: Optional[int] = None,
+                       k: Optional[int] = None):
+        """(executor thread) One speculative verify step over every row;
+        returns ((emitted [R, k+1], counts [R]), request-id snapshot).
+        ``k`` is the burst width (adaptive mode picks it from the bucket
+        ladder).  Host-carried state, no pipelining: the host reads the
+        per-row counts before it can feed consumers anyway.  The device
+        decode carry goes stale, so the next plain burst gets a full
+        override patch."""
+        rows = self.ecfg.num_slots + 1
+        if k is None:
+            k = self._spec_pick_k()
+        tokens = np.zeros((rows, 1 + k), np.int32)
+        tokens[:, 0] = self._last_token
+        for i in np.nonzero(self._active_mask)[0]:
+            run = self.scheduler.slots[i] if i < self.ecfg.num_slots else None
+            if run is not None:
+                tokens[i, 1:] = self._propose(run, k)
+        active = self._active_mask
+        # Inactive rows park at max_seq: the verify burst writes nothing
+        # for them.
+        positions = np.where(active, self._positions, self.ecfg.max_seq)
+        samp = sampling.SamplingParams(
+            temperature=self._temp.copy(),
+            top_k=self._top_k.copy(),
+            top_p=self._top_p.copy(),
+            freq_pen=np.zeros((rows,), np.float32),
+            pres_pen=np.zeros((rows,), np.float32),
+            logprobs=np.zeros((rows,), np.int32),
+            seed=self._sample_seed.copy(),
+            bias_on=self._slot_bias_on & active,
+        )
+        view = self._kv_view_bucket() if view is None else view
+        emitted, counts = self._spec_verify_fn(
+            self._host(tokens), self._host(positions.astype(np.int32)), samp,
+            view,
+        )
+        assign = [
+            run.request.request_id
+            if run is not None and self._active_mask[i] else None
+            for i, run in enumerate(self.scheduler.slots)
+        ] + [None]
+        out = _HostCopy((emitted, counts)).get()
+        # The device decode carry is stale for every row now.
+        self._ov_mask[:] = True
+        return out, assign
+
+    async def _process_spec(self, outs, assign: List) -> None:
+        """Account one verify burst: each live row's accepted tokens and
+        its bonus token, cut short at a stop or limit; acceptance
+        bookkeeping (EMA, window, counters) over greedy rows only —
+        stochastic rows accept nothing by construction."""
+        emitted, counts = outs
+        k = emitted.shape[1] - 1  # this burst's width
+        n_emitted = n_rows = proposed = accepted = 0
+        for i in np.nonzero(self._active_mask)[0]:
+            run = self.scheduler.slots[i] if i < self.ecfg.num_slots else None
+            if run is None:
+                self._active_mask[i] = False
+                self._spec_drop(int(i))
+                continue
+            if run.request.request_id != assign[i]:
+                continue
+            n_rows += 1
+            if self._temp[i] <= 0.0 and k > 0:
+                acc = int(counts[i]) - 1
+                proposed += k
+                accepted += acc
+                prev = self._spec_ema.get(
+                    int(i), self.ecfg.spec_k / max(1, self._spec_k_cap()))
+                self._spec_ema[int(i)] = (
+                    (1.0 - self.SPEC_EMA_ALPHA) * prev
+                    + self.SPEC_EMA_ALPHA * (acc / k)
+                )
+            for j in range(int(counts[i])):
+                n_emitted += 1
+                self._account_token(int(i), int(emitted[i, j]))
+                if not self._active_mask[i]:
+                    break  # stop or limit mid-acceptance: surplus dropped
+            await asyncio.sleep(0)
+        if n_rows:
+            global_metrics.inc("engine_spec_tokens_total", n_emitted)
+            global_metrics.inc("engine_spec_accepted_tokens_total",
+                               n_emitted - n_rows)
+            global_metrics.inc("engine_spec_proposed_tokens_total", proposed)
+            self._spec_window.append((proposed, accepted))
+            w_prop = sum(p for p, _ in self._spec_window)
+            w_acc = sum(a for _, a in self._spec_window)
+            global_metrics.set_gauge("engine_spec_accept_rate",
+                                     (w_acc / w_prop) if w_prop else 0.0)
+            self._flight_spec = (proposed, accepted, k)
+
     def _expire_deadlines(self) -> None:
         """Evict deadline-blown requests (queue or slot) and fail their
         consumers with DeadlineExceeded; once per loop iteration."""
@@ -1244,6 +1557,7 @@ class InferenceEngine:
         for slot, req in expired:
             if slot is not None:
                 self._active_mask[slot] = False
+                self._spec_drop(slot)
             global_metrics.inc("engine_deadline_timeouts_total")
             log.warning(
                 "request %d exceeded its deadline (%s); slot reclaimed",
@@ -1271,6 +1585,7 @@ class InferenceEngine:
         evicted = self.scheduler.slots[slot] is None
         if evicted:
             self._active_mask[slot] = False
+            self._spec_drop(slot)
             if self._prefix is not None and self.ecfg.conv_cache:
                 # Every record_token eviction is a NATURAL finish.  The
                 # finished stream's KV covers positions [0, cache_len-1)
@@ -1608,11 +1923,17 @@ class InferenceEngine:
                    for run, _owner in self._prefix_waiters
                    if run.request.deadline is not None]
         min_slack = min(slacks) if slacks else None
+        # A verify burst moves up to K + 1 tokens per slot in one pass: the
+        # controller's decode-stall bound charges it as such.
+        drt = 1
+        if self._spec_usable() and any(self._active_mask):
+            drt = 1 + self._spec_pick_k()
         tokens = self._mux_ctl.budget_tokens(
             queue_depth=self.scheduler.queue_depth,
             backlog_rows=backlog,
             active_rows=active,
             min_slack_s=min_slack,
+            decode_row_tokens=drt,
         )
         global_metrics.set_gauge("engine_mux_budget_tokens", tokens)
         self._last_mux = {
@@ -1782,24 +2103,32 @@ class InferenceEngine:
 
     def _gate_fused_decode(self) -> None:
         """On the card, fence the fused decode layer when the model's head
-        geometry has no kernel-4 instance (the TPU's % 128 tiling gates do
-        not apply here)."""
+        geometry has no kernel-4 instance, or, with speculation, no kernel-5
+        instance for the widest verify burst (the TPU's % 128 tiling gates
+        do not apply here)."""
         from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
             _MAX_GROUP,
             _SUPPORTED_D,
         )
 
+        from p2p_llm_tunnel_tpu_torch.ops.fused_spec_decode import fits
+
         cfg = self.mcfg
         if not (self.ecfg.fused_decode_layer and self.device.type == "cuda"):
             return
         group = cfg.n_heads // cfg.n_kv_heads
+        why = None
         if cfg.head_dim not in _SUPPORTED_D or group > _MAX_GROUP:
-            self._fence(
-                "fused_decode_layer", False,
-                f"head_dim {cfg.head_dim} / {group} query heads per KV head "
-                f"is not a geometry the fused decode kernel is built for "
-                f"(head_dim {_SUPPORTED_D}, <= {_MAX_GROUP} per KV head)",
-            )
+            why = (f"head_dim {cfg.head_dim} / {group} query heads per KV head "
+                   f"is not a geometry the fused decode kernel is built for "
+                   f"(head_dim {_SUPPORTED_D}, <= {_MAX_GROUP} per KV head)")
+        elif self.ecfg.spec_ngram > 0:
+            # Kernel 5 holds a verify burst's T * G query rows in one block.
+            spec = fits(cfg.head_dim, self._spec_k_cap() + 1, group)
+            if spec is not None:
+                why = f"the fused verify kernel has no instance: {spec}"
+        if why is not None:
+            self._fence("fused_decode_layer", False, why)
             self.mcfg = dc_replace(self.mcfg, fused_decode_layer=False)
 
     def _fence(self, knob: str, off, reason: str) -> None:
@@ -2001,6 +2330,9 @@ class InferenceEngine:
             prefix_blocks_used=pi.used_blocks if pi is not None else 0,
             prefix_pages_reserved=pi.reserved_pages if pi is not None else 0,
             conv_inserted=self._flight_conv,
+            spec_proposed=self._flight_spec[0],
+            spec_accepted=self._flight_spec[1],
+            spec_k=self._flight_spec[2],
             cold_compiles=0,
             admit_ms=round((t_admit - it_t0) * 1000.0, 3),
             prefill_ms=round((t_prefill - t_admit) * 1000.0, 3),
@@ -2073,6 +2405,7 @@ class InferenceEngine:
                 self._flight_conv = 0
                 self._last_burst = (0, 0)
                 self._last_mux = {}
+                self._flight_spec = (0, 0, 0)
                 plain_rows = 0
                 global_flight.set_phase("admit")
                 self._expire_deadlines()
@@ -2095,6 +2428,34 @@ class InferenceEngine:
                 plain_rows += more
                 t_prefill = time.monotonic()
                 seg_rows = sum(len(s[0]) for s in segs)
+
+                if self._spec_usable() and any(self._active_mask):
+                    # Speculative step: a synchronous dispatch + fetch (the
+                    # counts must be read before consumers can be fed, so
+                    # there is no carry to pipeline).  The in-flight plain
+                    # burst drains first.
+                    global_flight.set_phase("decode_fetch")
+                    if in_flight is not None:
+                        pending, assign, t_disp = in_flight
+                        outs = await loop.run_in_executor(self._executor,
+                                                          pending.get)
+                        await self._process_burst(outs, assign)
+                        self._trace_burst(t_disp, assign)
+                        in_flight = None
+                    global_flight.set_phase("decode_dispatch")
+                    spec_out, spec_assign = await loop.run_in_executor(
+                        self._executor, self._dispatch_spec
+                    )
+                    t_spec = time.monotonic()
+                    global_flight.set_phase("process")
+                    await self._process_spec(spec_out, spec_assign)
+                    global_flight.set_phase("segments")
+                    for seg in segs:
+                        await self._finish_segments(loop, seg)
+                    await self._drain_conv_inserts(loop)
+                    self._flight_record(it_t0, t_admit, t_prefill, t_spec,
+                                        t_spec, plain_rows, seg_rows)
+                    continue
 
                 # Pipeline: dispatch burst n, THEN fetch burst n-1 — the
                 # fetch waits only for burst n-1 while burst n runs.

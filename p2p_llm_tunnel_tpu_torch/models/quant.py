@@ -6,14 +6,14 @@ the low nibble and 2i+1 in the high nibble (the reference's layout, so a
 packed cache means the same bytes in both packages).  The KV cache packs
 along the SEQUENCE axis: byte i of a slot row holds tokens 2i and 2i+1.
 
-Every write into a packed plane goes through one of the three helpers
+Every write into a packed plane goes through one of the four helpers
 below, and each stores WHOLE bytes: a nibble shared with a neighbouring
 token is merged from the byte read back, never half-written.  Unlike the
 reference (functional ``.at[].set``), they write IN PLACE and return the
-plane.  Rows past the plane's end (parked slots, a padded tail beyond
-``max_seq``) rewrite a byte of their own row with its old value where XLA's
-scatter would drop the write — torch indexing past the end faults on the
-card.
+plane.  Rows past the plane's end (parked slots, a padded tail or a verify
+burst beyond ``max_seq``) rewrite a byte of their own row with its old
+value where XLA's scatter would drop the write — torch indexing past the
+end faults on the card.
 
 Weight quantization (``QTensor``, ``QTensor4``, w8a8) is not ported here
 (ROADMAP.md, port queue: weight quantization).
@@ -108,6 +108,40 @@ def append_packed_token(plane: torch.Tensor, idx: int, slots: torch.Tensor,
     hi = torch.where(even, old_hi, vals.to(torch.int8)).to(torch.int16)
     merged = (hi * 16 + (lo & 0x0F)).to(torch.int8)
     plane[idx, slots, bidx] = torch.where(inside, merged, old)
+    return plane
+
+
+def splice_packed_rows(plane: torch.Tensor, idx: int, slots: torch.Tensor,
+                       starts: torch.Tensor,
+                       vals: torch.Tensor) -> torch.Tensor:
+    """Arbitrary-start multi-token splice, IN PLACE — the write shape of a
+    speculative verify burst: ``vals [B, T, K, D]`` int4 values land at
+    token positions ``[starts, starts + T)`` of each slot row, ``starts
+    [B]`` of any parity and ``T`` of any parity.  The covering bytes (``T//2
+    + 1`` of them span every parity case) are read, unpacked, overlaid with
+    the burst's tokens and repacked, and the same whole bytes are stored:
+    nibbles outside the burst keep their old value.  Bytes past the plane
+    (parked rows at ``start = max_seq``, a burst crossing the end) rewrite
+    their row's own old byte ``T//2 + 1`` bytes earlier, before the burst's
+    first byte, where XLA's scatter would drop them (the plane must hold
+    more than ``2 * (T//2 + 1)`` bytes per row)."""
+    b, t = vals.shape[:2]
+    nb = t // 2 + 1
+    nbytes = plane.shape[2]
+    start = starts.to(torch.long)
+    bpos = start[:, None] // 2 + torch.arange(nb, device=start.device)[None, :]
+    inside = bpos < nbytes  # [B, nb]
+    wpos = torch.where(inside, bpos, (bpos - nb).clamp(min=0))
+    rows = slots.to(torch.long)[:, None]
+    old = plane[idx, rows, wpos]  # [B, nb, K, D]
+    old_tok = unpack_int4(old, axis=1)  # [B, 2nb, K, D]
+    jrel = (torch.arange(2 * nb, device=start.device)[None, :]
+            - (start % 2)[:, None])  # [B, 2nb] burst offset of each token
+    use_new = (jrel >= 0) & (jrel < t)
+    newv = vals[torch.arange(b, device=start.device)[:, None], jrel.clamp(0, t - 1)]
+    merged = torch.where(use_new[:, :, None, None], newv.to(torch.int8), old_tok)
+    plane[idx, rows, wpos] = torch.where(
+        inside[:, :, None, None], pack_int4(merged, axis=1), old)
     return plane
 
 

@@ -6,9 +6,10 @@ with per-(token, head) scales, or int4 packed two tokens per byte along
 the sequence axis), prefill (whole prompts, batched), tail prefill against
 reused history (``chunk_prefill_into_cache``, einsum attention as in the
 reference), the ragged grouped tail prefill (``ragged_prefill_into_cache``,
-one kernel-6 launch per layer) and one-token-per-slot decode, unfused
+one kernel-6 launch per layer), one-token-per-slot decode, unfused
 (kernel 2) or through the fused decode layer (kernel 4, one launch per
-layer).
+layer), and the speculative verify burst (``spec_verify_into_cache``:
+kernel 5 fused, the chunk path otherwise).
 
 Idiom differences from the JAX reference, all deliberate:
 
@@ -48,6 +49,7 @@ from p2p_llm_tunnel_tpu_torch.models.quant import (
     _quantize_act,
     append_packed_token,
     quantize_sym,
+    splice_packed_rows,
     write_packed_chunk,
     write_packed_prefix,
 )
@@ -58,6 +60,10 @@ from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
 )
 from p2p_llm_tunnel_tpu_torch.ops.flash_attention import flash_causal_attention
 from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fused_decode_layer, rope_rows
+from p2p_llm_tunnel_tpu_torch.ops.fused_spec_decode import (
+    burst_rope_rows,
+    fused_spec_decode_layer,
+)
 from p2p_llm_tunnel_tpu_torch.ops.norms import rms_norm
 from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
 from p2p_llm_tunnel_tpu_torch.ops.rope import apply_rope
@@ -488,9 +494,12 @@ def chunk_prefill_into_cache(
     kv_cache: KVCache,
     slots: torch.Tensor,  # [Bp] cache slot per prompt
     kv_view: Optional[int] = None,  # attend only to cache[:kv_view]
+    return_all_logits: bool = False,  # [Bp, T, V] instead of the last
+    unaligned_int4: bool = False,  # arbitrary-parity int4 starts and widths
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill only the TAIL of each prompt against reused history KV (the
-    prefix-cache and chunked-prefill path).
+    prefix-cache and chunked-prefill path, and the speculative verify
+    fallback).
 
     Positions ``[0, starts)`` of each row's slot already hold history KV;
     this computes the ``lengths`` tail tokens at global positions
@@ -506,17 +515,21 @@ def chunk_prefill_into_cache(
     fault on CUDA, so they rewrite the row's own old value at ``pos - T``
     instead — a history position no real write of this call touches, and
     distinct for each such pad.  Returns last-real-tail-token logits
-    ``[Bp, V]`` and the (same, updated) cache.
+    ``[Bp, V]`` (every position's ``[Bp, T, V]`` with
+    ``return_all_logits``, as a verify burst needs) and the (same, updated)
+    cache.
 
     Quantized caches: the tail is quantized and written (int4 as whole
     bytes — every start and the padded width ``T`` must be even, which the
-    engine's page alignment guarantees), then the view is read back
-    dequantized through f32 into the activation dtype before attention,
-    exactly as the reference reads it."""
+    engine's page alignment guarantees, unless ``unaligned_int4`` routes the
+    packed writes through ``quant.splice_packed_rows``: spec verify starts
+    are arbitrary token positions), then the view is read back dequantized
+    through f32 into the activation dtype before attention, exactly as the
+    reference reads it."""
     _check_model(cfg)
     b, t = tokens.shape
     mode = kv_cache_quant_mode(kv_cache)
-    if mode == "int4" and t % 2:
+    if mode == "int4" and t % 2 and not unaligned_int4:
         raise ValueError(
             f"packed int4 chunk prefill needs an even (page-aligned) tail "
             f"width, got {t}; the engine pads tails to even buckets"
@@ -544,7 +557,9 @@ def chunk_prefill_into_cache(
             vals, sc = (_quant_kv4 if mode == "int4" else _quant_kv)(new)
             _write_rows(kv_cache[name + "_scale"][idx], rows, write_pos,
                         in_cache, sc)
-            if mode == "int4":
+            if mode == "int4" and unaligned_int4:
+                splice_packed_rows(kv_cache[name], idx, slot_idx, starts, vals)
+            elif mode == "int4":
                 write_packed_chunk(kv_cache[name], idx, rows, bpos, vals)
             else:
                 _write_rows(kv_cache[name][idx], rows, write_pos, in_cache, vals)
@@ -563,9 +578,70 @@ def chunk_prefill_into_cache(
             window=_layer_window(cfg, idx, kv_view),
         )
         x = _block_tail(cfg, blk, x, attn)
+    if return_all_logits:
+        return _logits(cfg, params, _norm(cfg, x, params["final_norm"])), kv_cache
     last = x[torch.arange(b, device=tokens.device), (lengths - 1).to(torch.long)]
     h_last = _norm(cfg, last[:, None], params["final_norm"])
     return _logits(cfg, params, h_last)[:, 0], kv_cache
+
+
+def spec_verify_into_cache(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] carry token + K proposals per slot
+    positions: torch.Tensor,  # [B] int32: global position of tokens[:, 0]
+    kv_cache: KVCache,
+    kv_view: Optional[int] = None,  # attend only to cache[:kv_view]
+    mesh=None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Speculative draft-verify burst: T = 1 + K positions per slot in ONE
+    forward pass; returns (logits ``[B, T, V]``, the same cache updated IN
+    PLACE).
+
+    With ``cfg.fused_decode_layer`` each layer's attention sub-block is ONE
+    ``fused_spec_decode_layer`` call on the pre-rope projections (kernel 5:
+    rope, quantization, the T appends and causal attention over the cache
+    with the burst's own rows substituted), one rope table per burst, and
+    the tail shared with ``decode_step``; its token streams are those of T
+    sequential fused decode steps.  Otherwise the burst runs the chunk path
+    (``chunk_prefill_into_cache`` with every position's logits) and writes
+    int4 caches through ``quant.splice_packed_rows``, spec starts being
+    arbitrary token positions.  The TPU's tiling gates do not apply on the
+    card: the engine fences the fused layer where the head geometry has no
+    kernel-5 instance.
+
+    Rejected-tail KV needs no rollback: it lies past every accepted
+    position and every mask is strictly below the query's position, so the
+    row's next burst or step rewrites it before anything attends it.
+    Inactive slots park at ``positions >= kv_view`` and write nothing."""
+    _check_model(cfg, mesh)
+    b, t = tokens.shape
+    mode = kv_cache_quant_mode(kv_cache)
+    s = _seq_len(kv_cache)
+    if kv_view is None or kv_view > s:
+        kv_view = s
+    if not cfg.fused_decode_layer:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
+        return chunk_prefill_into_cache(
+            cfg, params, tokens, lengths, positions, kv_cache,
+            torch.arange(b, device=tokens.device), kv_view=kv_view,
+            return_all_logits=True, unaligned_int4=True,
+        )
+    x = _embed(cfg, params, tokens)  # [B, T, Dm]
+    rope = burst_rope_rows(positions, t, cfg.head_dim, cfg.rope_theta)
+    for idx in range(cfg.n_layers):
+        blk = _layer(params["blocks"], idx)
+        q, k, v = _qkv_proj(cfg, blk, _norm(cfg, x, blk["attn_norm"]))
+        attn = fused_spec_decode_layer(
+            q, k, v, kv_cache["k"], kv_cache["v"], kv_cache.get("k_scale"),
+            kv_cache.get("v_scale"), positions, idx, kv_view=kv_view,
+            rope_theta=cfg.rope_theta, kv_quant=mode, scale=cfg.query_scale,
+            softcap=cfg.attn_softcap, window=_layer_window(cfg, idx, s),
+            rope=rope,
+        )
+        x = _block_tail(cfg, blk, x, attn)
+    x = _norm(cfg, x, params["final_norm"])
+    return _logits(cfg, params, x), kv_cache
 
 
 def ragged_prefill_into_cache(

@@ -18,6 +18,11 @@ reference: ``kv_quant="int8"`` reads int8 ``[B, S, K, D]`` planes,
 byte i, 2i+1 in the high), both with f32 ``[B, S, K]`` per-(token, head)
 scales (``cache_scale[l, :, :view]``).  Both dequantize in f32 and do not
 round to the activation dtype (the Pallas body's rule).
+
+The module also holds kernel 3, :func:`flash_decode_attention_plane`
+(``csrc/flash_decode_attention_plane.cu``), the counterpart of the
+reference's legacy whole-plane body: raw caches only, kept as a
+cross-check of kernel 2 and never called by the model layer.
 """
 
 from __future__ import annotations
@@ -228,3 +233,76 @@ def flash_decode_attention(
 #: per cache form.
 flash_decode_attention.launches = 0
 flash_decode_attention.form_launches = {"none": 0, "int8": 0, "int4": 0}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: the legacy whole-plane decode kernel (a cross-check only)
+# ---------------------------------------------------------------------------
+
+_PLANE = "flash_decode_attention_plane"
+#: The plane kernel's key block (the Pallas BLOCK_K): S must be a multiple.
+PLANE_BLOCK = 128
+
+
+def _plane_lib() -> ctypes.CDLL:
+    lib = kernel_build.load(_PLANE)
+    fn = lib.flash_decode_attention_plane_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+    return lib
+
+
+def flash_decode_attention_plane(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [B, S, K, D] raw
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # [B] int32
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel 3, the Hopper counterpart of the JAX package's legacy
+    ``flash_decode_attention_plane`` (``csrc/flash_decode_attention_plane.cu``):
+    the function of :func:`flash_decode_attention` on a raw cache, keys
+    ``<= pos`` within the window, from the whole plane up to the frontier.
+    Kept, as in the JAX package, only to cross-check kernel 2's online
+    softmax: the model layer never calls it.  Requires ``S % 128 == 0``, as
+    the reference does.  Its plain version is ``cached_attention``; the
+    wrapper runs that for CPU tensors only, and launches or raises for CUDA
+    tensors, under kernel 2's input rules (raw form only)."""
+    s = k_cache.shape[1]
+    if s % PLANE_BLOCK:
+        raise ValueError(f"plane decode kernel needs S % {PLANE_BLOCK} == 0, got {s}")
+    if q.device.type == "cpu":
+        return cached_attention(q, k_cache, v_cache, positions, scale=scale,
+                                softcap=softcap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_attention_plane runs on cuda or cpu, not {q.device}")
+    _check(q, k_cache, v_cache, None, None, positions, None)
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    lib = _plane_lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_decode_attention_plane_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), b, s, h, kh, d,
+            k_cache.stride(0), float(scale),
+            0.0 if softcap is None else float(softcap),
+            _NO_WINDOW if window is None else int(window), stream,
+        )
+    kernel_build.check_launch(lib, _PLANE, rc)
+    flash_decode_attention_plane.launches += 1
+    return out
+
+
+#: Kernel 3's launches since the last reset (raw form only).
+flash_decode_attention_plane.launches = 0

@@ -31,7 +31,7 @@ their output is junk the engine discards.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,12 +62,109 @@ def rope_rows(positions: torch.Tensor, d: int,
 
 
 def _rope_f32(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
-    """Rotate-half rope of ``x [B, heads, D]`` in f32 (no final rounding):
-    x1*cos - x2*sin, x2*cos + x1*sin, each product and sum rounded once."""
-    s = sin[:, None, :]
-    c = cos[:, None, :]
+    """Rotate-half rope of ``x [..., heads, D]`` in f32 (no final rounding)
+    from ``sin``/``cos`` ``[..., D/2]``: x1*cos - x2*sin, x2*cos + x1*sin,
+    each product and sum rounded once."""
+    s = sin[..., None, :]
+    c = cos[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+class NewRows(NamedTuple):
+    """The new rows of one call, as the kernels hold them (f32)."""
+
+    q: torch.Tensor  # roped, pre-scaled queries
+    k: torch.Tensor  # roped key (unrounded)
+    kq: Optional[torch.Tensor]  # quantized values (quantized forms)
+    vq: Optional[torch.Tensor]
+    ks: Optional[torch.Tensor]  # per-(token, head) scales
+    vs: Optional[torch.Tensor]
+    kd: torch.Tensor  # the key and value the new row's own term attends
+    vd: torch.Tensor
+
+
+def new_rows(q, k_new, v_new, sin, cos, scale: float,
+             form: Optional[str]) -> NewRows:
+    """Rope of q and the new key in f32, q pre-scaled, and the new row
+    quantized from the unrounded f32 values (any leading shape)."""
+    qr = _rope_f32(q, sin, cos) * scale
+    kr = _rope_f32(k_new, sin, cos)
+    vr = v_new.to(torch.float32)
+    if form is None:
+        return NewRows(qr, kr, None, None, None, None, kr, vr)
+    kq, ks = quantize_sym(kr, _QMAX[form])
+    vq, vs = quantize_sym(vr, _QMAX[form])
+    return NewRows(qr, kr, kq, vq, ks[..., 0], vs[..., 0], kq * ks, vq * vs)
+
+
+def cache_f32(k_cache, v_cache, k_scale, v_scale, layer: int, view: int,
+              form: Optional[str]):
+    """One layer's cache view ``[B, view, K, D]`` as f32 (dequantized)."""
+    rows = view // 2 if form == "int4" else view
+    kc, vc = k_cache[layer, :, :rows], v_cache[layer, :, :rows]
+    if form is None:
+        return kc.to(torch.float32), vc.to(torch.float32)
+    return (dequant_f32(kc, k_scale[layer, :, :view], form),
+            dequant_f32(vc, v_scale[layer, :, :view], form))
+
+
+def attend(q5, kc, vc, kd, vd, positions, view: int, win: int,
+           softcap: Optional[float]) -> torch.Tensor:
+    """The kernels' attention for one query position per slot: ``q5 [B, K,
+    G, D]`` (pre-scaled) over the cache view's keys strictly below
+    ``positions`` (within the window), then the new row ``kd``/``vd [B, K,
+    D]`` folded last -> ``[B, K, G, D]`` f32."""
+    sc = torch.einsum("bkgd,bskd->bkgs", q5, kc)
+    new = torch.einsum("bkgd,bkd->bkg", q5, kd)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+        new = softcap * torch.tanh(new / softcap)
+    pos = positions.to(torch.int64)[:, None]
+    j = torch.arange(view, device=q5.device)[None, :]
+    mask = (j < pos) & ((pos - j) < win)
+    sc = torch.where(mask[:, None, None, :], sc, _NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.where(sc == _NEG_INF, 0.0, torch.exp(sc - m[..., None]))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, vc)
+    l_c = p.sum(dim=-1)
+    # The new row's term, folded last (the kernel's emit step).
+    m_new = torch.maximum(m, new)
+    corr = torch.where(m == _NEG_INF, 0.0, torch.exp(m - m_new))
+    p_new = torch.exp(new - m_new)
+    acc = acc * corr[..., None] + p_new[..., None] * vd[:, :, None, :]
+    l_new = l_c * corr + p_new
+    return acc / l_new.clamp(min=1e-30)[..., None]
+
+
+def append_rows(k_cache, v_cache, k_scale, v_scale, layer: int,
+                form: Optional[str], positions, view: int, k_row, v_row,
+                rows: NewRows) -> None:
+    """Store one new row per slot at ``positions`` IN PLACE (``rows``:
+    that token's ``NewRows``, ``[B, K, D]`` leaves; raw caches store the
+    roped key ``k_row`` and ``v_row`` in the cache dtype); parked rows
+    (``pos >= view``) keep their row and scales."""
+    b = positions.shape[0]
+    live = positions.to(torch.int64) < view
+    slots = torch.arange(b, device=positions.device)[live]
+    at = positions.to(torch.int64)[live]
+    if form is None:
+        k_cache[layer, slots, at] = k_row[live].to(k_cache.dtype)
+        v_cache[layer, slots, at] = v_row[live].to(v_cache.dtype)
+        return
+    for plane, vals in ((k_cache, rows.kq), (v_cache, rows.vq)):
+        vals = vals[live].to(torch.int8)
+        if form == "int8":
+            plane[layer, slots, at] = vals
+            continue
+        old = plane[layer, slots, at // 2].to(torch.int16)
+        even = (at % 2 == 0)[:, None, None]
+        new_b = vals.to(torch.int16)
+        merged = torch.where(even, (old & 0xF0) | (new_b & 0x0F),
+                             (new_b * 16) | (old & 0x0F)) & 0xFF
+        plane[layer, slots, at // 2] = merged.to(torch.uint8).view(torch.int8)
+    k_scale[layer, slots, at] = rows.ks[live]
+    v_scale[layer, slots, at] = rows.vs[live]
 
 
 def fused_decode_plain(
@@ -83,75 +180,18 @@ def fused_decode_plain(
     form = _form(k_scale, v_scale, kv_quant)
     b, h, d = q.shape
     kh = k_new.shape[1]
-    g = h // kh
     layer = int(layer_idx)
     view = min(int(kv_view), k_cache.shape[2] * (2 if form == "int4" else 1))
     if scale is None:
         scale = d**-0.5
     win = _NO_WINDOW if window is None else int(window)
     sin, cos = rope if rope is not None else rope_rows(positions, d, rope_theta)
-    qr = _rope_f32(q, sin, cos) * scale  # [B, H, D] f32, pre-scaled
-    kr = _rope_f32(k_new, sin, cos)  # [B, K, D] f32
-    vr = v_new.to(torch.float32)
-    if form is None:
-        kd, vd = kr, vr
-    else:
-        kq, ks_new = quantize_sym(kr, _QMAX[form])
-        vq, vs_new = quantize_sym(vr, _QMAX[form])
-        kd, vd = kq * ks_new, vq * vs_new
-        ks_new, vs_new = ks_new[..., 0], vs_new[..., 0]
-
-    # Attention over the cache view, keys strictly below pos.
-    rows = view // 2 if form == "int4" else view
-    kc, vc = k_cache[layer, :, :rows], v_cache[layer, :, :rows]
-    if form is None:
-        kc, vc = kc.to(torch.float32), vc.to(torch.float32)
-    else:
-        kc = dequant_f32(kc, k_scale[layer, :, :view], form)
-        vc = dequant_f32(vc, v_scale[layer, :, :view], form)
-    q5 = qr.reshape(b, kh, g, d)
-    sc = torch.einsum("bkgd,bskd->bkgs", q5, kc)
-    new = torch.einsum("bkgd,bkd->bkg", q5, kd)
-    if softcap is not None:
-        sc = softcap * torch.tanh(sc / softcap)
-        new = softcap * torch.tanh(new / softcap)
-    pos = positions.to(torch.int64)[:, None]
-    j = torch.arange(view, device=q.device)[None, :]
-    mask = (j < pos) & ((pos - j) < win)
-    sc = torch.where(mask[:, None, None, :], sc, _NEG_INF)
-    m = sc.amax(dim=-1)
-    p = torch.where(sc == _NEG_INF, 0.0, torch.exp(sc - m[..., None]))
-    acc = torch.einsum("bkgs,bskd->bkgd", p, vc)
-    l_c = p.sum(dim=-1)
-    # The new row's term, folded last (the kernel's emit step).
-    m_new = torch.maximum(m, new)
-    corr = torch.where(m == _NEG_INF, 0.0, torch.exp(m - m_new))
-    p_new = torch.exp(new - m_new)
-    acc = acc * corr[..., None] + p_new[..., None] * vd[:, :, None, :]
-    l_new = l_c * corr + p_new
-    out = acc / l_new.clamp(min=1e-30)[..., None]
-
-    # The append; parked rows keep their row and scales.
-    live = positions.to(torch.int64) < view
-    slots = torch.arange(b, device=q.device)[live]
-    at = positions.to(torch.int64)[live]
-    if form is None:
-        k_cache[layer, slots, at] = kr[live].to(k_cache.dtype)
-        v_cache[layer, slots, at] = v_new[live].to(v_cache.dtype)
-    else:
-        for plane, vals in ((k_cache, kq), (v_cache, vq)):
-            vals = vals[live].to(torch.int8)
-            if form == "int8":
-                plane[layer, slots, at] = vals
-                continue
-            old = plane[layer, slots, at // 2].to(torch.int16)
-            even = (at % 2 == 0)[:, None, None]
-            new_b = vals.to(torch.int16)
-            merged = torch.where(even, (old & 0xF0) | (new_b & 0x0F),
-                                 (new_b * 16) | (old & 0x0F)) & 0xFF
-            plane[layer, slots, at // 2] = merged.to(torch.uint8).view(torch.int8)
-        k_scale[layer, slots, at] = ks_new[live]
-        v_scale[layer, slots, at] = vs_new[live]
+    rows = new_rows(q, k_new, v_new, sin, cos, scale, form)
+    kc, vc = cache_f32(k_cache, v_cache, k_scale, v_scale, layer, view, form)
+    out = attend(rows.q.reshape(b, kh, h // kh, d), kc, vc, rows.kd, rows.vd,
+                 positions, view, win, softcap)
+    append_rows(k_cache, v_cache, k_scale, v_scale, layer, form, positions,
+                view, rows.k, v_new, rows)
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -32,7 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_causal_attention": "flash_causal_attention.cu",
     "flash_decode_attention": "flash_decode_attention.cu",
+    "flash_decode_attention_plane": "flash_decode_attention_plane.cu",
     "fused_decode_layer": "fused_decode_layer.cu",
+    "fused_spec_decode_layer": "fused_spec_decode_layer.cu",
     "ragged_prefill_attention": "ragged_prefill_attention.cu",
 }
 

@@ -77,7 +77,6 @@ def test_env_names_match_the_jax_cli(monkeypatch):
     (["--quant", "w8a8", "--kv-quant", "int8"], "weight quantization"),
     (["--quant", "int4"], "weight quantization"),
     (["--prefill-act-quant"], "weight quantization"),
-    (["--spec-ngram", "3"], "spec decode"),
     (["--tp", "2"], "parallel/"),
     (["--replicas", "2"], "parallel/"),
 ])
@@ -86,6 +85,44 @@ def test_unported_flags_exit_with_their_queue_item(extra, item):
     with pytest.raises(SystemExit) as exc:
         cli._engine_config(args)
     assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
+
+
+def test_spec_flags_reach_the_engine_config(monkeypatch):
+    """``--spec-ngram/--spec-k/--spec-k-max`` and their ``TUNNEL_SPEC_*``
+    environment names map onto the engine config as the JAX CLI's do."""
+    for var in ("TUNNEL_SPEC_NGRAM", "TUNNEL_SPEC_K", "TUNNEL_SPEC_K_MAX"):
+        monkeypatch.delenv(var, raising=False)
+    args = cli.build_parser().parse_args(SERVE)
+    ecfg = cli._engine_config(args)
+    assert (ecfg.spec_ngram, ecfg.spec_k, ecfg.spec_k_max) == (0, 4, 0)
+    flags = ["--spec-ngram", "3", "--spec-k", "4", "--spec-k-max", "8"]
+    ecfg = cli._engine_config(cli.build_parser().parse_args(SERVE + flags))
+    jargs = j_cli.build_parser().parse_args(
+        ["serve", "--backend", "tpu", "--room", "r"] + flags)
+    assert (ecfg.spec_ngram, ecfg.spec_k, ecfg.spec_k_max) == (
+        jargs.spec_ngram, jargs.spec_k, jargs.spec_k_max) == (3, 4, 8)
+    monkeypatch.setenv("TUNNEL_SPEC_NGRAM", "2")
+    monkeypatch.setenv("TUNNEL_SPEC_K", "3")
+    monkeypatch.setenv("TUNNEL_SPEC_K_MAX", "6")
+    ecfg = cli._engine_config(cli.build_parser().parse_args(SERVE))
+    assert (ecfg.spec_ngram, ecfg.spec_k, ecfg.spec_k_max) == (2, 3, 6)
+
+
+@pytest.mark.parametrize("mux", [["--mux"], ["--no-mux"]])
+@pytest.mark.parametrize("fused", [[], ["--fused-decode-layer"]])
+@pytest.mark.parametrize("kv", ["none", "int8", "int4"])
+def test_spec_builds_an_engine_on_every_combination(kv, fused, mux):
+    """``serve --spec-ngram 3`` builds an engine on every KV form, fused or
+    not, mux or not; no combination is fenced."""
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+
+    args = cli.build_parser().parse_args(
+        SERVE + ["--kv-quant", kv, "--spec-ngram", "3", "--spec-k-max", "8"]
+        + fused + mux)
+    engine = InferenceEngine(engine_cfg=cli._engine_config(args), device="cpu")
+    assert engine.config_fences == []
+    assert engine.ecfg.spec_ngram == 3
+    assert engine.mcfg.fused_decode_layer == bool(fused)
 
 
 def test_quantized_fused_flags_build_an_engine(monkeypatch):

@@ -6,7 +6,8 @@ loaded: ``jax`` (or ``jax.*``) and the reference package
 ``p2p_llm_tunnel_tpu`` (or ``p2p_llm_tunnel_tpu.*``), matched by exact
 name or dotted prefix — a plain prefix test would also match
 ``p2p_llm_tunnel_tpu_torch``.  The module list comes from the package's
-files, so a new module is checked without editing this test.
+files, so a new module is checked without editing this test; the card's
+smoke script, ``chip_smoke.py``, is checked beside them.
 """
 
 import json
@@ -25,7 +26,7 @@ MODULES = sorted(
              if p.name == "__init__.py"
              else p.relative_to(REPO).with_suffix("").parts)
     for p in PKG.rglob("*.py")
-)
+) + ["chip_smoke"]
 
 _PROBE = """
 import importlib, json, sys
@@ -60,7 +61,7 @@ def test_probe_starts_clean(report):
     assert report["_startup"] == []
     for name in ("engine.engine", "engine.prefix_cache",
                  "ops.prefill_attention", "models.transformer",
-                 "ops.fused_decode", "models.quant"):
+                 "ops.fused_decode", "ops.fused_spec_decode", "models.quant"):
         assert f"p2p_llm_tunnel_tpu_torch.{name}" in MODULES
 
 
