@@ -24,7 +24,7 @@ Phases (any failure exits non-zero before the result line):
    logits' difference — with the raw cache and kernel 2, and with the int4
    cache and the fused decode layer; then a verify burst (kernel 5) over
    the greedy tokens of four fused decode steps against those steps'
-   logits;
+   logits (within 5% of their range, argmax agreement at least 0.8);
 5. serve the same weights again on the serve CLI's default engine (mux,
    prefix pool, conversation cache) with ``--ragged-prefill``: 8
    two-turn conversations sharing a ~300-token system prompt, every second
@@ -49,10 +49,15 @@ Phases (any failure exits non-zero before the result line):
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
-also bitwise against T sequential kernel-4 launches, kernel 3 (raw only;
-no serving path calls it) also against kernel 2.  The line before the
-last is the kernel table as one JSON object, one row per (kernel, KV
-form); the last line is ``{"ok": true, "device": {...}}``.
+also within the same tolerance of T sequential kernel-4 launches (the
+max difference printed; caches bit-exact) and bitwise equal over two
+launches on equal inputs, kernel 3 (raw only; no serving path calls it)
+also against kernel 2.  Kernel rows report the median of three timing
+runs and their spread; kernel 5's row and its library call are timed
+L2-cold (the layer rotates over a stacked cache larger than twice the
+L2).  The line before the last is the kernel table as one JSON object,
+one row per (kernel, KV form); the last line is ``{"ok": true,
+"device": {...}}``.
 ``--profile`` adds a torch.profiler window over the plain-loop engine and
 the mux engines of phases 5, 6a and 7 with every slot busy (device busy
 share, device time by kernel), and the CUDA launches of one decode step
@@ -84,7 +89,7 @@ MAX_TOKENS = 64  # tokens each stream asks for
 #: decode view the main path's prompts (120-400 bytes) land in.
 JSON_SHAPES = {"flash_causal_attention": "T256", "flash_decode_attention": "S512",
                "flash_decode_attention_plane": "S512",
-               "fused_decode_layer": "view512", "fused_spec_decode_layer": "view512",
+               "fused_decode_layer": "view512", "fused_spec_decode_layer": "T5 view512",
                "ragged_prefill_attention": "TOT1024"}
 #: Kernel 3 has no serving path (in the JAX package either): its row counts
 #: phase 2's launches and is exempt from the main-path launch check.
@@ -110,7 +115,9 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, iters: int = 20, warm: int = 3) -> float:
+def timed_ms(fn, iters: int = 20, warm: int = 3, runs: int = 3):
+    """(median, spread) in ms per call over ``runs`` timing runs of
+    ``iters`` calls each (CUDA events; spread = slowest - fastest run)."""
     import torch
 
     for _ in range(warm):
@@ -118,12 +125,48 @@ def timed_ms(fn, iters: int = 20, warm: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    times = []
+    for _ in range(runs):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times), max(times) - min(times)
+
+
+def dev_us(event) -> float:
+    """A torch.profiler event's device time in microseconds."""
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0) or 0)
+
+
+def device_ms(fn, kernel: str, iters: int = 50) -> float:
+    """Device time per launch of the CUDA kernels whose name holds
+    ``kernel``, over ``iters`` calls of ``fn`` under torch.profiler: the
+    kernel alone, without the host time between launches that CUDA events
+    also see when a call enqueues slower than the card runs it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if count == 0:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return sum(dev_us(e) for e in events) / count / 1e3
+
+
+def kernel_ms(fn, iters: int = 20) -> dict:
+    """A kernel row's time: ``ms`` (median of three runs) and ``ms_spread``."""
+    ms, spread = timed_ms(fn, iters=iters)
+    return dict(ms=ms, ms_spread=spread)
 
 
 def bound(nbytes: float, flops: float):
@@ -132,7 +175,7 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want) -> float:
+def check_close(name, got, want, ref: str = "its plain version") -> float:
     import torch
 
     err = (got.float() - want.float()).abs()
@@ -141,7 +184,7 @@ def check_close(name, got, want) -> float:
         raise AssertionError(f"{name}: kernel output has non-finite values")
     if (err > limit).any():
         raise AssertionError(
-            f"{name}: kernel disagrees with its plain version: max |err| "
+            f"{name}: kernel disagrees with {ref}: max |err| "
             f"{err.max().item():.4g} (tolerance {ATOL} + {RTOL}*|ref|)"
         )
     return err.max().item()
@@ -183,8 +226,8 @@ def prefill_case(b, t, h, kh, d, lengths, window=None, softcap=None, seed=0):
         + (f" softcap{softcap}" if softcap else "")
         + ("" if min(lengths) == t else " padded"),
         max_abs_err=err,
-        ms=timed_ms(lambda: fa.flash_causal_attention(q, k, v, valid, **kw)),
-        plain_ms=timed_ms(lambda: fa.plain(q, k, v, valid, **kw), iters=5),
+        **kernel_ms(lambda: fa.flash_causal_attention(q, k, v, valid, **kw)),
+        plain_ms=timed_ms(lambda: fa.plain(q, k, v, valid, **kw), iters=5)[0],
     )
     library_ms = None
     if softcap is None:
@@ -193,7 +236,7 @@ def prefill_case(b, t, h, kh, d, lengths, window=None, softcap=None, seed=0):
         vx = v.transpose(1, 2).repeat_interleave(h // kh, dim=1)
         am = mask[:, None]
         library_ms = timed_ms(
-            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am))
+            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am))[0]
     row["library_ms"] = library_ms
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
@@ -264,9 +307,9 @@ def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
     row = dict(
         shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
         max_abs_err=err,
-        ms=timed_ms(lambda: da.flash_decode_attention(q, k_view, v_view, pos, **kw),
+        **kernel_ms(lambda: da.flash_decode_attention(q, k_view, v_view, pos, **kw),
                     iters=50),
-        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos, **kw)),
+        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos, **kw))[0],
     )
     kd, vd = k_view, v_view
     if form is not None:
@@ -279,7 +322,7 @@ def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
     am = am[:, None, None, :]
     row["library_ms"] = timed_ms(
         lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am),
-        iters=50)
+        iters=50)[0]
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -370,9 +413,9 @@ def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
         shape=f"B{b} view{view} S{s_max} H{h} K{kh} D{d} "
               f"parked{sum(p >= view for p in positions)}",
         max_abs_err=err,
-        ms=timed_ms(lambda: fd.fused_decode_layer(q, kn, vn, *c1, pos, layer, **kw),
+        **kernel_ms(lambda: fd.fused_decode_layer(q, kn, vn, *c1, pos, layer, **kw),
                     iters=50),
-        plain_ms=timed_ms(lambda: fd.plain(q, kn, vn, *c2, pos, layer, **kw)),
+        plain_ms=timed_ms(lambda: fd.plain(q, kn, vn, *c2, pos, layer, **kw))[0],
     )
     rows = view // 2 if form == "int4" else view
     kd, vd = c1[0][layer, :, :rows], c1[1][layer, :, :rows]
@@ -385,7 +428,7 @@ def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
     last = pos.long().clamp(max=view - 1)
     am = (torch.arange(view, device="cuda")[None, :] <= last[:, None])[:, None, None, :]
     row["library_ms"] = timed_ms(
-        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50)
+        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50)[0]
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -404,6 +447,53 @@ def spec_positions(b: int, view: int) -> list:
     return (act * b)[: b - 1] + [MAX_SEQ]
 
 
+#: Live cache bytes a rotation over stacked layers must exceed for an
+#: L2-cold time: over twice the H100's 50 MB L2, with margin.
+L2_COLD_BYTES = 128e6
+#: max |kernel 5 - T sequential kernel-4 launches| per kernel-table row,
+#: over phase 2 (printed, held to the same tolerance as the plain version).
+SEQ_DIFF: dict = {}
+
+
+def spec_cold_layers(positions, view, kh, d, form) -> int:
+    """Layers of a stacked cache whose live bytes (each slot's committed
+    keys and their scales), rotated over, exceed ``L2_COLD_BYTES``."""
+    keys = sum(min(p, view) for p in positions)
+    per_layer = 2 * keys * kh * (d * ELEM_BYTES[form] + (4 if form else 0))
+    return max(2, -(-int(L2_COLD_BYTES) // int(per_layer)) + 1)
+
+
+def spec_inputs(h, kh, d, form, t, view, s_max, layers, seed, window=None,
+                softcap=None):
+    """Kernel 5's inputs at the serving positions: (q, k_new, v_new, the
+    cache leaves [k, v, k_scale, v_scale], positions, kwargs)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops import fused_spec_decode as fs
+
+    b = NUM_SLOTS + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    q, kn, vn = rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d)
+    kc, ks = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    vc, vs = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
+    pos = torch.tensor(spec_positions(b, view), dtype=torch.int32, device="cuda")
+    kw = dict(kv_view=view, rope_theta=500000.0, kv_quant=form, window=window,
+              softcap=softcap, rope=fs.burst_rope_rows(pos, t, d, 500000.0))
+    return q, kn, vn, [kc, vc, ks, vs], pos, kw
+
+
+def rotating(fn, layers: int):
+    """``fn(layer)`` over layers 0, 1, ..., layers - 1, 0, ... per call."""
+    import itertools
+
+    it = itertools.count()
+    return lambda: fn(next(it) % layers)
+
+
 def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
               layers=2, window=None, softcap=None, seed=0, timed=True):
     """Kernel 5 in ``form`` on clones of one random cache: (a) against its
@@ -411,7 +501,12 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
     (values and scales) BIT-EXACT, only the live tokens' rows changed, an
     int4 burst's neighbour nibbles and the parked row untouched; (b)
     against ``t`` sequential kernel-4 launches on the same inputs and rope
-    rows — caches bit-exact and attention BITWISE."""
+    rows — attention within the same tolerance (the max difference goes
+    to ``SEQ_DIFF``), caches bit-exact; (c) a second launch on equal
+    inputs — attention and caches BITWISE the first's.  Timed, the kernel
+    and its library yardstick run L2-cold: the kernel rotates the layer
+    over a stacked cache of ``spec_cold_layers`` layers, the library call
+    over two dequantized copies."""
     import torch
     import torch.nn.functional as F
 
@@ -421,21 +516,14 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
 
     b = NUM_SLOTS + 1
     positions = spec_positions(b, view)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda").bfloat16()
-
-    q, kn, vn = rnd(b, t, h, d), rnd(b, t, kh, d), rnd(b, t, kh, d)
-    kc, ks = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
-    vc, vs = cache_form(rnd(layers, b, s_max, kh, d), form, 2)
-    orig = [kc, vc, ks, vs]
-    c1, c2, c3 = ([None if x is None else x.clone() for x in orig] for _ in range(3))
-    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    if timed:
+        layers = spec_cold_layers(positions, view, kh, d, form)
+    q, kn, vn, orig, pos, kw = spec_inputs(h, kh, d, form, t, view, s_max,
+                                           layers, seed, window, softcap)
+    c1, c2, c3, c4 = ([None if x is None else x.clone() for x in orig]
+                      for _ in range(4))
     layer = layers - 1
-    rope = fs.burst_rope_rows(pos, t, d, 500000.0)
-    kw = dict(kv_view=view, rope_theta=500000.0, kv_quant=form,
-              window=window, softcap=softcap, rope=rope)
+    rope = kw["rope"]
     got = fs.fused_spec_decode_layer(q, kn, vn, *c1, pos, layer, **kw)
     want = fs.plain(q, kn, vn, *c2, pos, layer, **kw)
     seq = torch.stack([fd.fused_decode_layer(
@@ -444,15 +532,21 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
         kv_quant=form, window=window, softcap=softcap,
         rope=(rope[0][:, i].contiguous(), rope[1][:, i].contiguous()))
         for i in range(t)], dim=1)
+    again = fs.fused_spec_decode_layer(q, kn, vn, *c4, pos, layer, **kw)
     torch.cuda.synchronize()
-    name = (f"{row_name('fused_spec_decode_layer', form)} T{t} H{h} K{kh} D{d} "
-            f"window {window} softcap {softcap}")
+    rname = row_name('fused_spec_decode_layer', form)
+    name = f"{rname} T{t} H{h} K{kh} D{d} window {window} softcap {softcap}"
     live = (pos[:, None].long() + torch.arange(t, device="cuda")[None, :]) < view
     err = check_close(name, got[live], want[live])
-    if not torch.equal(got[live], seq[live]):
-        raise AssertionError(f"{name}: not bitwise equal to {t} sequential kernel-4 "
-                             f"launches ({int(got[live].ne(seq[live]).sum())} values)")
-    for ref, what in ((c2, "the plain version's"), (c3, "the sequential kernel-4 launches'")):
+    seq_err = check_close(name, got[live], seq[live],
+                          ref=f"{t} sequential kernel-4 launches")
+    SEQ_DIFF[rname] = max(SEQ_DIFF.get(rname, 0.0), seq_err)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on equal inputs differ in "
+                             f"{int(got.ne(again).sum())} values")
+    for ref, what in ((c2, "the plain version's"),
+                      (c3, "the sequential kernel-4 launches'"),
+                      (c4, "a second launch's")):
         for leaf, a, w in zip(("k", "v", "k_scale", "v_scale"), c1, ref):
             if a is not None and not torch.equal(a, w):
                 raise AssertionError(f"{name}: cache leaf {leaf} differs from "
@@ -486,6 +580,7 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
                                              f"neighbour's nibble in byte {byte}")
     if not timed:
         return err
+    del c2, c3, c4, orig
     eb = ELEM_BYTES[form]
     cache_keys = sum(min(p, view) for p in positions)  # read from the cache
     n_live = int(live.sum())
@@ -493,27 +588,33 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
     nbytes = (2 * eb * cache_keys * kh * d + (2 * 4 * cache_keys * kh if form else 0)
               + 2 * b * t * h * d * 2 + 2 * 2 * b * t * kh * d + 2 * 4 * b * t * d // 2
               + n_live * (2 * eb * kh * d + (8 * kh if form else 0)) + 4 * b)
+    launch = rotating(lambda lay: fs.fused_spec_decode_layer(
+        q, kn, vn, *c1, pos, lay, **kw), layers)
     row = dict(
         shape=f"B{b} T{t} view{view} S{s_max} H{h} K{kh} D{d} "
-              f"parked{sum(p >= view for p in positions)}",
+              f"parked{sum(p >= view for p in positions)} L2-cold{layers}",
         max_abs_err=err,
-        ms=timed_ms(lambda: fs.fused_spec_decode_layer(q, kn, vn, *c1, pos, layer, **kw),
-                    iters=50),
-        plain_ms=timed_ms(lambda: fs.plain(q, kn, vn, *c2, pos, layer, **kw), iters=5),
+        **kernel_ms(launch, iters=50),
+        device_ms=device_ms(launch, "fused_spec_kernel"),
+        plain_ms=timed_ms(lambda: fs.plain(q, kn, vn, *c1, pos, layer, **kw),
+                          iters=5)[0],
     )
     rows = view // 2 if form == "int4" else view
-    kd, vd = c1[0][layer, :, :rows], c1[1][layer, :, :rows]
-    if form is not None:
-        kd = da.dequant_f32(kd, c1[2][layer, :, :view], form)
-        vd = da.dequant_f32(vd, c1[3][layer, :, :view], form)
-    kx = kd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    vx = vd.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    copies = []
+    for lay in (0, 1):  # two dequantized copies, ~71 MB each at llama3-8b
+        kd, vd = c1[0][lay, :, :rows], c1[1][lay, :, :rows]
+        if form is not None:
+            kd = da.dequant_f32(kd, c1[2][lay, :, :view], form)
+            vd = da.dequant_f32(vd, c1[3][lay, :, :view], form)
+        copies.append([x.bfloat16().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+                       for x in (kd, vd)])
     qh = q.transpose(1, 2)  # [B, H, T, D]
     at = pos.long()[:, None] + torch.arange(t, device="cuda")[None, :]  # [B, T]
     am = torch.arange(view, device="cuda")[None, None, :] <= at.clamp(max=view - 1)[:, :, None]
     am = am[:, None]  # causal T-row mask [B, 1, T, view]
-    row["library_ms"] = timed_ms(
-        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50)
+    row["library_ms"] = timed_ms(rotating(
+        lambda i: F.scaled_dot_product_attention(qh, *copies[i], attn_mask=am),
+        2), iters=50)[0]
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * attended)
     return row
 
@@ -553,11 +654,12 @@ def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **k
     row = dict(
         shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
         max_abs_err=err,
-        ms=timed_ms(lambda: da.flash_decode_attention_plane(q, kc, vc, pos, **kw),
+        **kernel_ms(lambda: da.flash_decode_attention_plane(q, kc, vc, pos, **kw),
                     iters=50),
-        plain_ms=timed_ms(lambda: da.plain(q, kc, vc, pos, **kw)),
+        plain_ms=timed_ms(lambda: da.plain(q, kc, vc, pos, **kw))[0],
         library_ms=timed_ms(
-            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am), iters=50),
+            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am),
+            iters=50)[0],
     )
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * sum(live))
     return row
@@ -646,7 +748,8 @@ def preset_checks() -> dict:
         print(f"[kernels] {preset} quantized decode, fused layer, verify burst "
               f"and plane kernel, max|err| "
               + ", ".join(f"{k} {v:.3e}" for k, v in more.items())
-              + "; caches bit-exact, verify bursts bitwise = sequential kernel 4")
+              + "; caches bit-exact, verify bursts within tolerance of sequential "
+              "kernel 4 and bitwise run to run")
         for k, v in more.items():
             errs[k] = max(errs[k], v)
     return errs
@@ -761,10 +864,10 @@ def ragged_case(h, kh, d, form=None):
         shape=f"rows{rows} TOT{RAGGED_TOT} BQ16 H{h} K{kh} D{d} "
               f"hist{sorted({st for st, _ in RAGGED_ROWS})}",
         max_abs_err=c["err"],
-        ms=timed_ms(c["run"]),
-        plain_ms=timed_ms(c["run_plain"], iters=5),
+        **kernel_ms(c["run"]),
+        plain_ms=timed_ms(c["run_plain"], iters=5)[0],
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-            qp, kp, vp, attn_mask=mask)),
+            qp, kp, vp, attn_mask=mask))[0],
     )
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * h * d * pairs)
     return row
@@ -828,10 +931,10 @@ def kernel_phase(cfg) -> dict:
     for form in FORMS:
         rows[row_name("fused_decode_layer", form)] = [fused_case(h, kh, d, form)]
     for form in FORMS:
-        # The serving burst (--spec-k 4), and untimed the widest burst of
-        # --spec-k-max 8 (T 9) at this geometry.
-        rows[row_name("fused_spec_decode_layer", form)] = [spec_case(h, kh, d, form)]
-        spec_case(h, kh, d, form, t=9, seed=1, timed=False)
+        # The serving burst (--spec-k 4; the JSON row) and the widest burst
+        # of --spec-k-max 8 (T 9), both L2-cold.
+        rows[row_name("fused_spec_decode_layer", form)] = [
+            spec_case(h, kh, d, form), spec_case(h, kh, d, form, t=9, seed=1)]
     for form in FORMS:
         rows[row_name("ragged_prefill_attention", form)] = [ragged_case(h, kh, d, form)]
     for name, cases in rows.items():
@@ -839,8 +942,9 @@ def kernel_phase(cfg) -> dict:
               f"{ATOL} + {RTOL}*|ref|; quantized caches bit-exact)")
         for r in cases:
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
-                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"kernel {r['ms']:.4f} ms (spread {r['ms_spread']:.4f}){dev}  plain {r['plain_ms']:.4f} ms  "
                   f"library {lib} ms  bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     return rows
@@ -1106,10 +1210,6 @@ async def profile_phase(engine, n_requests: int, max_tokens: int) -> dict:
         engine._decode_fn = decode_fn
         engine._dispatch_spec = dispatch_spec
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
-
     kernels = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:14]
@@ -1205,9 +1305,10 @@ def spec_logits_phase(cfg, params, prompt_len: int = 200, t: int = SPEC_T) -> di
     """The verify burst at model level on the int4 cache with the fused
     layers: ``spec_verify_into_cache`` over the first token and the greedy
     tokens of ``t - 1`` sequential ``decode_step``s, against those ``t``
-    steps' logits (within the phase's 5% bound) — argmax agreement and the
-    cache bytes that differ are reported, not required: the projections'
-    cuBLAS products differ at M = t and M = 1."""
+    steps' logits: within the phase's 5% bound, with argmax agreement at
+    least 0.8; the cache bytes that differ are reported, not required
+    (kernel 5 and kernel 4 sum in another order, so a layer's output, and
+    the next layer's K/V, differ within tolerance)."""
     import dataclasses
 
     import torch
@@ -1244,12 +1345,13 @@ def spec_logits_phase(cfg, params, prompt_len: int = 200, t: int = SPEC_T) -> di
         raise AssertionError("verify-burst logits are not finite")
     diff = (logits - seq).abs().max().item()
     limit = 0.05 * seq.abs().max().item()
-    if diff > limit:
-        raise AssertionError(f"verify-burst logits drift {diff:.4g} > {limit:.4g} "
-                             f"from {t} sequential decode steps")
+    agree = (logits.argmax(-1) == seq.argmax(-1)).float().mean().item()
+    if diff > limit or agree < 0.8:
+        raise AssertionError(f"verify-burst logits drift {diff:.4g} (limit "
+                             f"{limit:.4g}), argmax agreement {agree:.2f} (at "
+                             f"least 0.8) against {t} sequential decode steps")
     mismatch = {k: int(cache[k].ne(seq_cache[k]).sum()) for k in cache}
-    return dict(max_abs_diff=diff, limit=limit, rows=t,
-                argmax_agree=(logits.argmax(-1) == seq.argmax(-1)).float().mean().item(),
+    return dict(max_abs_diff=diff, limit=limit, rows=t, argmax_agree=agree,
                 cache_mismatch=mismatch,
                 cache_entries={k: cache[k].numel() for k in cache})
 
@@ -1580,6 +1682,10 @@ def main() -> int:
     rows = kernel_phase(cfg)
     other_errs = preset_checks()
     other_errs.update(ragged_preset_checks())
+    print("[kernels] max |kernel 5 - T sequential kernel-4 launches| over every "
+          f"geometry and burst width (tolerance {ATOL} + {RTOL}*|ref|; caches "
+          "bit-exact; two launches on equal inputs bitwise equal): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in SEQ_DIFF.items()))
     phase2_launches = read_counters()
     if args.kernels_only:
         return 0
@@ -1731,8 +1837,10 @@ def main() -> int:
                  min(len(a["ids"]), len(b["ids"])))
         agree.append(n)
     print(f"[7] tokens before the first divergence from 6a, per stream (turn 1, "
-          f"then turn 2; printed, not required — cuBLAS products differ at "
-          f"M = B*T and M = B): {agree}")
+          f"then turn 2; printed, not required — on the card greedy identity "
+          f"with speculation on and off is not claimed: cuBLAS products differ "
+          f"at M = B*T and M = B, and kernel 5 sums in another order than "
+          f"kernel 4): {agree}")
     add_launches(m7["launches"])
     free_engine(e7)
     del e7
@@ -1797,9 +1905,10 @@ def main() -> int:
             replaces=source[kname][1], launches=n,
             max_abs_err=max([r["max_abs_err"] for r in cases]
                             + [other_errs.get(rname, 0.0)]),
-            ms=pick["ms"], plain_ms=pick["plain_ms"],
+            ms=pick["ms"], ms_spread=pick["ms_spread"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
-            library_ms=pick["library_ms"], shape=pick["shape"], **extra,
+            library_ms=pick["library_ms"], shape=pick["shape"],
+            **{k: pick[k] for k in ("device_ms",) if k in pick}, **extra,
         ))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

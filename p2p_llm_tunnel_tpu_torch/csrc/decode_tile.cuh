@@ -1,16 +1,16 @@
-// The per-tile arithmetic of the fused decode kernels (kernel 4,
-// fused_decode_layer.cu, and kernel 5, fused_spec_decode_layer.cu): rope,
-// the new row's quantizer, one lane's share of a query-key dot product, the
+// The per-tile arithmetic of the fused decode layer (kernel 4,
+// fused_decode_layer.cu): one lane's share of a query-key dot product, the
 // online-softmax update of one query row over a 64-key tile, the P.V
-// accumulation, and the fold of a row's own new key.
+// accumulation and the fold of a row's own new key; and the pieces the
+// fused verify layer (kernel 5, fused_spec_decode_layer.cu) shares with it:
+// the warp reductions, rope, the new row's quantizer and the soft cap.
 //
 // Every multiply-add is spelled with an explicit rounding intrinsic, so the
-// compiler cannot contract it differently in the two kernels: kernel 5's
-// output for burst row t is then bit for bit kernel 4's at position pos + t
-// after the t earlier appends (a verify burst returns what T decode steps
-// would).  A tile whose keys are all masked for a row leaves that row's m, l
-// and accumulator unchanged, so kernel 5 may walk more tiles than kernel 4
-// does for one of its rows.
+// compiler cannot contract it differently from one build to the next.  The
+// rope and the quantizer are what the two kernels must agree on bit for
+// bit: a verify burst appends the same cache bytes and scales as T decode
+// steps.  Kernel 5's attention sums in its own order (split-KV, tensor
+// cores) and agrees with kernel 4's within a tolerance.
 
 #pragma once
 

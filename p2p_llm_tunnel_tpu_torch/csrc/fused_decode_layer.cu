@@ -14,9 +14,9 @@
 // - q and the new key are roped in fp32 from the wrapper's sin/cos rows
 //   (ops/rope.rope_table) and q is multiplied by the softmax scale in fp32;
 //   rotate-half is written with __fmul_rn / __fsub_rn / __fadd_rn so no FMA
-//   contraction can move a value that the quantizer then rounds (the tile
-//   arithmetic is decode_tile.cuh's, shared with kernel 5, whose burst rows
-//   are bit for bit this kernel's);
+//   contraction can move a value that the quantizer then rounds (the rope
+//   and quantizer are decode_tile.cuh's, shared with kernel 5, whose
+//   appended bytes and scales are bit for bit this kernel's);
 // - the new row is quantized from those fp32 values: scale = max(amax,
 //   1e-8) / qmax by IEEE division, q = rint(x / scale) (half to even)
 //   clipped to +-127 (int8) or +-7 (int4);

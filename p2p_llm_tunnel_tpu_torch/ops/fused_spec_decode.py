@@ -7,20 +7,25 @@ launch per layer: rope of the T query rows and new keys at positions ``pos
 appends IN PLACE, and for each row ``t`` attention over the cache's keys
 below ``pos + t`` — the burst's earlier rows ``t' < t`` substituted at
 their positions, as the cache will hold them — with row ``t``'s own term
-folded last.  Row ``t``'s output is, bit for bit, kernel 4's at position
-``pos + t`` after the ``t`` earlier appends: a verify burst writes and
-returns what T decode steps would, which keeps greedy streams identical
-with speculation on and off.  Rows with ``pos + t >= min(kv_view, S)``
-are parked per token: nothing is stored, their output is junk.
+folded last.  Rows with ``pos + t >= min(kv_view, S)`` are parked per
+token: nothing is stored, their output is junk.
 
 The kernel is ``csrc/fused_spec_decode_layer.cu`` (CUDA C++, sm_90a, built
-at first use and loaded with ctypes — see ``ops/kernel_build.py``).  Its
-plain version is :func:`fused_spec_decode_plain`, with kernel 4's rounding
-points (``ops/fused_decode``): the substituted earlier rows are the values
-the cache stores (raw: rounded to the cache dtype; quantized: dequantized),
-a row's own term uses the unrounded f32 (raw) or dequantized values.  The
-wrapper runs it for tensors on the CPU, and only because they lie on the
-CPU; for CUDA tensors it launches the kernel or raises.
+at first use and loaded with ctypes — see ``ops/kernel_build.py``): split
+over the committed keys (:func:`spec_splits`), tensor-core products over
+the burst's T·G rows, and the splits merged inside the same launch by the
+last block to arrive.  Its plain version is :func:`fused_spec_decode_plain`,
+with kernel 4's rounding points (``ops/fused_decode``): the substituted
+earlier rows are the values the cache stores (raw: rounded to the cache
+dtype; quantized: dequantized), a row's own term uses the unrounded f32
+(raw) or dequantized values.  On the CPU the plain version is bitwise T
+sequential plain kernel-4 calls, which keeps greedy streams identical with
+speculation on and off there.  On the card the kernel sums in another
+order and rounds q and P to bf16 for its products: it matches its plain
+version and T kernel-4 launches within a tolerance, its appended bytes and
+scales bit for bit.  The wrapper runs the plain version for tensors on the
+CPU, and only because they lie on the CPU; for CUDA tensors it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -46,19 +51,43 @@ from p2p_llm_tunnel_tpu_torch.ops.fused_decode import (
 )
 
 _NAME = "fused_spec_decode_layer"
-#: Query rows one block holds: T * G <= 72 (spec_k_max 8 at G = 8).
+#: Query rows of one (slot, KV head): T * G <= 72 (spec_k_max 8 at G = 8).
 MAX_ROWS = 72
 #: Shared memory a block may use on the card (H100: 227 KB).
 MAX_SMEM_BYTES = 232448
 _BS = 64  # keys per tile (csrc/fused_spec_decode_layer.cu)
+_PAD = 8  # bf16 row padding of q and the K/V tiles
+#: Blocks a launch aims for: four per SM of an H100 (132 SMs).
+_TARGET_BLOCKS = 4 * 132
+#: Splits per (slot, head) at most: bounds the partials' workspace.
+MAX_SPLITS = 32
+
+
+def spec_splits(view: int, b: int, kh: int) -> Tuple[int, int]:
+    """``(nsplit, keys_per_split)`` of one launch: the committed keys
+    ``[0, view)`` cut into ``nsplit`` runs of ``keys_per_split`` keys, a
+    whole number of 64-key tiles each (the last run may reach past
+    ``view``), so that ``b * kh * nsplit`` blocks come near four per SM."""
+    tiles = max(1, -(-int(view) // _BS))
+    want = -(-_TARGET_BLOCKS // max(1, b * kh))
+    per = -(-tiles // max(1, min(want, tiles, MAX_SPLITS)))
+    return -(-tiles // per), per * _BS
+
+
+def _key_slices(mt: int) -> int:
+    """Warps that share a 64-key tile by key slices, per 16-row tile."""
+    return 4 if mt == 1 else (2 if mt == 2 else 1)
 
 
 def smem_bytes(d: int, t: int, g: int) -> int:
-    """Dynamic shared memory of one block, as the kernel lays it out: q and
-    acc [T*G, D], scores [T*G, 64], a V tile [64, D], m/l/corr [T*G], the
-    new rows' five [T, D] planes and two scales per token — all f32."""
-    r = t * g
-    return 4 * (2 * r * d + r * _BS + _BS * d + 3 * r + 5 * t * d + 2 * t)
+    """Dynamic shared memory of one block, as the kernel lays it out: the
+    attention phase (q [RP, D+8] bf16, RP = T*G padded to 16, and two
+    stages of bf16 K and V tiles [64, D+8]) or the merge phase (the new
+    rows' five [T, D] f32 planes and two scales per token), the larger."""
+    rp = -(-t * g // 16) * 16
+    attn = 2 * rp * (d + _PAD) + 2 * 2 * 2 * _BS * (d + _PAD)
+    merge = 4 * (5 * t * d + 2 * t)
+    return max(attn, merge)
 
 
 def fits(d: int, t: int, g: int) -> Optional[str]:
@@ -142,10 +171,24 @@ def _lib() -> ctypes.CDLL:
     fn = lib.fused_spec_decode_layer_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
+
+
+#: Per-(slot, head) arrival counters, int32 [B*K] per (device, B, K): zeroed
+#: once; the kernel's last block of each (slot, head) leaves its counter 0.
+#: Launches that share them run in order on one stream, as the engine's do.
+_ARRIVALS: dict = {}
+
+
+def _arrivals(device: torch.device, b: int, kh: int) -> torch.Tensor:
+    key = (device, b, kh)
+    buf = _ARRIVALS.get(key)
+    if buf is None:
+        buf = _ARRIVALS[key] = torch.zeros(b * kh, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
@@ -188,6 +231,9 @@ def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
         if not x.is_contiguous() or x.data_ptr() % 4:
             raise ValueError("fused_spec_decode_layer kernel needs contiguous, "
                              "4-byte aligned tensors")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("fused_spec_decode_layer kernel copies cache rows 16 "
+                         "bytes at a time: the caches must be 16-byte aligned")
     if positions.dtype != torch.int32 or tuple(positions.shape) != (b,):
         raise ValueError("positions must be a contiguous [B] int32 tensor")
     devices = {x.device for x in tensors}
@@ -241,6 +287,12 @@ def fused_spec_decode_layer(
     quantized = form is not None
     lib = _lib()
     out = torch.empty_like(q)
+    nsplit, split_keys = spec_splits(view, b, kh)
+    rows = t * (h // kh)
+    parts = b * kh * nsplit * _key_slices(-(-rows // 16)) * rows
+    part_acc = torch.empty(parts * d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(parts * 2, dtype=torch.float32, device=q.device)
+    arrivals = _arrivals(q.device, b, kh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fused_spec_decode_layer_launch(
@@ -249,8 +301,9 @@ def fused_spec_decode_layer(
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             sin.data_ptr(), cos.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, t, s, h, kh, d, n_layers, layer, view,
-            KV_FORMS[form], float(scale),
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            arrivals.data_ptr(), b, t, s, h, kh, d, n_layers, layer, view,
+            KV_FORMS[form], nsplit, split_keys, float(scale),
             0.0 if softcap is None else float(softcap),
             _NO_WINDOW if window is None else int(window), stream,
         )

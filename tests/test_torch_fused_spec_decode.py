@@ -18,7 +18,11 @@ sequential port ``decode_step``s.
 - Against T sequential plain kernel-4 calls (``fused_decode_plain``) in
   bf16 at S 512 with window None and 64, every form: attention and cache
   BITWISE — the property that keeps greedy streams identical with
-  speculation on and off.
+  speculation on and off on the CPU (the CUDA kernel sums in another
+  order and is held within a tolerance on the card, ``chip_smoke.py``).
+- The kernel's launch geometry: ``spec_splits`` covers every key once in
+  whole 64-key tiles and fills the card at the serving shape; ``fits``
+  admits every served preset up to ``--spec-k-max 8``.
 - ``splice_packed_rows`` bit-exact against the JAX package's at odd and
   even starts and widths, parked starts at S and bursts crossing S (the
   out-of-bounds bytes this port rewrites instead of dropping).
@@ -268,5 +272,39 @@ def test_spec_verify_matches_jax(bridged, form, fused):
 def test_spec_wrapper_refuses_bursts_the_kernel_has_no_block_for():
     assert fs.fits(128, 5, 4) is None and fs.fits(128, 9, 8) is None
     assert "72" in fs.fits(128, 10, 8)
-    assert "shared memory" in fs.fits(256, 9, 8)
+    # The split layout keeps the rows' state in registers: every head dim
+    # holds the 72-row limit within the card's shared memory, D 256 too.
+    assert fs.fits(256, 9, 8) is None
+    assert fs.smem_bytes(256, 9, 8) <= fs.MAX_SMEM_BYTES
+    assert "72" in fs.fits(256, 73, 1)
     assert fs.fits(48, 5, 4) is not None
+
+
+@pytest.mark.parametrize("view,b,kh", [
+    (512, 17, 8), (256, 17, 8), (1024, 17, 8), (64, 17, 8), (1, 1, 1),
+    (256, 1, 8), (300, 2, 2), (4096, 1, 2), (8192, 64, 8), (960, 5, 4),
+])
+def test_spec_splits_cover_every_key_once_in_whole_tiles(view, b, kh):
+    nsplit, keys = fs.spec_splits(view, b, kh)
+    assert keys > 0 and keys % 64 == 0 and 1 <= nsplit <= fs.MAX_SPLITS
+    # Split s holds [s * keys, (s + 1) * keys): every key of [0, view)
+    # exactly once, and no split starts at or past the view.
+    owner = [k // keys for k in range(view)]
+    assert owner == sorted(owner) and owner[-1] == nsplit - 1
+    assert (nsplit - 1) * keys < view <= nsplit * keys
+
+
+def test_spec_splits_fill_the_card_at_the_serving_shape():
+    nsplit, keys = fs.spec_splits(512, 17, 8)
+    assert nsplit >= 4 and keys == 128
+    assert 17 * 8 * nsplit >= 4 * 132
+
+
+@pytest.mark.parametrize("preset", ["llama3-8b", "gemma2-2b", "llama3.2-1b",
+                                    "llama3-70b", "qwen2-7b", "tiny-gemma"])
+@pytest.mark.parametrize("t", [2, 5, 9])  # --spec-k 1 and 4, --spec-k-max 8
+def test_spec_kernel_fits_every_served_preset(preset, t):
+    """The engine fences the fused layer where ``fits`` says no: the
+    presets the card serves keep it up to ``--spec-k-max 8`` (T 9)."""
+    cfg = get_config(preset)
+    assert fs.fits(cfg.head_dim, t, cfg.n_heads // cfg.n_kv_heads) is None
