@@ -1,16 +1,13 @@
-// The per-tile arithmetic of the fused decode layer (kernel 4,
-// fused_decode_layer.cu): one lane's share of a query-key dot product, the
-// online-softmax update of one query row over a 64-key tile, the P.V
-// accumulation and the fold of a row's own new key; and the pieces the
-// fused verify layer (kernel 5, fused_spec_decode_layer.cu) shares with it:
-// the warp reductions, rope, the new row's quantizer and the soft cap.
+// The pieces the decode kernels share: the key tile, the warp reductions
+// (kernels 2 and 3, flash_decode_attention*.cu), and the rope, the new
+// row's quantizer and the soft cap of the split-KV decode layer (kernels 4
+// and 5, split_kv_layer.cuh).
 //
 // Every multiply-add is spelled with an explicit rounding intrinsic, so the
 // compiler cannot contract it differently from one build to the next.  The
-// rope and the quantizer are what the two kernels must agree on bit for
+// rope and the quantizer are what the cache's writers must agree on bit for
 // bit: a verify burst appends the same cache bytes and scales as T decode
-// steps.  Kernel 5's attention sums in its own order (split-KV, tensor
-// cores) and agrees with kernel 4's within a tolerance.
+// steps, and either appends the plain version's.
 
 #pragma once
 
@@ -20,7 +17,7 @@
 
 namespace decode_tile {
 
-constexpr int BS = 64;                      // keys per tile (two per lane)
+constexpr int BS = 64;                      // keys per tile
 constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -56,66 +53,8 @@ __device__ __forceinline__ float quant_value(float x, float scale, float qmax) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -qmax), qmax);
 }
 
-// One lane's running share of q . k over its element pairs (d, d + 1):
-// two fused multiply-adds, element d first.
-__device__ __forceinline__ float pair_dot(float part, float q0, float q1,
-                                          float2 k) {
-  return __fmaf_rn(q1, k.y, __fmaf_rn(q0, k.x, part));
-}
-
 __device__ __forceinline__ float soft_cap(float s, float cap) {
   return cap > 0.f ? __fmul_rn(cap, tanhf(__fdiv_rn(s, cap))) : s;
-}
-
-// Online-softmax update of one query row from its BS scores (one warp; lane
-// owns keys lane and lane + 32): the scores become probabilities in place,
-// lane 0 stores the row's new max, sum and the accumulator's correction.
-__device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
-                                             float* corr, int lane) {
-  const float s0 = sc[lane];
-  const float s1 = sc[lane + 32];
-  const float mx = warp_max(fmaxf(s0, s1));
-  const float m_old = *m;
-  const float m_new = fmaxf(m_old, mx);
-  const float c = (m_old == NEG_INF) ? 0.f : expf(__fsub_rn(m_old, m_new));
-  const float p0 = (s0 == NEG_INF) ? 0.f : expf(__fsub_rn(s0, m_new));
-  const float p1 = (s1 == NEG_INF) ? 0.f : expf(__fsub_rn(s1, m_new));
-  sc[lane] = p0;
-  sc[lane + 32] = p1;
-  const float psum = warp_sum(__fadd_rn(p0, p1));
-  if (lane == 0) {
-    *m = m_new;
-    *l = __fmaf_rn(*l, c, psum);
-    *corr = c;
-  }
-}
-
-// acc * corr + sum_j p[j] * v[j * pitch] for one accumulator element.
-__device__ __forceinline__ float pv(float acc, float corr, const float* p,
-                                    const float* v, int pitch) {
-  float a = __fmul_rn(acc, corr);
-#pragma unroll 8
-  for (int j = 0; j < BS; ++j) a = __fmaf_rn(p[j], v[j * pitch], a);
-  return a;
-}
-
-// The row's own new key and value, folded last, and the normalised output
-// (one warp per query row): out = (acc * c + p * vd) / (l * c + p).
-template <int D>
-__device__ __forceinline__ void fold_emit(const float* q, const float* kd,
-                                          const float* vd, const float* acc,
-                                          float m_old, float l_old, float cap,
-                                          int lane, __nv_bfloat16* out) {
-  float part = 0.f;
-  for (int d = lane; d < D; d += 32) part = __fmaf_rn(q[d], kd[d], part);
-  const float s = soft_cap(warp_sum(part), cap);
-  const float m_new = fmaxf(m_old, s);
-  const float c = (m_old == NEG_INF) ? 0.f : expf(__fsub_rn(m_old, m_new));
-  const float p = expf(__fsub_rn(s, m_new));
-  const float l = fmaxf(__fmaf_rn(l_old, c, p), 1e-30f);
-  for (int d = lane; d < D; d += 32)
-    out[d] = __float2bfloat16(
-        __fdiv_rn(__fmaf_rn(acc[d], c, __fmul_rn(p, vd[d])), l));
 }
 
 }  // namespace decode_tile

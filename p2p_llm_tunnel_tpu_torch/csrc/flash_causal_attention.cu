@@ -2,96 +2,99 @@
 // fp32 softmax and accumulation.
 //
 // Replaces: p2p_llm_tunnel_tpu/ops/pallas_attention.py flash_causal_attention
-// (body _flash_kernel).  Same function: q [B,T,H,D], k/v [B,T,K,D] bf16,
-// valid [B,T] bool -> out [B,T,H,D]; query head h reads KV head h / (H/K);
-// scores are scaled, soft-capped, then masked by causality, the sliding
-// window and the valid mask (in _flash_kernel's order); rows that see no key
-// return 0.  Unlike the TPU kernel there is no T % 128 gate: the ragged edge
-// is zero-filled on load and masked, so every prefill bucket runs here.
+// (:136, body _flash_kernel :36).  Same function: q [B,T,H,D], k/v [B,T,K,D]
+// bf16, valid [B,T] bool -> out [B,T,H,D]; query head h reads KV head
+// h / (H/K); scores are scaled, soft-capped, then masked by causality, the
+// sliding window and the valid mask (in _flash_kernel's order); rows that
+// see no key return 0.  Unlike the TPU kernel there is no T % 128 gate: the
+// ragged edge is zero-filled on load and masked, so every prefill bucket
+// runs here.
 //
 // Bound on the card (published peaks of an H100 SXM at its 700 W limit:
-// 989 TFLOP/s bf16, 3.35 TB/s): at the serving shapes (B 8, T 16..1024,
+// 989 TFLOP/s bf16, 3.35 TB/s): at the serving shapes (B 8, T 128..1024,
 // H 32, K 8, D 128) the causal half of QK^T and PV is 2*B*H*T*T*D FLOPs
 // against B*T*(2H+2K)*D*2 bytes in and out, an intensity of 0.4*T
 // FLOP/byte: HBM bounds it below T ~ 740, the tensor cores above
 // (chip_smoke.py computes both per shape; PERF.md has the measured times).
 //
-// Design: one block per (q-tile of 64 rows, head, batch row); 4 warps, each
-// owning 16 query rows for the whole kernel, so the per-row online softmax
-// needs no block barrier.  For each 64-key tile up to the causal frontier
-// (tiles wholly past the last query row, or wholly before the first row's
-// window, are never loaded) the block stages K and V in shared memory, the
-// warps compute S = Q K^T with bf16 tensor-core MMAs (wmma 16x16x16, fp32
-// accumulate), update m / l / the fp32 O accumulator in shared memory, and
-// accumulate P V with a second MMA (P rounded to bf16).  This is the simple
-// first version: synchronous loads, no wgmma/TMA pipeline, ~110 KB of shared
-// memory per block at D 128, so two blocks share one H100 SM (228 KB).
+// Design (FlashAttention-2 on mma.sync):
+// - One block per (head, batch row, 64-row q tile); 4 warps, each owning 16
+//   query rows.  The q tiles run last-first (the grid's slowest index walks
+//   them backwards), so the causal triangle's heaviest blocks start first.
+//   The G query heads of a KV head are neighbouring blocks, so their K/V
+//   tiles are read from HBM about once and from L2 after (the G heads are
+//   not packed into one block).
+// - S, P and O stay in registers.  S = Q K^T and O += P V are mma.sync
+//   m16n8k16 bf16 -> fp32 products whose fragments come from shared memory
+//   with ldmatrix (V transposed on the way); P goes from the S accumulators
+//   straight into A fragments.  A row's scores sit on the four lanes of a
+//   quad, so its max and sum reduce over 2 shuffles; its sum is reduced
+//   once, after the last tile.  Scores are carried in log2 units (log2(e)
+//   folded into the scale) for exp2f.
+// - K and V tiles come in with cp.async, 16 bytes a thread, double-buffered:
+//   the next tile's copy is issued right after the one barrier per tile and
+//   overlaps this tile's products.  Each tile's valid bytes are read one
+//   tile ahead into registers and published to shared memory at the
+//   barrier, which (__syncthreads_and) also tells every warp whether the
+//   whole tile is valid.
+// - Masks only where needed: a tile pays for the causal, window and valid
+//   compares only when it is the diagonal tile, crosses the window's edge,
+//   reaches past T or holds an invalid key; the soft cap (tanhf) runs only
+//   when it is set.
+// - Shared memory: q [64, D+8] and two stages of K and V [64, D+8] bf16
+//   (87 KB at D 128, two blocks per SM; 169 KB at D 256); the output leaves
+//   through each warp's own q rows as 16-byte stores.  wgmma and TMA are not
+//   used: at these T the kernel is bound by HBM bytes and latency, and 64-row
+//   tiles keep 4-16 tiles of work per block.
 //
 // C ABI (loaded with ctypes): flash_causal_attention_bf16 returns the
 // cudaError_t of the launch (0 = launched).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <float.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "tensor_tile.cuh"
 
 namespace {
 
+using namespace tensor_tile;
+
 constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per tile
+constexpr int BK = 64;             // keys per tile (== BQ: one diagonal tile)
 constexpr int WARPS = 4;           // 16 query rows each
 constexpr int THREADS = WARPS * 32;
+constexpr int PAD = 8;             // bf16 row padding: conflict-free ldmatrix
 constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 pitch of the Q/K/V tiles
-  static constexpr int LDS = BK + 4;  // fp32 pitch of the score tile
-  static constexpr int LDP = BK + 8;  // bf16 pitch of the probability tile
-  static constexpr int LDO = D + 4;   // fp32 pitch of the output accumulator
-  // Byte offsets; every region starts on a 32-byte boundary (wmma needs it).
+  static constexpr int P = D + PAD;  // bf16 pitch of the q/K/V tiles
+  static constexpr size_t TILE = size_t(BK) * P * 2;
+  // Byte offsets; every region starts on a 16-byte boundary.
   static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + size_t(BQ) * LDH * 2;
-  static constexpr size_t V = K + size_t(BK) * LDH * 2;
-  static constexpr size_t S = V + size_t(BK) * LDH * 2;
-  static constexpr size_t P = S + size_t(BQ) * LDS * 4;
-  static constexpr size_t O = P + size_t(BQ) * LDP * 2;
-  static constexpr size_t M = O + size_t(BQ) * LDO * 4;
-  static constexpr size_t L = M + size_t(BQ) * 4;
-  static constexpr size_t BYTES = L + size_t(BQ) * 4;
+  static constexpr size_t K = Q + size_t(BQ) * P * 2;  // two stages
+  static constexpr size_t V = K + 2 * TILE;            // two stages
+  static constexpr size_t VALID = V + 2 * TILE;        // two stages of BK bytes
+  static constexpr size_t BYTES = VALID + 2 * BK;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Copy rows [row0, row0+64) of one head's [T, D] plane (row pitch `pitch`
-// elements) into a shared tile; rows at or past T are zero-filled.
+// elements) into a shared tile with cp.async; rows at or past T are
+// zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int T, size_t pitch) {
+                                          const __nv_bfloat16* src, int row0,
+                                          int T, size_t pitch) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < 64 * CH; c += THREADS) {
     const int r = c / CH;
     const int cc = c - r * CH;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const int4*>(src + size_t(row0 + r) * pitch + cc * 8);
-    *reinterpret_cast<int4*>(dst + r * Layout<D>::LDH + cc * 8) = val;
+    const bool ok = row0 + r < T;
+    cp_async16(dst + r * Layout<D>::P + cc * 8,
+               src + size_t(ok ? row0 + r : 0) * pitch + cc * 8, ok ? 16 : 0);
   }
 }
 
@@ -105,23 +108,24 @@ flash_causal_kernel(const __nv_bfloat16* __restrict__ q,
                     int T, int H, int KH, float scale, float softcap,
                     int window) {
   using LY = Layout<D>;
+  constexpr int P = LY::P;
+  constexpr int NT = D / 8;  // n-tiles of an output row
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + LY::Q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + LY::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + LY::V);
-  float* Ss = reinterpret_cast<float*>(smem + LY::S);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + LY::P);
-  float* Os = reinterpret_cast<float*>(smem + LY::O);
-  float* Ms = reinterpret_cast<float*>(smem + LY::M);
-  float* Ls = reinterpret_cast<float*>(smem + LY::L);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + LY::Q);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + LY::K);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + LY::V);
+  unsigned char* vm = smem + LY::VALID;
 
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
   const int kh = h / (H / KH);
   const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // mma group: row (A, C) or column (B)
+  const int tig = lane & 3;   // thread in group
 
   const size_t q_pitch = size_t(H) * D;
   const size_t kv_pitch = size_t(KH) * D;
@@ -130,121 +134,194 @@ flash_causal_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + size_t(b) * T * kv_pitch + size_t(kh) * D;
   const unsigned char* vrow = valid + size_t(b) * T;
 
-  load_tile<D>(Qs, qb, q0, T, q_pitch);
-  for (int i = threadIdx.x; i < BQ * LY::LDO; i += THREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    Ms[i] = NEG_INF;
-    Ls[i] = 0.f;
-  }
-
   // Causal frontier: key tile j matters only while j <= this q tile (BQ ==
   // BK).  Window floor: no row of the tile attends a key before
   // q0 - window + 1, so tiles wholly before it are skipped too.
-  const int n_tiles = (T + BK - 1) / BK;
-  const int tile_end = min(qt + 1, n_tiles);
+  const int tile_end = min(qt + 1, (T + BK - 1) / BK);
   const int first_key = max(0, q0 - window + 1);
   const int tile_begin = min(first_key / BK, tile_end);
+  const int n_tiles = tile_end - tile_begin;
 
-  for (int kt = tile_begin; kt < tile_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q/O initialised; previous tile's K/V reads done
-    load_tile<D>(Ks, kb, k0, T, kv_pitch);
-    load_tile<D>(Vs, vb, k0, T, kv_pitch);
-    __syncthreads();
+  load_tile<D>(qs, qb, q0, T, q_pitch);
+  if (n_tiles > 0) {
+    load_tile<D>(ks, kb, tile_begin * BK, T, kv_pitch);
+    load_tile<D>(vs, vb, tile_begin * BK, T, kv_pitch);
+  }
+  cp_async_commit();
+  // Thread j < BK holds key j's valid flag of the tile to come (keys at or
+  // past T are invalid); the other threads hold 1.
+  int vflag = 1;
+  if (n_tiles > 0 && tid < BK) {
+    const int kp = tile_begin * BK + tid;
+    vflag = kp < T && vrow[kp] != 0;
+  }
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  const int rA = q0 + warp * 16 + gid;  // the two rows this lane holds
+  const int rB = rA + 8;
+  const float sl2 = scale * LOG2E;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap_l2 = softcap * LOG2E;
+  float mA = NEG_INF, mB = NEG_INF, lA = 0.f, lB = 0.f;  // log2 units
+  float acc[NT][4];
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = (tile_begin + it) * BK;
+    const int buf = it & 1;
+    if (tid < BK) vm[buf * BK + tid] = static_cast<unsigned char>(vflag);
+    cp_async_wait<0>();
+    // The one barrier of the tile: its K/V (and q) landed for every thread,
+    // every warp is done with the other stage, its valid flags are in
+    // place — and whether all of them are set.
+    const bool all_valid = __syncthreads_and(vflag) != 0;
+    if (it + 1 < n_tiles) {
+      load_tile<D>(ks + (buf ^ 1) * BK * P, kb, k0 + BK, T, kv_pitch);
+      load_tile<D>(vs + (buf ^ 1) * BK * P, vb, k0 + BK, T, kv_pitch);
+      cp_async_commit();
+      if (tid < BK) {
+        const int kp = k0 + BK + tid;
+        vflag = kp < T && vrow[kp] != 0;
+      }
+    }
+    const __nv_bfloat16* kt = ks + buf * BK * P;
+    const __nv_bfloat16* vt = vs + buf * BK * P;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
+    float s[8][4];
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * LY::LDH + d0, LY::LDH);
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // K stored [key][d] row-major is K^T in column-major.
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + n * 16 * LY::LDH + d0, LY::LDH);
-          wmma::mma_sync(acc[n], a, bk, acc[n]);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, qs + (warp * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], af, bf[0], bf[1]);
+        mma_bf16(s[2 * j2 + 1], af, bf[2], bf[3]);
+      }
+    }
+
+    // Scale (and cap) into log2 units; mask only the tiles that need it.
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = cap_l2 * tanhf(s[j][e] * cap_in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+    }
+    const bool need_mask = !all_valid || k0 + BK - 1 > q0 ||
+                           (q0 + BQ - 1) - k0 >= window;
+    if (need_mask) {
+      const unsigned char* vmb = vm + buf * BK;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * tig + (e & 1);
+          const int kp = k0 + c;
+          const int r = e < 2 ? rA : rB;
+          if (!(vmb[c] && kp <= r && r - kp < window)) s[j][e] = NEG_INF;
         }
       }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + warp * 16 * LY::LDS + n * 16, acc[n],
-                                LY::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // Online softmax over this tile, row by row; lane owns keys lane, lane+32.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qpos = q0 + r;
-      float sv[2];
-      float mx = NEG_INF;
+    // Online softmax; a row that has seen no key keeps m = NEG_INF and
+    // takes its exponentials from base 0, which sends the sentinel to 0.
+    float mxA = NEG_INF, mxB = NEG_INF;
 #pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int c = lane + 32 * c2;
-        const int kpos = k0 + c;
-        float s = Ss[r * LY::LDS + c] * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const bool ok = kpos < T && kpos <= qpos && (qpos - kpos) < window &&
-                        vrow[kpos] != 0;
-        s = ok ? s : NEG_INF;
-        sv[c2] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      // rows that have seen nothing stay at NEG_INF (corr 0, p 0)
-      const float corr = (m_old == NEG_INF) ? 0.f : expf(m_old - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const float p = (sv[c2] == NEG_INF) ? 0.f : expf(sv[c2] - m_new);
-        psum += p;
-        Ps[r * LY::LDP + lane + 32 * c2] = __float2bfloat16(p);
-      }
-      psum = warp_sum(psum);
-      for (int c = lane; c < D; c += 32) Os[r * LY::LDO + c] *= corr;
-      if (lane == 0) {
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * corr + psum;
-      }
+    for (int j = 0; j < 8; ++j) {
+      mxA = fmaxf(mxA, fmaxf(s[j][0], s[j][1]));
+      mxB = fmaxf(mxB, fmaxf(s[j][2], s[j][3]));
     }
-    __syncwarp();
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
+    }
+    const float mA_new = fmaxf(mA, mxA);
+    const float mB_new = fmaxf(mB, mxB);
+    const float baseA = mA_new == NEG_INF ? 0.f : mA_new;
+    const float baseB = mB_new == NEG_INF ? 0.f : mB_new;
+    const float cA = exp2f(mA - baseA);
+    const float cB = exp2f(mB - baseB);
+    mA = mA_new;
+    mB = mB_new;
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = exp2f(s[j][0] - baseA);
+      s[j][1] = exp2f(s[j][1] - baseA);
+      s[j][2] = exp2f(s[j][2] - baseB);
+      s[j][3] = exp2f(s[j][3] - baseB);
+      sumA += s[j][0] + s[j][1];
+      sumB += s[j][2] + s[j][3];
+    }
+    lA = lA * cA + sumA;
+    lB = lB * cB + sumB;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= cA;
+      acc[n][1] *= cA;
+      acc[n][2] *= cB;
+      acc[n][3] *= cB;
+    }
 
-    // O += P V for this warp's 16 rows.
+    // O += P V: P from the score registers, 16 keys per k-step; V's
+    // fragments through ldmatrix.trans, two n-tiles per load.
 #pragma unroll
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Os + warp * 16 * LY::LDO + n0, LY::LDO,
-                             wmma::mem_row_major);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * LY::LDP + kk, LY::LDP);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * LY::LDH + n0, LY::LDH);
-        wmma::mma_sync(o, a, bv, o);
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 15)) * P + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], pf, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pf, bv[2], bv[3]);
       }
-      wmma::store_matrix_sync(Os + warp * 16 * LY::LDO + n0, o, LY::LDO,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
   }
-  __syncthreads();
 
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int qpos = q0 + r;
-    if (qpos < T) {
-      const float val = Os[r * LY::LDO + c] / fmaxf(Ls[r], 1e-30f);
-      out[(size_t(b) * T + qpos) * q_pitch + size_t(h) * D + c] =
-          __float2bfloat16(val);
-    }
+  // Normalise; rows that saw no key have acc = 0 and l = 0 and emit 0.
+  // (n_tiles >= 1: the diagonal tile always runs, so every copy, q's too,
+  // was waited for behind a barrier.)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, off);
+    lB += __shfl_xor_sync(0xffffffffu, lB, off);
+  }
+  const float iA = 1.f / fmaxf(lA, 1e-30f);
+  const float iB = 1.f / fmaxf(lB, 1e-30f);
+  // The output leaves through this warp's own q rows (no other warp reads
+  // them), as 16-byte stores.
+  __syncwarp();
+  __nv_bfloat16* os = qs + warp * 16 * P;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(os + gid * P + n * 8 + 2 * tig) =
+        pack_bf16(acc[n][0] * iA, acc[n][1] * iA);
+    *reinterpret_cast<uint32_t*>(os + (gid + 8) * P + n * 8 + 2 * tig) =
+        pack_bf16(acc[n][2] * iB, acc[n][3] * iB);
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos < T)
+      *reinterpret_cast<int4*>(out + (size_t(b) * T + qpos) * q_pitch + size_t(h) * D + c) =
+          *reinterpret_cast<const int4*>(os + r * P + c);
   }
 }
 
@@ -262,7 +339,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  dim3 grid(H, B, (T + BQ - 1) / BQ);
   flash_causal_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -277,7 +354,8 @@ extern "C" int flash_causal_attention_bf16(
     const void* q, const void* k, const void* v, const void* valid, void* out,
     int B, int T, int H, int KH, int D, float scale, float softcap,
     int window, void* stream) {
-  if (B <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || window <= 0)
+  if (B <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || window <= 0 ||
+      B > 65535 || (T + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -2103,30 +2103,16 @@ class InferenceEngine:
 
     def _gate_fused_decode(self) -> None:
         """On the card, fence the fused decode layer when the model's head
-        geometry has no kernel-4 instance, or, with speculation, no kernel-5
-        instance for the widest verify burst (the TPU's % 128 tiling gates
-        do not apply here)."""
-        from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
-            _MAX_GROUP,
-            _SUPPORTED_D,
-        )
-
-        from p2p_llm_tunnel_tpu_torch.ops.fused_spec_decode import fits
+        geometry has no instance of the split-KV body that kernels 4 and 5
+        share — one new row per slot, or with speculation the widest verify
+        burst (the TPU's % 128 tiling gates do not apply here)."""
+        from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fence_reason
 
         cfg = self.mcfg
         if not (self.ecfg.fused_decode_layer and self.device.type == "cuda"):
             return
-        group = cfg.n_heads // cfg.n_kv_heads
-        why = None
-        if cfg.head_dim not in _SUPPORTED_D or group > _MAX_GROUP:
-            why = (f"head_dim {cfg.head_dim} / {group} query heads per KV head "
-                   f"is not a geometry the fused decode kernel is built for "
-                   f"(head_dim {_SUPPORTED_D}, <= {_MAX_GROUP} per KV head)")
-        elif self.ecfg.spec_ngram > 0:
-            # Kernel 5 holds a verify burst's T * G query rows in one block.
-            spec = fits(cfg.head_dim, self._spec_k_cap() + 1, group)
-            if spec is not None:
-                why = f"the fused verify kernel has no instance: {spec}"
+        burst = self._spec_k_cap() + 1 if self.ecfg.spec_ngram > 0 else 0
+        why = fence_reason(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, burst)
         if why is not None:
             self._fence("fused_decode_layer", False, why)
             self.mcfg = dc_replace(self.mcfg, fused_decode_layer=False)

@@ -25,9 +25,18 @@ from p2p_llm_tunnel_tpu_torch.ops.attention import causal_attention
 
 _NAME = "flash_causal_attention"
 _SUPPORTED_D = (16, 32, 64, 128, 256)  # every preset's head_dim
+_BQ = _BK = 64  # query rows per block, keys per tile
+_PAD = 8  # bf16 row padding of the q/K/V tiles
 
 #: The kernel's plain PyTorch version (same function, same layouts).
 plain = causal_attention
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: the
+    q tile [64, D+8] and two stages each of K and V [64, D+8] in bf16, and
+    two stages of the key tile's 64 valid bytes."""
+    return 2 * (_BQ + 4 * _BK) * (d + _PAD) + 2 * _BK
 
 
 def _lib() -> ctypes.CDLL:

@@ -9,10 +9,18 @@ write of the byte shared with the neighbouring token), and attention over
 the cache's ``[0, pos)`` keys plus the new row's own term.
 
 The kernel is ``csrc/fused_decode_layer.cu`` (CUDA C++, sm_90a, built at
-first use and loaded with ctypes — see ``ops/kernel_build.py``).  Its plain
-version is :func:`fused_decode_plain`.  The wrapper runs that for tensors
-on the CPU, and only because they lie on the CPU; for CUDA tensors it
-launches the kernel or raises.
+first use and loaded with ctypes — see ``ops/kernel_build.py``): the
+split-KV body of the fused verify layer (``csrc/split_kv_layer.cuh``,
+kernel 5) at one new row per slot, under its own kernel name.  The launch
+geometry both kernels share lives here: the splits of the committed keys
+(:func:`kv_splits`), the block's shared memory (:func:`smem_bytes`), the
+head geometries with an instance (:func:`fits`) and the per-(slot, head)
+arrival counters of the in-launch merge.  Its plain version is
+:func:`fused_decode_plain`.  The wrapper runs that for tensors on the CPU,
+and only because they lie on the CPU; for CUDA tensors it launches the
+kernel or raises.  On the card the kernel matches its plain version within
+a tolerance (it rounds q and P to bf16 for its tensor-core products and
+sums in another order), its appended bytes and scales bit for bit.
 
 The plain version is NOT the unfused decode step: it keeps the kernel's
 own rounding points, those of the Pallas body —
@@ -40,7 +48,6 @@ from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.attention import _NEG_INF
 from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
     KV_FORMS,
-    _MAX_GROUP,
     _NO_WINDOW,
     _SUPPORTED_D,
     _form,
@@ -50,6 +57,102 @@ from p2p_llm_tunnel_tpu_torch.ops.rope import rope_table
 
 _NAME = "fused_decode_layer"
 _QMAX = {"int8": 127.0, "int4": 7.0}
+#: Query rows of one (slot, KV head) the split-KV body holds: T * G <= 72
+#: (kernel 5's spec_k_max 8 at G = 8; kernel 4, T = 1, up to G = 72).
+MAX_ROWS = 72
+MAX_SMEM_BYTES = kernel_build.MAX_SMEM_BYTES
+_BS = 64  # keys per tile (csrc/split_kv_layer.cuh)
+_PAD = 8  # bf16 row padding of q and the K/V tiles
+#: Blocks a launch aims for: four per SM of an H100 (132 SMs).
+_TARGET_BLOCKS = 4 * 132
+#: Splits per (slot, head) at most: bounds the partials' workspace.
+MAX_SPLITS = 32
+
+
+def kv_splits(view: int, b: int, kh: int) -> Tuple[int, int]:
+    """``(nsplit, keys_per_split)`` of one split-KV launch (kernels 4 and
+    5): the committed keys ``[0, view)`` cut into ``nsplit`` runs of
+    ``keys_per_split`` keys, a whole number of 64-key tiles each (the last
+    run may reach past ``view``), so that ``b * kh * nsplit`` blocks come
+    near four per SM."""
+    tiles = max(1, -(-int(view) // _BS))
+    want = -(-_TARGET_BLOCKS // max(1, b * kh))
+    per = -(-tiles // max(1, min(want, tiles, MAX_SPLITS)))
+    return -(-tiles // per), per * _BS
+
+
+def _key_slices(mt: int) -> int:
+    """Warps that share a 64-key tile by key slices, per 16-row tile."""
+    return 4 if mt == 1 else (2 if mt == 2 else 1)
+
+
+def smem_bytes(d: int, t: int, g: int) -> int:
+    """Dynamic shared memory of one split-KV block, as the body lays it
+    out: the attention phase (q [RP, D+8] bf16, RP = T*G padded to 16, and
+    two stages of bf16 K and V tiles [64, D+8]) or the merge phase (the new
+    rows' five [T, D] f32 planes and two scales per token), the larger."""
+    rp = -(-t * g // 16) * 16
+    attn = 2 * rp * (d + _PAD) + 2 * 2 * 2 * _BS * (d + _PAD)
+    merge = 4 * (5 * t * d + 2 * t)
+    return max(attn, merge)
+
+
+def fits(d: int, t: int, g: int) -> Optional[str]:
+    """None when the split-KV body has an instance for ``t`` new rows per
+    slot (kernel 4: 1; kernel 5: the verify burst) of ``g`` query heads per
+    KV head at head dim ``d``, else why not (the engine fences the fused
+    decode layer on it)."""
+    if d not in _SUPPORTED_D:
+        return f"head_dim {d} is not one of {_SUPPORTED_D}"
+    if t * g > MAX_ROWS:
+        return (f"{t} new rows x {g} query heads per KV head is {t * g} query "
+                f"rows per block, above the kernel's {MAX_ROWS}")
+    if smem_bytes(d, t, g) > MAX_SMEM_BYTES:
+        return (f"{smem_bytes(d, t, g)} bytes of shared memory per block "
+                f"(head_dim {d}, {t} x {g} rows) exceed the card's {MAX_SMEM_BYTES}")
+    return None
+
+
+def fence_reason(d: int, g: int, burst: int = 0) -> Optional[str]:
+    """Why the engine fences the fused decode layer on the card for head
+    dim ``d`` and ``g`` query heads per KV head — kernel 4 (one new row
+    per slot) has no instance, or with speculation kernel 5 has none for
+    the widest verify burst of ``burst`` rows — else None."""
+    why = fits(d, 1, g)
+    if why is not None:
+        return f"the fused decode kernel has no instance: {why}"
+    if burst > 0:
+        why = fits(d, burst, g)
+        if why is not None:
+            return f"the fused verify kernel has no instance: {why}"
+    return None
+
+
+#: Per-(slot, head) arrival counters, int32 [B*K] per (device, B, K), shared
+#: by kernels 4 and 5: zeroed once; the last block of each (slot, head) of
+#: a launch leaves its counter 0, so the next launch on the same stream —
+#: which starts only after this one ends — finds every counter at 0.  The
+#: engine issues every layer's launch on one stream.
+_ARRIVALS: dict = {}
+
+
+def split_kv_workspace(device: torch.device, b: int, kh: int, t: int, g: int,
+                       d: int, view: int):
+    """``(nsplit, split_keys, part_acc, part_ml, arrivals)`` of one
+    split-KV launch: the splits, the partials' f32 workspace (from the
+    allocator, no memset: every partial the merge reads is written first)
+    and the arrival counters."""
+    nsplit, split_keys = kv_splits(view, b, kh)
+    rows = t * g
+    parts = b * kh * nsplit * _key_slices(-(-rows // 16)) * rows
+    part_acc = torch.empty(parts * d, dtype=torch.float32, device=device)
+    part_ml = torch.empty(parts * 2, dtype=torch.float32, device=device)
+    key = (device, b, kh)
+    arrivals = _ARRIVALS.get(key)
+    if arrivals is None:
+        arrivals = _ARRIVALS[key] = torch.zeros(b * kh, dtype=torch.int32,
+                                                device=device)
+    return nsplit, split_keys, part_acc, part_ml, arrivals
 
 
 def rope_rows(positions: torch.Tensor, d: int,
@@ -204,7 +307,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.fused_decode_layer_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
@@ -216,11 +319,11 @@ def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
         raise ValueError("fused_decode_layer takes q [B,H,D], k/v_new [B,K,D]")
     b, h, d = q.shape
     kh = k_new.shape[1]
-    if k_new.shape[0] != b or k_new.shape[2] != d or h % kh or h // kh > _MAX_GROUP:
-        raise ValueError(f"k_new {tuple(k_new.shape)} does not match q {tuple(q.shape)} "
-                         f"(H/K <= {_MAX_GROUP})")
-    if d not in _SUPPORTED_D:
-        raise ValueError(f"fused_decode_layer kernel supports head_dim {_SUPPORTED_D}, got {d}")
+    if k_new.shape[0] != b or k_new.shape[2] != d or h % kh:
+        raise ValueError(f"k_new {tuple(k_new.shape)} does not match q {tuple(q.shape)}")
+    why = fits(d, 1, h // kh)
+    if why is not None:
+        raise ValueError(f"fused_decode_layer kernel: {why}")
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError("k/v cache must be matching [L,B,S,K,D] tensors")
     if k_cache.shape[1] != b or tuple(k_cache.shape[3:]) != (kh, d):
@@ -245,6 +348,9 @@ def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
     for x in tensors:
         if not x.is_contiguous() or x.data_ptr() % 4:
             raise ValueError("fused_decode_layer kernel needs contiguous, 4-byte aligned tensors")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("fused_decode_layer kernel copies cache rows 16 bytes "
+                         "at a time: the caches must be 16-byte aligned")
     if (positions.dtype != torch.int32 or tuple(positions.shape) != (b,)
             or not positions.is_contiguous()):
         raise ValueError("positions must be a contiguous [B] int32 tensor")
@@ -294,9 +400,16 @@ def fused_decode_layer(
     if scale is None:
         scale = d**-0.5
     sin, cos = rope if rope is not None else rope_rows(positions, d, rope_theta)
+    for name, x in (("sin", sin), ("cos", cos)):
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, d // 2)
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"rope {name} must be a contiguous float32 [B,D/2] "
+                             f"table on {q.device}")
     quantized = form is not None
     lib = _lib()
     out = torch.empty_like(q)
+    nsplit, split_keys, part_acc, part_ml, arrivals = split_kv_workspace(
+        q.device, b, kh, 1, h // kh, d, view)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fused_decode_layer_launch(
@@ -305,8 +418,9 @@ def fused_decode_layer(
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             sin.data_ptr(), cos.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, s, h, kh, d, n_layers, layer, view,
-            KV_FORMS[form], float(scale),
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            arrivals.data_ptr(), b, s, h, kh, d, n_layers, layer, view,
+            KV_FORMS[form], nsplit, split_keys, float(scale),
             0.0 if softcap is None else float(softcap),
             _NO_WINDOW if window is None else int(window), stream,
         )

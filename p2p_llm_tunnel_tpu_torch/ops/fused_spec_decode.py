@@ -11,10 +11,13 @@ folded last.  Rows with ``pos + t >= min(kv_view, S)`` are parked per
 token: nothing is stored, their output is junk.
 
 The kernel is ``csrc/fused_spec_decode_layer.cu`` (CUDA C++, sm_90a, built
-at first use and loaded with ctypes — see ``ops/kernel_build.py``): split
-over the committed keys (:func:`spec_splits`), tensor-core products over
-the burst's T·G rows, and the splits merged inside the same launch by the
-last block to arrive.  Its plain version is :func:`fused_spec_decode_plain`,
+at first use and loaded with ctypes — see ``ops/kernel_build.py``), the
+split-KV body ``csrc/split_kv_layer.cuh`` that kernel 4 runs at one row
+per slot: split over the committed keys (:func:`spec_splits`), tensor-core
+products over the burst's T·G rows, and the splits merged inside the same
+launch by the last block to arrive.  The launch geometry and the arrival
+counters are kernel 4's (``ops/fused_decode``), re-exported here under
+the names kernel 5's callers use.  Its plain version is :func:`fused_spec_decode_plain`,
 with kernel 4's rounding points (``ops/fused_decode``): the substituted
 earlier rows are the values the cache stores (raw: rounded to the cache
 dtype; quantized: dequantized), a row's own term uses the unrounded f32
@@ -36,72 +39,22 @@ from typing import Optional, Tuple
 import torch
 
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
-from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
-    KV_FORMS,
-    _NO_WINDOW,
-    _SUPPORTED_D,
-    _form,
-)
-from p2p_llm_tunnel_tpu_torch.ops.fused_decode import (
+from p2p_llm_tunnel_tpu_torch.ops.decode_attention import KV_FORMS, _NO_WINDOW, _form
+from p2p_llm_tunnel_tpu_torch.ops.fused_decode import (  # noqa: F401  (re-exports)
+    MAX_SMEM_BYTES,
+    MAX_SPLITS,
     append_rows,
     attend,
     cache_f32,
+    fits,
+    kv_splits as spec_splits,
     new_rows,
     rope_rows,
+    smem_bytes,
+    split_kv_workspace,
 )
 
 _NAME = "fused_spec_decode_layer"
-#: Query rows of one (slot, KV head): T * G <= 72 (spec_k_max 8 at G = 8).
-MAX_ROWS = 72
-#: Shared memory a block may use on the card (H100: 227 KB).
-MAX_SMEM_BYTES = 232448
-_BS = 64  # keys per tile (csrc/fused_spec_decode_layer.cu)
-_PAD = 8  # bf16 row padding of q and the K/V tiles
-#: Blocks a launch aims for: four per SM of an H100 (132 SMs).
-_TARGET_BLOCKS = 4 * 132
-#: Splits per (slot, head) at most: bounds the partials' workspace.
-MAX_SPLITS = 32
-
-
-def spec_splits(view: int, b: int, kh: int) -> Tuple[int, int]:
-    """``(nsplit, keys_per_split)`` of one launch: the committed keys
-    ``[0, view)`` cut into ``nsplit`` runs of ``keys_per_split`` keys, a
-    whole number of 64-key tiles each (the last run may reach past
-    ``view``), so that ``b * kh * nsplit`` blocks come near four per SM."""
-    tiles = max(1, -(-int(view) // _BS))
-    want = -(-_TARGET_BLOCKS // max(1, b * kh))
-    per = -(-tiles // max(1, min(want, tiles, MAX_SPLITS)))
-    return -(-tiles // per), per * _BS
-
-
-def _key_slices(mt: int) -> int:
-    """Warps that share a 64-key tile by key slices, per 16-row tile."""
-    return 4 if mt == 1 else (2 if mt == 2 else 1)
-
-
-def smem_bytes(d: int, t: int, g: int) -> int:
-    """Dynamic shared memory of one block, as the kernel lays it out: the
-    attention phase (q [RP, D+8] bf16, RP = T*G padded to 16, and two
-    stages of bf16 K and V tiles [64, D+8]) or the merge phase (the new
-    rows' five [T, D] f32 planes and two scales per token), the larger."""
-    rp = -(-t * g // 16) * 16
-    attn = 2 * rp * (d + _PAD) + 2 * 2 * 2 * _BS * (d + _PAD)
-    merge = 4 * (5 * t * d + 2 * t)
-    return max(attn, merge)
-
-
-def fits(d: int, t: int, g: int) -> Optional[str]:
-    """None when the kernel has an instance for this geometry, else why not
-    (the engine fences the fused decode layer on it)."""
-    if d not in _SUPPORTED_D:
-        return f"head_dim {d} is not one of {_SUPPORTED_D}"
-    if t * g > MAX_ROWS:
-        return (f"a verify burst of {t} rows x {g} query heads per KV head is "
-                f"{t * g} query rows per block, above the kernel's {MAX_ROWS}")
-    if smem_bytes(d, t, g) > MAX_SMEM_BYTES:
-        return (f"{smem_bytes(d, t, g)} bytes of shared memory per block "
-                f"(head_dim {d}, {t} x {g} rows) exceed the card's {MAX_SMEM_BYTES}")
-    return None
 
 
 def burst_rope_rows(positions: torch.Tensor, t: int, d: int,
@@ -175,20 +128,6 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
-
-
-#: Per-(slot, head) arrival counters, int32 [B*K] per (device, B, K): zeroed
-#: once; the kernel's last block of each (slot, head) leaves its counter 0.
-#: Launches that share them run in order on one stream, as the engine's do.
-_ARRIVALS: dict = {}
-
-
-def _arrivals(device: torch.device, b: int, kh: int) -> torch.Tensor:
-    key = (device, b, kh)
-    buf = _ARRIVALS.get(key)
-    if buf is None:
-        buf = _ARRIVALS[key] = torch.zeros(b * kh, dtype=torch.int32, device=device)
-    return buf
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
@@ -287,12 +226,8 @@ def fused_spec_decode_layer(
     quantized = form is not None
     lib = _lib()
     out = torch.empty_like(q)
-    nsplit, split_keys = spec_splits(view, b, kh)
-    rows = t * (h // kh)
-    parts = b * kh * nsplit * _key_slices(-(-rows // 16)) * rows
-    part_acc = torch.empty(parts * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(parts * 2, dtype=torch.float32, device=q.device)
-    arrivals = _arrivals(q.device, b, kh)
+    nsplit, split_keys, part_acc, part_ml, arrivals = split_kv_workspace(
+        q.device, b, kh, t, h // kh, d, view)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fused_spec_decode_layer_launch(

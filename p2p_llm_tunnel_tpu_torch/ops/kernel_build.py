@@ -38,6 +38,10 @@ KERNEL_SOURCES: Dict[str, str] = {
     "ragged_prefill_attention": "ragged_prefill_attention.cu",
 }
 
+#: Dynamic shared memory one block may use on the card (H100: 227 KB); the
+#: wrappers' launch plans are held to it.
+MAX_SMEM_BYTES = 232448
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

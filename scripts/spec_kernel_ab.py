@@ -88,25 +88,6 @@ def parent_call(so, q, kn, vn, cache, pos, layer, kw):
     return out
 
 
-def runs_ms(fn, iters: int = 50, runs: int = 3) -> list:
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(runs):
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return times
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", type=Path, required=True,
@@ -136,7 +117,7 @@ def main() -> int:
     result = []
     for t in (cs.SPEC_T, 9):
         for form in cs.FORMS:
-            layers = cs.spec_cold_layers(positions, cs.FUSED_VIEW, kh, d, form)
+            layers = cs.cold_layers(positions, cs.FUSED_VIEW, kh, d, form)
             q, kn, vn, orig, pos, kw = cs.spec_inputs(
                 h, kh, d, form, t, cs.FUSED_VIEW, cs.MAX_SEQ, layers, seed=0)
             c_new = [None if x is None else x.clone() for x in orig]
@@ -160,7 +141,7 @@ def main() -> int:
                 so, q, kn, vn, c_old, pos, lay, kw), layers)
             times = {"earlier": [], "current": []}
             for who in ("earlier", "current", "current", "earlier"):
-                times[who] += runs_ms(new_fn if who == "current" else old_fn)
+                times[who] += cs.run_times(new_fn if who == "current" else old_fn, iters=50)
             row = dict(name=rname, t=t, layers=layers, max_abs_diff=diff)
             for who, ts in times.items():
                 row[f"{who}_ms"] = statistics.median(ts)

@@ -166,6 +166,38 @@ def test_spec_plain_bitwise_equals_sequential_kernel4_bf16(form, window):
         assert a is None or torch.equal(a, w)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(window=64, softcap=20.0)])
+@pytest.mark.parametrize("form", FORMS)
+def test_spec_plain_at_one_row_bitwise_equals_kernel4_plain(form, kw):
+    """Kernel 4 is kernel 5's function at T = 1 (the CUDA kernels share one
+    body): one-row bursts at odd and even positions, one at the view's last
+    slot and a parked row — attention and cache BITWISE ``fused_decode_plain``."""
+    l, b, s, kh, h, d = 2, 5, 512, 2, 8, 32
+    rng = np.random.default_rng(4)
+    cache = [_t(x) for x in _cache(rng, form, l, b, s, kh, d)]
+    if form is None:
+        cache[:2] = [x.bfloat16() for x in cache[:2]]
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    q, kn, vn = bf16(b, 1, h, d), bf16(b, 1, kh, d), bf16(b, 1, kh, d)
+    pos = torch.tensor([0, 77, 256, 511, 512], dtype=torch.int32)
+    sin, cos = fs.burst_rope_rows(pos, 1, d, THETA)
+    args = dict(kv_view=s, rope_theta=THETA, kv_quant=form, **kw)
+    c1 = [None if x is None else x.clone() for x in cache]
+    c2 = [None if x is None else x.clone() for x in cache]
+    got = fs.fused_spec_decode_layer(q, kn, vn, *c1, pos, 1, rope=(sin, cos), **args)
+    want = fd.fused_decode_plain(q[:, 0], kn[:, 0], vn[:, 0], *c2, pos, 1,
+                                 rope=(sin[:, 0], cos[:, 0]), **args)
+    live = pos < s
+    assert torch.equal(got[live, 0], want[live])
+    for a, w, o in zip(c1, c2, cache):
+        if a is not None:
+            assert torch.equal(a, w)
+            assert torch.equal(a[:, -1], o[:, -1])  # the parked row's bytes
+
+
 @pytest.mark.parametrize("starts,t", [
     ([3, 4, 30, 32], 5),   # odd / even starts, one crossing S, one parked
     ([3, 4, 28, 32], 4),   # even T; an even start near S reaching byte S/2
