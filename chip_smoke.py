@@ -50,13 +50,14 @@ Phases (any failure exits non-zero before the result line):
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
 also within the same tolerance of T sequential kernel-4 launches (the
-max difference printed; caches bit-exact); kernels 4 and 5 also bitwise
-equal over two launches on equal inputs; kernel 3 (raw only; no serving
-path calls it) also against kernel 2.  Kernel rows report the median of
-three timing runs and their spread; the rows of kernels 1, 4 and 5 and
-their library calls are timed L2-cold (the inputs rotate over copies, or
-the layer over a stacked cache, larger than twice the L2) and carry the
-kernel's device time alone (torch.profiler).  The line before the last is
+max difference printed; caches bit-exact); kernels 2, 4 and 5 also
+bitwise equal over two launches on equal inputs; kernel 3 (raw only; no
+serving path calls it) also against kernel 2; kernel 6 also at q-block
+widths 8 and 32.  Kernel rows report the median of three timing runs and
+their spread; every kernel row and its library call is timed L2-cold (the
+inputs rotate over copies, or the layer over a stacked cache, larger than
+twice the L2) and carries the kernel's device time alone
+(torch.profiler).  The line before the last is
 the kernel table as one JSON object, one row per (kernel, KV form); the
 last line is ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a torch.profiler window over the plain-loop engine and
@@ -76,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -155,25 +157,50 @@ def dev_us(event) -> float:
             or getattr(event, "self_cuda_time_total", 0) or 0)
 
 
-def device_ms(fn, kernel: str, iters: int = 50) -> float:
+def device_ms(fn, kernel: Optional[str], iters: int = 50) -> float:
     """Device time per launch of the CUDA kernels whose name holds
     ``kernel``, over ``iters`` calls of ``fn`` under torch.profiler: the
     kernel alone, without the host time between launches that CUDA events
-    also see when a call enqueues slower than the card runs it."""
+    also see when a call enqueues slower than the card runs it.  With
+    ``kernel`` None: the device time of every kernel ``fn`` launches, per
+    call (a library call's).
+
+    A profiler window can come back with some or all of the device's
+    events missing (seen on the card): a kernel's time is averaged over
+    the launches the window shows, and a window that shows none is taken
+    again; a library call's total is the fullest of three windows (a
+    window never shows more than ran).  Fails after three empty windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    def window():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
-    if count == 0:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return sum(dev_us(e) for e in events) / count / 1e3
+    if kernel is None:
+        total = max(sum(dev_us(e) for e in window()) for _ in range(3))
+        if total <= 0:
+            raise AssertionError("the profiler saw no device time in three windows")
+        return total / iters / 1e3
+    for _ in range(3):
+        events = [e for e in window() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(dev_us(e) for e in events) / count / 1e3
+    raise AssertionError(f"the profiler saw no launch of {kernel} in three windows")
+
+
+def library_times(fn, iters: int = 50) -> dict:
+    """A library yardstick's time: ``library_ms`` by CUDA events (median
+    of three runs) and ``library_device_ms``, the device time of all its
+    kernels per call."""
+    return dict(library_ms=timed_ms(fn, iters=iters)[0],
+                library_device_ms=device_ms(fn, None))
 
 
 def kernel_ms(fn, iters: int = 20) -> dict:
@@ -273,17 +300,16 @@ def prefill_case(b, t, h, kh, d, lengths, window=None, softcap=None, seed=0):
         device_ms=device_ms(launch, "flash_causal_kernel"),
         plain_ms=timed_ms(lambda: fa.plain(q, k, v, valid, **kw), iters=5)[0],
     )
-    library_ms = None
+    row.update(library_ms=None, library_device_ms=None)
     if softcap is None:
         lib_ins = [(qs.transpose(1, 2),
                     ks.transpose(1, 2).repeat_interleave(h // kh, dim=1),
                     vs.transpose(1, 2).repeat_interleave(h // kh, dim=1))
                    for qs, ks, vs, _ in ins]
         am = mask[:, None]
-        library_ms = timed_ms(rotating(
+        row.update(library_times(rotating(
             lambda n: F.scaled_dot_product_attention(*lib_ins[n], attn_mask=am),
-            sets))[0]
-    row["library_ms"] = library_ms
+            sets), iters=20))
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -312,31 +338,90 @@ def cache_form(x, form, seq_axis):
     return vals.contiguous(), scale.contiguous()
 
 
-def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
-                timed=True, **kw):
-    """Kernel 2 in ``form`` on strided [:, :S] windows of a [B, S_max, K, D]
-    cache, against its plain version; timed with its bound and an SDPA
-    yardstick over a dequantized bf16 copy (attention only)."""
+def decode_inputs(b, s, h, kh, d, positions, form, s_max, layers, seed):
+    """Kernel 2's inputs: q, the positions and ``view(layer)``, which gives
+    the strided ``[:, :S]`` windows of one layer of a stacked ``[L, B,
+    S_max, K, D]`` cache in ``form`` (and the scale windows in the
+    kwargs)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+    kc, ks = cache_form(torch.randn((layers, b, s_max, kh, d), generator=g,
+                                    device="cuda").bfloat16(), form, 2)
+    vc, vs = cache_form(torch.randn((layers, b, s_max, kh, d), generator=g,
+                                    device="cuda").bfloat16(), form, 2)
+    rows = s // 2 if form == "int4" else s
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+
+    def view(lay):
+        kw = {}
+        if form is not None:
+            kw = dict(k_scale=ks[lay, :, :s], v_scale=vs[lay, :, :s], kv_quant=form)
+        return kc[lay, :, :rows], vc[lay, :, :rows], kw
+
+    return q, pos, view
+
+
+def decode_library(q, view, s, pos, form, copies: int):
+    """The SDPA yardstick of kernels 2 and 3, L2-cold: one call per copy,
+    rotating over ``copies`` dequantized bf16 copies of the first layers
+    of the stacked cache, KV heads expanded."""
     import torch
     import torch.nn.functional as F
 
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-    kc, ks = cache_form(torch.randn((b, s_max, kh, d), generator=g,
-                                    device="cuda").bfloat16(), form, 1)
-    vc, vs = cache_form(torch.randn((b, s_max, kh, d), generator=g,
-                                    device="cuda").bfloat16(), form, 1)
-    rows = s // 2 if form == "int4" else s
-    k_view, v_view = kc[:, :rows], vc[:, :rows]
-    if form is not None:
-        kw = dict(kw, k_scale=ks[:, :s], v_scale=vs[:, :s], kv_quant=form)
-    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    got = da.flash_decode_attention(q, k_view, v_view, pos, **kw)
-    want = da.plain(q, k_view, v_view, pos, **kw)
+    h = q.shape[2]
+    ins = []
+    for lay in range(copies):
+        kd, vd, kw = view(lay)
+        kh = kd.shape[2]
+        if form is not None:
+            kd = da.dequant_f32(kd, kw["k_scale"], form).bfloat16()
+            vd = da.dequant_f32(vd, kw["v_scale"], form).bfloat16()
+        ins.append([x.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+                    for x in (kd, vd)])
+    qh = q.transpose(1, 2)
+    am = (torch.arange(s, device="cuda")[None, :] <= pos[:, None].long())
+    am = am[:, None, None, :]
+    return library_times(rotating(
+        lambda n: F.scaled_dot_product_attention(qh, *ins[n], attn_mask=am),
+        copies))
+
+
+def library_copies(copy_bytes: float, most: int) -> int:
+    """Copies an L2-cold yardstick rotates over: enough to exceed
+    ``L2_COLD_BYTES``, at least two, at most ``most``."""
+    return max(2, min(most, -(-int(L2_COLD_BYTES) // int(copy_bytes)) + 1))
+
+
+def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
+                timed=True, **kw):
+    """Kernel 2 in ``form`` on strided [:, :S] windows of a [B, S_max, K, D]
+    cache layer, against its plain version, and twice on equal inputs
+    (BITWISE equal: the splits are merged in split order).  Timed L2-cold
+    with its device time, its bound and an SDPA yardstick over dequantized
+    bf16 copies: the kernel rotates the layer over a stacked cache of
+    ``cold_layers`` layers, the library call over copies of its inputs,
+    each rotation larger than ``L2_COLD_BYTES``."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
+
+    layers = cold_layers(positions, s, kh, d, form) if timed else 1
+    q, pos, view = decode_inputs(b, s, h, kh, d, positions, form, s_max,
+                                 layers, seed)
+    k_view, v_view, fkw = view(layers - 1)
+    fkw.update(kw)
+    got = da.flash_decode_attention(q, k_view, v_view, pos, **fkw)
+    again = da.flash_decode_attention(q, k_view, v_view, pos, **fkw)
+    want = da.plain(q, k_view, v_view, pos, **fkw)
     torch.cuda.synchronize()
     name = f"{row_name('flash_decode_attention', form)} S={s}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on equal inputs differ in "
+                             f"{int(got.ne(again).sum())} values")
     win = kw.get("window") or (1 << 30)
     keys = torch.arange(s, device="cuda")[None, :]
     seen = ((keys <= pos[:, None]) & (pos[:, None] - keys < win)).any(-1)
@@ -350,25 +435,19 @@ def decode_case(b, s, h, kh, d, positions, form=None, s_max=MAX_SEQ, seed=0,
               + (2 * 4 * sum(live) * kh if form else 0)
               + 2 * 2 * b * h * d + 4 * b)
     flops = 4 * d * h * sum(live)
+    views = [view(lay) for lay in range(layers)]  # the model slices per layer
+    launch = rotating(lambda lay: da.flash_decode_attention(
+        q, views[lay][0], views[lay][1], pos, **views[lay][2], **kw), layers)
     row = dict(
-        shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
+        shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)} "
+              f"L2-cold{layers}",
         max_abs_err=err,
-        **kernel_ms(lambda: da.flash_decode_attention(q, k_view, v_view, pos, **kw),
-                    iters=50),
-        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos, **kw))[0],
+        **kernel_ms(launch, iters=50),
+        device_ms=device_ms(launch, "flash_decode_kernel"),
+        plain_ms=timed_ms(lambda: da.plain(q, k_view, v_view, pos, **fkw))[0],
+        **decode_library(q, view, s, pos, form, library_copies(
+            2 * 2 * b * h * s * d, layers)),
     )
-    kd, vd = k_view, v_view
-    if form is not None:
-        kd = da.dequant_f32(k_view, kw["k_scale"], form).bfloat16()
-        vd = da.dequant_f32(v_view, kw["v_scale"], form).bfloat16()
-    qh = q.transpose(1, 2)
-    kx = kd.transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    vx = vd.transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    am = (torch.arange(s, device="cuda")[None, :] <= pos[:, None].long())
-    am = am[:, None, None, :]
-    row["library_ms"] = timed_ms(
-        lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am),
-        iters=50)[0]
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -500,9 +579,9 @@ def fused_case(h, kh, d, form, view=FUSED_VIEW, s_max=MAX_SEQ, layers=2,
     qh = q[:, :, None, :]  # [B, H, 1, D]
     last = pos.long().clamp(max=view - 1)
     am = (torch.arange(view, device="cuda")[None, :] <= last[:, None])[:, None, None, :]
-    row["library_ms"] = timed_ms(rotating(
+    row.update(library_times(rotating(
         lambda n: F.scaled_dot_product_attention(qh, *copies[n], attn_mask=am),
-        2), iters=50)[0]
+        2)))
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
 
@@ -665,27 +744,26 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
     at = pos.long()[:, None] + torch.arange(t, device="cuda")[None, :]  # [B, T]
     am = torch.arange(view, device="cuda")[None, None, :] <= at.clamp(max=view - 1)[:, :, None]
     am = am[:, None]  # causal T-row mask [B, 1, T, view]
-    row["library_ms"] = timed_ms(rotating(
+    row.update(library_times(rotating(
         lambda i: F.scaled_dot_product_attention(qh, *copies[i], attn_mask=am),
-        2), iters=50)[0]
+        2)))
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * attended)
     return row
 
 
 def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **kw):
     """Kernel 3 (raw) on strided [:, :S] windows of a [B, S_max, K, D]
-    cache, against its plain version and against kernel 2 on the same
-    inputs; timed with its bound and kernel 2's SDPA yardstick."""
+    cache layer, against its plain version and against kernel 2 on the
+    same inputs; timed L2-cold as kernel 2 is, with its device time, its
+    bound and kernel 2's SDPA yardstick."""
     import torch
-    import torch.nn.functional as F
 
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
-    kc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
-    vc = torch.randn((b, s_max, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
-    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    layers = cold_layers(positions, s, kh, d, None) if timed else 1
+    q, pos, view = decode_inputs(b, s, h, kh, d, positions, None, s_max,
+                                 layers, seed)
+    kc, vc, _ = view(layers - 1)
     got = da.flash_decode_attention_plane(q, kc, vc, pos, **kw)
     want = da.plain(q, kc, vc, pos, **kw)
     k2 = da.flash_decode_attention(q, kc, vc, pos, **kw)
@@ -700,19 +778,18 @@ def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **k
         return err
     live = [min(p, s - 1) + 1 for p in positions]
     nbytes = 2 * 2 * sum(live) * kh * d + 2 * 2 * b * h * d + 4 * b
-    qh = q.transpose(1, 2)
-    kx = kc.transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    vx = vc.transpose(1, 2).repeat_interleave(h // kh, dim=1)
-    am = (keys <= pos[:, None].long())[:, None, None, :]
+    views = [view(lay)[:2] for lay in range(layers)]
+    launch = rotating(lambda lay: da.flash_decode_attention_plane(
+        q, *views[lay], pos, **kw), layers)
     row = dict(
-        shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)}",
+        shape=f"B{b} S{s} H{h} K{kh} D{d} parked{sum(p >= s for p in positions)} "
+              f"L2-cold{layers}",
         max_abs_err=err,
-        **kernel_ms(lambda: da.flash_decode_attention_plane(q, kc, vc, pos, **kw),
-                    iters=50),
+        **kernel_ms(launch, iters=50),
+        device_ms=device_ms(launch, "plane_decode_kernel"),
         plain_ms=timed_ms(lambda: da.plain(q, kc, vc, pos, **kw))[0],
-        library_ms=timed_ms(
-            lambda: F.scaled_dot_product_attention(qh, kx, vx, attn_mask=am),
-            iters=50)[0],
+        **decode_library(q, view, s, pos, None, library_copies(
+            2 * 2 * b * h * s * d, layers)),
     )
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * sum(live))
     return row
@@ -817,36 +894,39 @@ RAGGED_TOT = 1024
 
 
 def ragged_group(h, kh, d, rows, tot, s=MAX_SEQ, slots=NUM_SLOTS + 1,
-                 window=None, softcap=None, seed=0, layers=2, form=None):
+                 window=None, softcap=None, seed=0, layers=2, form=None,
+                 copies=1, block_q=16):
     """Run the ragged kernel and its plain version in ``form`` on copies of
     the same random cache; check the real rows' attention and every
     non-scratch cache row (raw: within tolerance; quantized: values and
-    scales bit-exact).  Returns (kernel, plain, inputs) for timing."""
+    scales bit-exact).  Returns the inputs and ``run(n)``, the kernel on
+    layer ``n % layers`` with input set ``n % copies`` (``copies`` sets of
+    q / k_new / v_new), for timing."""
     import torch
 
     from p2p_llm_tunnel_tpu_torch.ops import prefill_attention as pa
 
     entries = [(i, st, ln) for i, (st, ln) in enumerate(rows)]
     slot_of, start_of, qoff_of, _qlen, base_of, offs = pa.plan_ragged_group(
-        entries, 16, tot, scratch_slot=slots - 1)
+        entries, block_q, tot, scratch_slot=slots - 1)
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").bfloat16()
 
-    q, kn, vn = rnd(tot, h, d), rnd(tot, kh, d), rnd(tot, kh, d)
+    ins = [(rnd(tot, h, d), rnd(tot, kh, d), rnd(tot, kh, d)) for _ in range(copies)]
     kc, ks = cache_form(rnd(layers, slots, s, kh, d), form, 2)
     vc, vs = cache_form(rnd(layers, slots, s, kh, d), form, 2)
     descs = [torch.tensor(x, device="cuda") for x in (slot_of, start_of, qoff_of, base_of)]
-    kw = dict(block_q=16, rope_theta=500000.0, window=window, softcap=softcap)
+    kw = dict(block_q=block_q, rope_theta=500000.0, window=window, softcap=softcap)
     if form is not None:
         kw["kv_quant"] = form
     layer = layers - 1
     c1 = [None if x is None else x.clone() for x in (kc, vc, ks, vs)]
     c2 = [None if x is None else x.clone() for x in (kc, vc, ks, vs)]
 
-    def run(fn, c):
-        return fn(q, kn, vn, c[0], c[1], *descs, layer, k_scale=c[2],
+    def run(fn, c, n=0, lay=layer):
+        return fn(*ins[n], c[0], c[1], *descs, lay, k_scale=c[2],
                   v_scale=c[3], **kw)
 
     got = run(pa.ragged_prefill_attention, c1)
@@ -867,42 +947,59 @@ def ragged_group(h, kh, d, rows, tot, s=MAX_SEQ, slots=NUM_SLOTS + 1,
                     f"{name}: cache leaf {leaf} differs from the plain "
                     f"version's in {int(a[:, :-1].ne(b[:, :-1]).sum())} entries")
     return dict(entries=entries, offs=offs, err=err,
-                run=lambda: run(pa.ragged_prefill_attention, c1),
+                run=lambda n=0: run(pa.ragged_prefill_attention, c1,
+                                    n % copies, n % layers),
                 run_plain=lambda: run(pa.plain, c2),
-                q=q, cache=c1, layer=layer)
+                ins=ins, cache=c1, layers=layers)
 
 
-def ragged_case(h, kh, d, form=None):
-    """The serving group shape, timed: kernel, plain version, and an
-    attention-only yardstick — scaled_dot_product_attention with an
-    explicit boolean mask over the same rows padded to [rows, H, tail,
-    start + tail], over a dequantized bf16 copy of the cache (it does no
-    rope, no quantization and no append; the port never calls it)."""
+def ragged_library(c, h, kh, form):
+    """The kernel-6 yardstick, L2-cold: scaled_dot_product_attention with
+    an explicit boolean mask over the group's rows padded to [rows, H,
+    tail, start + tail], over dequantized bf16 copies of the cache (no
+    rope, no quantization, no append; the port never calls it), rotating
+    over copies built from the kernel's input sets and layers."""
     import torch
     import torch.nn.functional as F
 
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
 
-    c = ragged_group(h, kh, d, RAGGED_ROWS, RAGGED_TOT, form=form)
-    rows = len(RAGGED_ROWS)
-    t_max = max(ln for _, ln in RAGGED_ROWS)
-    s_max = max(st + ln for st, ln in RAGGED_ROWS)
-    qp = torch.zeros((rows, h, t_max, d), dtype=torch.bfloat16, device="cuda")
-    kp = torch.zeros((rows, h, s_max, d), dtype=torch.bfloat16, device="cuda")
-    vp = torch.zeros_like(kp)
-    mask = torch.zeros((rows, 1, t_max, s_max), dtype=torch.bool, device="cuda")
+    rows = len(c["entries"])
+    d = c["ins"][0][0].shape[2]
+    t_max = max(ln for _, _, ln in c["entries"])
+    s_max = max(st + ln for _, st, ln in c["entries"])
+    copy_bytes = 2 * rows * h * d * (t_max + 2 * s_max)
+    n_copies = library_copies(copy_bytes, min(c["layers"], len(c["ins"])))
     kc, vc, ks, vs = c["cache"]
-    for r, ((slot, st, ln), off) in enumerate(zip(c["entries"], c["offs"])):
-        qp[r, :, :ln] = c["q"][off:off + ln].transpose(0, 1)
-        for dst, src, sc in ((kp, kc, ks), (vp, vc, vs)):
-            plane = src[c["layer"], slot][None]
-            if form is not None:
-                plane = da.dequant_f32(plane, sc[c["layer"], slot][None], form)
-            dst[r, :, :st + ln] = plane[0, :st + ln].bfloat16().transpose(
-                0, 1).repeat_interleave(h // kh, dim=0)
+    mask = torch.zeros((rows, 1, t_max, s_max), dtype=torch.bool, device="cuda")
+    for r, (_slot, st, ln) in enumerate(c["entries"]):
         i = torch.arange(ln, device="cuda")[:, None]
         j = torch.arange(s_max, device="cuda")[None, :]
         mask[r, 0, :ln] = j <= st + i
+    copies = []
+    for n in range(n_copies):
+        qp = torch.zeros((rows, h, t_max, d), dtype=torch.bfloat16, device="cuda")
+        kp = torch.zeros((rows, h, s_max, d), dtype=torch.bfloat16, device="cuda")
+        vp = torch.zeros_like(kp)
+        for r, ((slot, st, ln), off) in enumerate(zip(c["entries"], c["offs"])):
+            qp[r, :, :ln] = c["ins"][n][0][off:off + ln].transpose(0, 1)
+            for dst, src, sc in ((kp, kc, ks), (vp, vc, vs)):
+                plane = src[n, slot][None]
+                if form is not None:
+                    plane = da.dequant_f32(plane, sc[n, slot][None], form)
+                dst[r, :, :st + ln] = plane[0, :st + ln].bfloat16().transpose(
+                    0, 1).repeat_interleave(h // kh, dim=0)
+        copies.append((qp, kp, vp))
+    return library_times(rotating(lambda n: F.scaled_dot_product_attention(
+        *copies[n], attn_mask=mask), n_copies), iters=20)
+
+
+def ragged_case(h, kh, d, form=None):
+    """The serving group shape, timed L2-cold: the kernel rotates the layer
+    over a stacked cache and the input set over as many copies of q /
+    k_new / v_new, each rotation's history and inputs larger than
+    ``L2_COLD_BYTES``; with its device time, the plain version, and the
+    attention-only yardstick of :func:`ragged_library`."""
     real = sum(ln for _, ln in RAGGED_ROWS)
     pairs = sum(st * ln + ln * (ln + 1) // 2 for st, ln in RAGGED_ROWS)
     hist = sum(st for st, _ in RAGGED_ROWS)
@@ -913,14 +1010,21 @@ def ragged_case(h, kh, d, form=None):
     nbytes = (2 * real * 2 * h * d + 2 * real * 2 * kh * d
               + (real + hist) * kh * d * 2 * eb
               + ((real + hist) * kh * 8 if form else 0))
+    per_set = (2 * RAGGED_TOT * (h + 2 * kh) * d
+               + hist * kh * (2 * d * eb + (8 if form else 0)))
+    sets = max(2, -(-int(L2_COLD_BYTES) // int(per_set)) + 1)
+    c = ragged_group(h, kh, d, RAGGED_ROWS, RAGGED_TOT, form=form,
+                     layers=sets, copies=sets)
+    launch = rotating(c["run"], sets)
+    library = ragged_library(c, h, kh, form)
     row = dict(
-        shape=f"rows{rows} TOT{RAGGED_TOT} BQ16 H{h} K{kh} D{d} "
-              f"hist{sorted({st for st, _ in RAGGED_ROWS})}",
+        shape=f"rows{len(RAGGED_ROWS)} TOT{RAGGED_TOT} BQ16 H{h} K{kh} D{d} "
+              f"hist{sorted({st for st, _ in RAGGED_ROWS})} L2-cold{sets}",
         max_abs_err=c["err"],
-        **kernel_ms(c["run"]),
+        **kernel_ms(launch),
+        device_ms=device_ms(launch, "ragged_prefill_kernel"),
         plain_ms=timed_ms(c["run_plain"], iters=5)[0],
-        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-            qp, kp, vp, attn_mask=mask))[0],
+        **library,
     )
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * h * d * pairs)
     return row
@@ -951,6 +1055,16 @@ def ragged_preset_checks() -> dict:
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         for k, v in errs.items():
             worst[k] = max(worst[k], v)
+    # The engine's other q-block widths (a power of two >= 8 dividing its
+    # buckets): query tiles of 1-8 q-blocks, rows ending mid-warp.
+    for h, kh, d, bq in ((8, 4, 32, 8), (16, 8, 64, 8), (32, 8, 128, 32)):
+        for form in FORMS:
+            c = ragged_group(h, kh, d, rows, 160, s=256, slots=5, seed=5,
+                             layers=1, form=form, block_q=bq, window=48)
+            name = row_name("ragged_prefill_attention", form)
+            worst[name] = max(worst[name], c["err"])
+        print(f"[kernels] ragged heads {h}/{kh} D {d} block_q {bq} window 48: "
+              f"every form within tolerance, caches checked")
     return worst
 
 
@@ -994,7 +1108,8 @@ def kernel_phase(cfg) -> dict:
         print(f"[kernels] {name} (bf16 activations, fp32 math; tolerance "
               f"{ATOL} + {RTOL}*|ref|; quantized caches bit-exact)")
         for r in cases:
-            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            lib = ("n/a" if r["library_ms"] is None else
+                   f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
             dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
                   f"kernel {r['ms']:.4f} ms (spread {r['ms_spread']:.4f}){dev}  plain {r['plain_ms']:.4f} ms  "
@@ -1963,7 +2078,8 @@ def main() -> int:
                             + [other_errs.get(rname, 0.0)]),
             ms=pick["ms"], ms_spread=pick["ms_spread"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
-            library_ms=pick["library_ms"], shape=pick["shape"],
+            library_ms=pick["library_ms"],
+            library_device_ms=pick["library_device_ms"], shape=pick["shape"],
             **{k: pick[k] for k in ("device_ms",) if k in pick}, **extra,
         ))
     print(json.dumps({"kernels": table}))

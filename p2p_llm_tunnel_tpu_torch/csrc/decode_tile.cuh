@@ -1,7 +1,8 @@
-// The pieces the decode kernels share: the key tile, the warp reductions
-// (kernels 2 and 3, flash_decode_attention*.cu), and the rope, the new
-// row's quantizer and the soft cap of the split-KV decode layer (kernels 4
-// and 5, split_kv_layer.cuh).
+// The pieces the decode and ragged kernels share: the key tile and the
+// warp reductions (kernel 3, flash_decode_attention_plane.cu), and the
+// rope, the new rows' quantizer and the soft cap of the split-KV decode
+// body (kernels 2, 4 and 5, split_kv_layer.cuh) and of the ragged prefill
+// kernel's appends (kernel 6, ragged_prefill_attention.cu).
 //
 // Every multiply-add is spelled with an explicit rounding intrinsic, so the
 // compiler cannot contract it differently from one build to the next.  The
@@ -51,6 +52,18 @@ __device__ __forceinline__ float quant_scale(float amax, float qmax) {
 
 __device__ __forceinline__ float quant_value(float x, float scale, float qmax) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -qmax), qmax);
+}
+
+// quant_value's result without its IEEE division in all but a few cases:
+// x * (1 / scale) lies within 3e-5 of x / scale (|x / scale| <= 128, both
+// rounded to fp32), so rounding it gives rint(x / scale) whenever x / scale
+// is farther than 1e-3 from a half-integer; nearer, the division decides.
+__device__ __forceinline__ float quant_value_fast(float x, float scale,
+                                                  float inv, float qmax) {
+  const float q = __fmul_rn(x, inv);
+  float n = rintf(q);
+  if (fabsf(fabsf(__fsub_rn(q, n)) - 0.5f) < 1e-3f) n = rintf(__fdiv_rn(x, scale));
+  return fminf(fmaxf(n, -qmax), qmax);
 }
 
 __device__ __forceinline__ float soft_cap(float s, float cap) {

@@ -3,10 +3,11 @@
 // accumulation; raw bf16, int8 or packed int4 KV cache.
 //
 // Replaces: p2p_llm_tunnel_tpu/ops/pallas_prefill_attention.py
-// ragged_prefill_attention (:387, kernel body _ragged_prefill_kernel) in
-// its raw, int8 and int4 KV forms.  Same function: the group's variable-length tails are flat-packed
-// along one token axis, q [TOT,H,D] and new k/v [TOT,K,D] PRE-rope, the
-// cache [L,B,S,K,D] written in place, and each block_q-token q-block carries
+// ragged_prefill_attention (:387, pallas_call :563, kernel body
+// _ragged_prefill_kernel :151) in its raw, int8 and int4 KV forms.  Same
+// function: the group's variable-length tails are flat-packed along one
+// token axis, q [TOT,H,D] and new k/v [TOT,K,D] PRE-rope, the cache
+// [L,B,S,K,D] written in place, and each block_q-token q-block carries
 // (slot, start, qoff, base) descriptors: its row's cache slot, history
 // length, offset inside the row's tail, and the row's first q-block.  Per
 // q-block: rope q and the tail K at global positions start + qoff + i (fp32
@@ -14,18 +15,23 @@
 // rounds), append the block's own roped K and V rows into cache[layer, slot]
 // at [start+qoff, start+qoff+block_q), and attend each query to the row's
 // cache history [0, start) plus the row's own tail causally.  Scores are
-// scaled, soft-capped, then masked by causality, the sliding window and row
-// validity, in the order of the Pallas kernel.
+// scaled, soft-capped, then masked by causality and the sliding window, in
+// the order of the Pallas kernel.
 //
 // Quantized forms (int8 [L,B,S,K,D], or packed int4 [L,B,S/2,K,D] with token
-// 2i in the low nibble of byte i; f32 scales [L,B,S,K]) follow the Pallas
-// body's rounding points: history is dequantized in fp32 (value x scale) and
-// rounded to bf16; the tail's keys are roped in fp32 and NOT rounded before
-// they are quantized (values: v_new), scale = max(amax, 1e-8) / qmax by IEEE
-// division, q = rint(x / scale) clipped to +-127 or +-7, and attention reads
-// the tail's quantize -> dequantize roundtrip rounded to bf16; the append
-// writes the quantized bytes (int4: whole bytes, since every start and
-// block_q are even) with the scales beside them.
+// 2i in the low nibble of byte i; f32 scales [L,B,S,K]).  The appended bytes
+// and scales follow the Pallas body's rounding points bit for bit: the
+// tail's keys are roped in fp32 and NOT rounded before they are quantized
+// (values: v_new), scale = max(amax, 1e-8) / qmax by IEEE division, q =
+// rint(x / scale) (half to even) clipped to +-127 or +-7, int4 appends
+// written as whole bytes (every start and block_q are even).  The attention
+// takes another order than the Pallas body's "dequantize in fp32, round to
+// bf16, then multiply": history and tail alike feed their integer values
+// to the bf16 products (exact: |v| <= 127), the key scale multiplies the
+// score column after the product and the value scale rides in P before P
+// is rounded to bf16, as the split-KV decode body does (split_kv_layer.cuh).
+// The plain version keeps the Pallas order; the two agree within the
+// kernels' tolerance, not bitwise.
 //
 // Bound on the card (published peaks of an H100 SXM at its 700 W limit:
 // 989 TFLOP/s bf16, 3.35 TB/s): a group moves q, k_new, v_new, the output
@@ -33,69 +39,88 @@
 // x 2 x 2 bytes per row), and does 4 x H x D FLOPs per attended (query,
 // key) pair.  At the serving shape (8 rows, TOT 1024, llama3-8b heads) it is
 // bound by HBM bytes (chip_smoke.py computes both terms from the run's
-// descriptors; PERF.md has the measured times).
+// descriptors; PERF.md has the measured times).  What bounds a launch in
+// practice is the chain of tiles one block walks and how often a row's
+// history is read again.
 //
-// Design: the TPU kernel walks a sequential grid and carries its online
-// softmax in VMEM scratch across it; blocks here run in parallel, so the
-// carried state lives in one block's shared memory.  One block per
-// (q-block, KV head, 64-row chunk of the q-block's G x block_q query rows):
-// at block_q 16 and G 4 that is one 64-row chunk, four warps of 16 rows each
-// (kernel 1's layout), so a llama3-8b group of TOT 1024 launches 64 x 8 = 512
-// blocks.  History is read from the cache in 64-key tiles from the window
-// floor up to the frontier `start` only (tiles at or past it are never
-// loaded).  The tail is read from the flat k_new / v_new streams, roped and
-// rounded to bf16 in shared memory, never from the cache: other blocks of
-// the same row append to the cache during this launch, so reading the tail
-// back would race (on the TPU the grid was sequential, so there it was
-// safe).  Scores use bf16 wmma 16x16x16 MMAs with fp32 accumulate; P is
-// rounded to bf16 for the PV product.  Pad blocks (the planner's scratch-slot
-// blocks) run as one-block rows at start 0: their appends land in the
-// scratch slot, as the Pallas kernel's do.  Quantized tails are quantized
-// one warp per row (the amax is a warp reduction over D); only the block
-// that owns the append in the raw form (the first row chunk of a q-block)
-// writes it, recomputing the same quantizer, so its bytes equal the values
-// its tail tile attends.  This is the simple first version: synchronous
-// loads, no wgmma/TMA pipeline.
+// Design (kernel 1's tile loop, flash_causal_attention.cu, over the history
+// and then the tail):
+// - A block's query tile spans qpt consecutive q-blocks of one row (qpt =
+//   rows / (block_q x G): 2 at llama3-8b's G 4 and block_q 16), so a row's
+//   history is read once per (query tile, KV head), not once per q-block.
+//   The grid stays (q-block, KV head, row chunk), computable from the
+//   launch's shape alone (no copy of the descriptors to the host): the
+//   block of a tile's first q-block (qoff / block_q a multiple of qpt) runs
+//   the tile, taking the following q-blocks with the same base; the others
+//   return at once.  Pad blocks (the planner's scratch-slot blocks) are
+//   one-block rows of their own and append into the scratch slot, as the
+//   Pallas kernel's do.
+// - 128 query rows per block (64 at D 256, for shared memory), 16 per warp:
+//   row r is token r / G of the tile under head kh * G + r % G, so the G
+//   heads of a KV head share every K/V tile.  S, P and O stay in registers:
+//   mma.sync m16n8k16 bf16 -> fp32 with ldmatrix fragments, P repacked from
+//   the S accumulators, softmax in log2 units (exp2f).
+// - One barrier per tile, K/V double-buffered.  History tiles come from the
+//   cache by cp.async, 16 bytes a thread (quantized: the bytes and scales,
+//   the integers converted to bf16 by the thread that copied them, before
+//   the barrier).  Tail tiles are built from the flat k_new / v_new streams
+//   in the tile's shared stage (K roped, quantized forms quantized; raw V
+//   by cp.async), never read back from the cache: other blocks of the same
+//   row append to it during this launch.  The next tile's load starts
+//   right after the barrier and overlaps this tile's products.
+// - Masks only where needed: a history tile pays the compares when it
+//   reaches the row's start (the history -> tail seam) or crosses the
+//   window's edge, a tail tile on the causal diagonal or the window's edge;
+//   the soft cap (tanhf) runs only when it is set.  Rows that see no key
+//   (padding rows past the tile's tokens) emit 0.
+// - The append (row chunk 0 only): the tile's own roped K and V rows, in the
+//   cache's form, before the loop (the first tile's copy is in flight).
+//   wgmma and TMA are not used: at these shapes a block walks 1-10 tiles and
+//   is bound by latency and bytes, not the tensor cores.
 //
 // C ABI (loaded with ctypes): ragged_prefill_attention_launch returns the
 // cudaError_t of the launch (0 = launched).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "decode_tile.cuh"
 #include "kv_forms.cuh"
-
-using namespace nvcuda;
+#include "tensor_tile.cuh"
 
 namespace {
 
-constexpr int BR = 64;             // query rows per block
-constexpr int BK = 64;             // keys per tile
-constexpr int WARPS = 4;           // 16 query rows each
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -0.7f * FLT_MAX;  // ops/attention.py _NEG_INF
-
 using namespace kv_forms;
+using namespace tensor_tile;
+using decode_tile::NEG_INF;
+
+constexpr int BK = 64;             // keys per tile
+constexpr int PAD = 8;             // bf16 row padding: conflict-free ldmatrix
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Query rows per block: 8 warps of 16 rows; 4 warps at D 256, where two K/V
+// stages of 64 x 264 bf16 take 132 KB.
+__host__ __device__ constexpr int block_rows(int D) { return D > 128 ? 64 : 128; }
 
 template <int D>
 struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 pitch of the Q/K/V tiles
-  static constexpr int LDS = BK + 4;  // fp32 pitch of the score tile
-  static constexpr int LDP = BK + 8;  // bf16 pitch of the probability tile
-  static constexpr int LDO = D + 4;   // fp32 pitch of the output accumulator
-  // Byte offsets; every region starts on a 32-byte boundary (wmma needs it).
+  static constexpr int BR = block_rows(D);
+  static constexpr int WARPS = BR / 16;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int P = D + PAD;  // bf16 pitch of the q/K/V tiles
+  static constexpr size_t TILE = size_t(BK) * P * 2;
+  // Byte offsets; every region starts on a 16-byte boundary.
   static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + size_t(BR) * LDH * 2;
-  static constexpr size_t V = K + size_t(BK) * LDH * 2;
-  static constexpr size_t S = V + size_t(BK) * LDH * 2;
-  static constexpr size_t P = S + size_t(BR) * LDS * 4;
-  static constexpr size_t O = P + size_t(BR) * LDP * 2;
-  static constexpr size_t M = O + size_t(BR) * LDO * 4;
-  static constexpr size_t L = M + size_t(BR) * 4;
-  static constexpr size_t BYTES = L + size_t(BR) * 4;
+  static constexpr size_t KV = Q + size_t(BR) * P * 2;  // 2 stages x {K, V}
+  static constexpr size_t SC = KV + 4 * TILE;           // 2 stages x {k, v} x BK f32
+  static constexpr size_t BYTES = SC + 4 * BK * 4;      // quantized: a K and V byte tile
+  // Bytes per block: the byte stage holds BK rows of D bytes per plane for
+  // int8, BK/2 for int4 (so at D 128 raw and int4 blocks fit two per SM).
+  static constexpr size_t smem(int form) {
+    return BYTES + (form == RAW ? 0 : 2 * size_t(form == INT4 ? BK / 2 : BK) * D);
+  }
 };
 
 struct Args {
@@ -113,366 +138,140 @@ struct Args {
   const int* qoff_of;
   const int* base_of;
   __nv_bfloat16* out;            // [TOT, H, D]
-  int H, KH, BQ, B, S, layer;
+  int nqb, H, KH, BQ, B, S, layer, qpt;
   float scale, softcap;
   int window;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rotate-half RoPE of lanes (d, d+1) and (d+D/2, d+D/2+1), the expression of
-// ops/rope.apply_rope op for op (rx1 = x1*cos - x2*sin, rx2 = x2*cos +
-// x1*sin, each product and sum rounded in fp32, no contraction), rounded to
-// bf16 at the end as apply_rope's .to(x.dtype).
-__device__ __forceinline__ void rope_pair(__nv_bfloat162& lo, __nv_bfloat162& hi,
-                                          const float* sn, const float* cs) {
-  const float2 x1 = __bfloat1622float2(lo);
-  const float2 x2 = __bfloat1622float2(hi);
-  const float r1a = __fsub_rn(__fmul_rn(x1.x, cs[0]), __fmul_rn(x2.x, sn[0]));
-  const float r1b = __fsub_rn(__fmul_rn(x1.y, cs[1]), __fmul_rn(x2.y, sn[1]));
-  const float r2a = __fadd_rn(__fmul_rn(x2.x, cs[0]), __fmul_rn(x1.x, sn[0]));
-  const float r2b = __fadd_rn(__fmul_rn(x2.y, cs[1]), __fmul_rn(x1.y, sn[1]));
-  lo = __floats2bfloat162_rn(r1a, r1b);
-  hi = __floats2bfloat162_rn(r2a, r2b);
-}
-
-// Copy rows [row0, row0+64) of a [rows, pitch] plane into a shared tile;
-// rows at or past `limit` are zero-filled.
+// Rows of new tokens, D/16 neighbouring lanes per row: lane c of a row
+// holds its elements [8c, 8c + 8) and their rope partners [D/2 + 8c,
+// D/2 + 8c + 8) in x[0..8) and x[8..16), as fp32 (with `rope`, roped at
+// `pos` by decode_tile.cuh's rotate-half rope, the expression of
+// ops/rope.apply_rope op for op, not rounded), loaded 16 bytes at a time so
+// that a pass over the rows waits for one load latency.
 template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int limit, size_t pitch) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CH; c += THREADS) {
-    const int r = c / CH;
-    const int cc = c - r * CH;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const int4*>(src + size_t(row0 + r) * pitch + cc * 8);
-    *reinterpret_cast<int4*>(dst + r * Layout<D>::LDH + cc * 8) = val;
+__device__ __forceinline__ void load16(const __nv_bfloat16* row, int c,
+                                       bool rope, int pos, const Args& a,
+                                       float (&x)[16]) {
+  constexpr int HALF = D / 2;
+  const uint4 lo = *reinterpret_cast<const uint4*>(row + 8 * c);
+  const uint4 hi = *reinterpret_cast<const uint4*>(row + HALF + 8 * c);
+  const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lo);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 fl = __bfloat1622float2(l2[e]);
+    const float2 fh = __bfloat1622float2(h2[e]);
+    x[2 * e] = fl.x;
+    x[2 * e + 1] = fl.y;
+    x[8 + 2 * e] = fh.x;
+    x[8 + 2 * e + 1] = fh.y;
+  }
+  if (rope) {
+    const size_t t = size_t(min(pos, a.S - 1)) * HALF + 8 * c;
+    const float4* sn = reinterpret_cast<const float4*>(a.sin_t + t);
+    const float4* cs = reinterpret_cast<const float4*>(a.cos_t + t);
+    const float4 s4[2] = {sn[0], sn[1]};
+    const float4 c4[2] = {cs[0], cs[1]};
+    const float* sv = reinterpret_cast<const float*>(s4);
+    const float* cv = reinterpret_cast<const float*>(c4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float2 r = decode_tile::rope_f32(x[e], x[8 + e], sv[e], cv[e]);
+      x[e] = r.x;
+      x[8 + e] = r.y;
+    }
   }
 }
 
-// Copy `n` rows of a [rows, pitch] plane starting at row0 into a shared tile
-// with RoPE at positions pos0 + r (rows past n zero-filled).
+// x[0..8) and x[8..16) rounded to bf16 (apply_rope's .to(x.dtype)) into
+// elements [8c, 8c + 8) and [D/2 + 8c, D/2 + 8c + 8) of `row`.
 template <int D>
-__device__ __forceinline__ void load_rows_roped(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int row0, int n, size_t pitch,
-                                                int pos0, const Args& a) {
+__device__ __forceinline__ void store16(__nv_bfloat16* row, int c, const float* x) {
   constexpr int HALF = D / 2;
-  constexpr int NP = HALF / 2;  // bf16 pairs per half
-  for (int c = threadIdx.x; c < 64 * NP; c += THREADS) {
-    const int r = c / NP;
-    const int d = 2 * (c - r * NP);
-    __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f);
-    __nv_bfloat162 hi = lo;
-    if (r < n) {
-      const __nv_bfloat16* row = src + size_t(row0 + r) * pitch;
-      lo = *reinterpret_cast<const __nv_bfloat162*>(row + d);
-      hi = *reinterpret_cast<const __nv_bfloat162*>(row + d + HALF);
-      const size_t t = size_t(min(pos0 + r, a.S - 1)) * HALF + d;
-      rope_pair(lo, hi, a.sin_t + t, a.cos_t + t);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * Layout<D>::LDH + d) = lo;
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * Layout<D>::LDH + d + HALF) = hi;
-  }
+  *reinterpret_cast<uint4*>(row + 8 * c) =
+      make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                 pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+  *reinterpret_cast<uint4*>(row + HALF + 8 * c) =
+      make_uint4(pack_bf16(x[8], x[9]), pack_bf16(x[10], x[11]),
+                 pack_bf16(x[12], x[13]), pack_bf16(x[14], x[15]));
 }
 
-// Quantized history rows [row0, row0+64) of one (slot, head) into a bf16
-// tile: value x scale in fp32, rounded to bf16 (rows at or past `limit`
-// zero-filled).  `base` points at the slot's byte row 0 for this head,
-// `scales` at its scale of position 0; `pitch` is bytes between byte rows.
+// The row's scale from its amax over its D/16 lanes, and x quantized in
+// place (integers in fp32): decode_tile.cuh's quantizer (its exact fast
+// path), the plain version's bit for bit.  Every lane of the warp must call
+// it.
 template <int D, int FORM>
-__device__ __forceinline__ void load_rows_deq(__nv_bfloat16* dst,
-                                              const int8_t* base,
-                                              const float* scales, int row0,
-                                              int limit, size_t pitch, int KH) {
-  constexpr int CH = D / 8;  // 8-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CH; c += THREADS) {
-    const int r = c / CH;
-    const int cc = c - r * CH;
-    const int pos = row0 + r;
-    __align__(16) __nv_bfloat16 vals[8];
-    if (pos < limit) {
-      const float sc = scales[size_t(pos) * KH];
-      const size_t row = FORM == INT4 ? size_t(pos >> 1) : size_t(pos);
-      const int2 raw = *reinterpret_cast<const int2*>(base + row * pitch + cc * 8);
-      const int8_t* by = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int x = FORM == INT4 ? nibble(by[e], pos & 1) : int(by[e]);
-        vals[e] = __float2bfloat16(__fmul_rn(float(x), sc));
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(0.f);
-    }
-    *reinterpret_cast<int4*>(dst + r * Layout<D>::LDH + cc * 8) =
-        *reinterpret_cast<const int4*>(vals);
-  }
-}
-
-// The cache quantizer on one new row, one warp: elements (dd, dd + D/2) for
-// dd = lane + 32 i sit in v[2i], v[2i+1]; with `rope` they are roped in fp32
-// at `pos` first (not rounded).  On return v holds the quantized values
-// (integers in fp32) and the row's scale.
-template <int D, int FORM>
-__device__ __forceinline__ float quant_row(const __nv_bfloat16* src, bool rope,
-                                           int pos, const Args& a,
-                                           float (&v)[2 * ((D / 2 + 31) / 32)]) {
-  constexpr int HALF = D / 2;
-  constexpr int PER = (HALF + 31) / 32;
+__device__ __forceinline__ float quant16(float (&x)[16]) {
   constexpr float QMAX = FORM == INT4 ? 7.f : 127.f;
-  const int lane = threadIdx.x & 31;
-  float amax = 0.f;
+  float m = 0.f;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int dd = lane + 32 * i;
-    float x1 = 0.f, x2 = 0.f;
-    if (dd < HALF) {
-      x1 = __bfloat162float(src[dd]);
-      x2 = __bfloat162float(src[dd + HALF]);
-      if (rope) {
-        const size_t t = size_t(min(pos, a.S - 1)) * HALF + dd;
-        const float sn = a.sin_t[t], cs = a.cos_t[t];
-        const float r1 = __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
-        const float r2 = __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
-        x1 = r1;
-        x2 = r2;
-      }
-    }
-    v[2 * i] = x1;
-    v[2 * i + 1] = x2;
-    amax = fmaxf(amax, fmaxf(fabsf(x1), fabsf(x2)));
-  }
-  amax = warp_max(amax);
-  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), QMAX);
+  for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(x[e]));
 #pragma unroll
-  for (int e = 0; e < 2 * PER; ++e)
-    v[e] = fminf(fmaxf(rintf(__fdiv_rn(v[e], sc)), -QMAX), QMAX);
+  for (int off = 1; off < D / 16; off <<= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float sc = decode_tile::quant_scale(m, QMAX);
+  const float inv = __frcp_rn(sc);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) x[e] = decode_tile::quant_value_fast(x[e], sc, inv, QMAX);
   return sc;
 }
 
-// `n` new rows starting at flat token row0 into a bf16 tile as their
-// quantize -> dequantize roundtrip rounded to bf16 (rows past n
-// zero-filled); keys roped at positions pos0 + r.  One warp per row.
-template <int D, int FORM>
-__device__ __forceinline__ void load_rows_quant(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int row0, int n, size_t pitch,
-                                                int pos0, bool rope,
-                                                const Args& a) {
-  constexpr int HALF = D / 2;
-  constexpr int PER = (HALF + 31) / 32;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < 64; r += WARPS) {
-    __nv_bfloat16* out = dst + r * Layout<D>::LDH;
-    if (r >= n) {
-      for (int d = lane; d < D; d += 32) out[d] = __float2bfloat16(0.f);
-      continue;
-    }
-    float v[2 * PER];
-    const float sc = quant_row<D, FORM>(src + size_t(row0 + r) * pitch, rope,
-                                        pos0 + r, a, v);
+// 8 integer values (|v| <= 127) as 8 bytes, or as the low (odd = 0) or high
+// nibbles of 8 bytes.
+__device__ __forceinline__ uint2 pack8(const float* v) {
+  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < HALF) {
-        out[dd] = __float2bfloat16(__fmul_rn(v[2 * i], sc));
-        out[dd + HALF] = __float2bfloat16(__fmul_rn(v[2 * i + 1], sc));
-      }
-    }
-  }
-}
-
-// The quantized APPEND of a q-block's rows [0, BQ) for one KV head: int8
-// one warp per row; int4 one warp per even/odd row pair, whose nibbles make
-// whole bytes.  Rows at positions >= S are skipped.
-template <int D, int FORM>
-__device__ __forceinline__ void append_quant(const __nv_bfloat16* src,
-                                             int8_t* cache, float* scales,
-                                             int tok0, int qpos0, size_t pitch,
-                                             bool rope, const Args& a) {
-  constexpr int HALF = D / 2;
-  constexpr int PER = (HALF + 31) / 32;
-  constexpr int STEP = FORM == INT4 ? 2 : 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = warp * STEP; i < a.BQ; i += WARPS * STEP) {
-    const int pos = qpos0 + i;
-    if (pos >= a.S) continue;
-    float v0[2 * PER], v1[2 * PER];
-    const float s0 = quant_row<D, FORM>(src + size_t(tok0 + i) * pitch, rope,
-                                        pos, a, v0);
-    float s1 = 0.f;
-    if constexpr (FORM == INT4)
-      s1 = quant_row<D, FORM>(src + size_t(tok0 + i + 1) * pitch, rope,
-                              pos + 1, a, v1);
-    const size_t row = FORM == INT4 ? size_t(pos >> 1) : size_t(pos);
-    int8_t* dst = cache + row * pitch;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int dd = lane + 32 * k;
-      if (dd >= HALF) continue;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int lo = static_cast<int>(v0[2 * k + hh]);
-        int byte = lo;
-        if constexpr (FORM == INT4)
-          byte = ((static_cast<int>(v1[2 * k + hh]) & 0x0F) << 4) | (lo & 0x0F);
-        dst[dd + hh * HALF] = static_cast<int8_t>(static_cast<uint8_t>(byte & 0xFF));
-      }
-    }
-    if (lane == 0) {
-      scales[size_t(pos) * a.KH] = s0;
-      if constexpr (FORM == INT4) scales[size_t(pos + 1) * a.KH] = s1;
-    }
-  }
-}
-
-// One 64-key tile of the online softmax for this warp's 16 query rows.
-// Keys sit at positions kpos0 + c; those at or past `klimit`, after a
-// row's own position (causal tiles), outside the window, or seen by a row
-// past the q-block's G x block_q rows are masked.
-template <int D>
-__device__ __forceinline__ void attend_tile(unsigned char* smem, int kpos0,
-                                            int klimit, bool causal, int row0,
-                                            int R, int G, int qpos0,
-                                            const Args& a) {
-  using LY = Layout<D>;
-  const __nv_bfloat16* Qs = reinterpret_cast<const __nv_bfloat16*>(smem + LY::Q);
-  const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(smem + LY::K);
-  const __nv_bfloat16* Vs = reinterpret_cast<const __nv_bfloat16*>(smem + LY::V);
-  float* Ss = reinterpret_cast<float*>(smem + LY::S);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + LY::P);
-  float* Os = reinterpret_cast<float*>(smem + LY::O);
-  float* Ms = reinterpret_cast<float*>(smem + LY::M);
-  float* Ls = reinterpret_cast<float*>(smem + LY::L);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // S = Q K^T for this warp's 16 rows x 64 keys.
-  {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa;
-      wmma::load_matrix_sync(qa, Qs + warp * 16 * LY::LDH + d0, LY::LDH);
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        // K stored [key][d] row-major is K^T in column-major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + n * 16 * LY::LDH + d0, LY::LDH);
-        wmma::mma_sync(acc[n], qa, kb, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n)
-      wmma::store_matrix_sync(Ss + warp * 16 * LY::LDS + n * 16, acc[n],
-                              LY::LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // Online softmax over this tile, row by row; lane owns keys lane, lane+32.
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const int grow = row0 + r;
-    const bool live = grow < R;
-    const int qpos = qpos0 + grow / G;
-    float sv[2];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int c2 = 0; c2 < 2; ++c2) {
-      const int c = lane + 32 * c2;
-      const int kpos = kpos0 + c;
-      float s = Ss[r * LY::LDS + c] * a.scale;
-      if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-      const bool ok = live && kpos < klimit && (!causal || kpos <= qpos) &&
-                      (qpos - kpos) < a.window;
-      s = ok ? s : NEG_INF;
-      sv[c2] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    const float m_old = Ms[r];
-    const float m_new = fmaxf(m_old, mx);
-    // rows that have seen nothing stay at NEG_INF (corr 0, p 0)
-    const float corr = (m_old == NEG_INF) ? 0.f : expf(m_old - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c2 = 0; c2 < 2; ++c2) {
-      const float p = (sv[c2] == NEG_INF) ? 0.f : expf(sv[c2] - m_new);
-      psum += p;
-      Ps[r * LY::LDP + lane + 32 * c2] = __float2bfloat16(p);
-    }
-    psum = warp_sum(psum);
-    for (int c = lane; c < D; c += 32) Os[r * LY::LDO + c] *= corr;
-    if (lane == 0) {
-      Ms[r] = m_new;
-      Ls[r] = Ls[r] * corr + psum;
-    }
-  }
-  __syncwarp();
-
-  // O += P V for this warp's 16 rows.
-#pragma unroll
-  for (int n0 = 0; n0 < D; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::load_matrix_sync(o, Os + warp * 16 * LY::LDO + n0, LY::LDO,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Ps + warp * 16 * LY::LDP + kk, LY::LDP);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-      wmma::load_matrix_sync(vb, Vs + kk * LY::LDH + n0, LY::LDH);
-      wmma::mma_sync(o, pa, vb, o);
-    }
-    wmma::store_matrix_sync(Os + warp * 16 * LY::LDO + n0, o, LY::LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
+  for (int e = 0; e < 8; ++e)
+    w[e >> 2] |= (static_cast<uint32_t>(static_cast<int>(v[e])) & 0xFFu) << (8 * (e & 3));
+  return make_uint2(w[0], w[1]);
 }
 
 template <int D, int FORM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Layout<D>::THREADS)
 ragged_prefill_kernel(const Args a) {
   using LY = Layout<D>;
+  constexpr int BR = LY::BR;
+  constexpr int THREADS = LY::THREADS;
+  constexpr int P = LY::P;
   constexpr int HALF = D / 2;
+  constexpr int NT = D / 8;          // n-tiles of an output row
+  constexpr int CH = D / 8;          // 16-byte bf16 chunks per row
+  constexpr bool QUANT = FORM != RAW;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + LY::Q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + LY::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + LY::V);
-  float* Os = reinterpret_cast<float*>(smem + LY::O);
-  float* Ms = reinterpret_cast<float*>(smem + LY::M);
-  float* Ls = reinterpret_cast<float*>(smem + LY::L);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + LY::Q);
+  __nv_bfloat16* kvs = reinterpret_cast<__nv_bfloat16*>(smem + LY::KV);
+  float* scs = reinterpret_cast<float*>(smem + LY::SC);
+  unsigned char* bys = smem + LY::BYTES;
 
   const int qb = blockIdx.x;
   const int kh = blockIdx.y;
   const int row0 = blockIdx.z * BR;
+  const int qoff = a.qoff_of[qb];
+  // Only a tile's first q-block runs it: the tile is that q-block and the
+  // following ones of the same row (same base), at most qpt of them.
+  if ((qoff / a.BQ) % a.qpt != 0) return;
+  const int base = a.base_of[qb];
+  int nq = 1;
+  while (nq < a.qpt && qb + nq < a.nqb && a.base_of[qb + nq] == base) ++nq;
   const int G = a.H / a.KH;
-  const int R = G * a.BQ;  // query rows of this (q-block, KV head)
+  const int n_tok = nq * a.BQ;   // the tile's tokens
+  const int R = n_tok * G;       // and its query rows
+  if (row0 >= R) return;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // mma group: row (A, C) or column (B)
+  const int tig = lane & 3;   // thread in group
+  constexpr int TPR = D / 16;  // lanes per new row (load16)
+  const int tc = tid % TPR;   // this lane's 8-element column chunk of a row
+
   const int slot = a.slot_of[qb];
   const int start = a.start_of[qb];
-  const int qoff = a.qoff_of[qb];
-  const int base = a.base_of[qb];
-  const int qpos0 = start + qoff;  // position of the q-block's first token
+  const int qpos0 = start + qoff;         // position of the tile's first token
+  const int tok0 = qb * a.BQ;             // its flat index
+  const int row_tok0 = base * a.BQ;       // flat index of the row's first tail token
   const size_t kv_pitch = size_t(a.KH) * D;
   const __nv_bfloat16* kn = a.k_new + size_t(kh) * D;
   const __nv_bfloat16* vn = a.v_new + size_t(kh) * D;
@@ -483,137 +282,435 @@ ragged_prefill_kernel(const Args a) {
   const size_t cache_row = slot_idx * rows * kv_pitch + size_t(kh) * D;
   const size_t scale_row = slot_idx * a.S * a.KH + kh;  // + pos * KH
 
-  // The APPEND (first row chunk only): the block's own roped K and V rows
-  // into cache[layer, slot] at [qpos0, qpos0 + block_q) for this KV head.
+  // The chunk's first and last query tokens (relative to the tile), the
+  // window floor no row of it reaches below, and the tiles: history keys
+  // [floor, start) from the cache, then tail offsets [0, tail_end) from the
+  // flat streams (keys past the chunk's last query are never attended).
+  const int i_first = row0 / G;
+  const int i_last = (min(R, row0 + BR) - 1) / G;
+  const int q_first = qpos0 + i_first;
+  const int q_last = qpos0 + i_last;
+  const int floor_key = max(0, q_first - a.window + 1);
+  const int hist_begin = (min(floor_key, start) / BK) * BK;
+  const int n_hist = floor_key < start ? (start - hist_begin + BK - 1) / BK : 0;
+  const int tail_end = qoff + i_last + 1;
+  const int tail_begin = (max(0, floor_key - start) / BK) * BK;
+  const int n_tiles = n_hist + (tail_end - tail_begin + BK - 1) / BK;
+
+  // ---- loaders: tile `it` into stage `buf` ----
+  auto start_tile = [&](int it, int buf) {
+    __nv_bfloat16* kt = kvs + (buf * 2) * BK * P;
+    __nv_bfloat16* vt = kt + BK * P;
+    float* ksc = scs + buf * 2 * BK;
+    float* vsc = ksc + BK;
+    if (it < n_hist) {
+      const int k0 = hist_begin + it * BK;
+      if constexpr (FORM == RAW) {
+        const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(a.k_cache) + cache_row;
+        const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(a.v_cache) + cache_row;
+        for (int c = tid; c < BK * CH; c += THREADS) {
+          const int r = c / CH;
+          const int cc = (c - r * CH) * 8;
+          const bool ok = k0 + r < start;
+          const size_t off = size_t(ok ? k0 + r : 0) * kv_pitch + cc;
+          cp_async16(kt + r * P + cc, kc + off, ok ? 16 : 0);
+          cp_async16(vt + r * P + cc, vc + off, ok ? 16 : 0);
+        }
+      } else {
+        // Bytes into the byte stage (converted by the same thread at the
+        // top of the tile's iteration), scales into the stage.
+        constexpr int C16 = D / 16;
+        constexpr int KR = FORM == INT4 ? BK / 2 : BK;  // byte rows per tile
+        const int8_t* kc = static_cast<const int8_t*>(a.k_cache) + cache_row;
+        const int8_t* vc = static_cast<const int8_t*>(a.v_cache) + cache_row;
+        for (int c = tid; c < KR * C16; c += THREADS) {
+          const int j = c / C16;
+          const int cc = (c - j * C16) * 16;
+          // Byte row j holds keys k0 + 2j, k0 + 2j + 1 (int4; start is even)
+          // or key k0 + j.
+          const int kp = k0 + (FORM == INT4 ? 2 * j : j);
+          const bool ok = kp < start;
+          const size_t off = size_t(ok ? (FORM == INT4 ? kp >> 1 : kp) : 0) * kv_pitch + cc;
+          cp_async16(bys + j * D + cc, kc + off, ok ? 16 : 0);
+          cp_async16(bys + (KR + j) * D + cc, vc + off, ok ? 16 : 0);
+        }
+        for (int j = tid; j < BK; j += THREADS) {
+          const bool ok = k0 + j < start;
+          const size_t at = scale_row + size_t(ok ? k0 + j : 0) * a.KH;
+          cp_async4(ksc + j, a.k_scale + at, ok ? 4 : 0);
+          cp_async4(vsc + j, a.v_scale + at, ok ? 4 : 0);
+        }
+      }
+      cp_async_commit();
+      return;
+    }
+    // A tail tile: offsets j0 + c of the row's tail, flat tokens row_tok0 +
+    // j0 + c, positions start + j0 + c; rows at or past tail_end are 0.
+    const int j0 = tail_begin + (it - n_hist) * BK;
+    if constexpr (FORM == RAW) {
+      // Keys roped and rounded to bf16, D/16 lanes per row; values by
+      // cp.async.
+#pragma unroll
+      for (int r0 = 0; r0 < BK; r0 += THREADS / TPR) {
+        const int r = r0 + tid / TPR;
+        if (r >= BK) break;
+        float x[16] = {};
+        if (j0 + r < tail_end)
+          load16<D>(kn + size_t(row_tok0 + j0 + r) * kv_pitch, tc, true,
+                    start + j0 + r, a, x);
+        store16<D>(kt + r * P, tc, x);
+      }
+      for (int c = tid; c < BK * CH; c += THREADS) {
+        const int r = c / CH;
+        const int cc = (c - r * CH) * 8;
+        const bool ok = j0 + r < tail_end;
+        cp_async16(vt + r * P + cc,
+                   vn + size_t(row_tok0 + (ok ? j0 + r : 0)) * kv_pitch + cc,
+                   ok ? 16 : 0);
+      }
+      cp_async_commit();
+    } else {
+      // D/16 lanes per row: the rows' quantized integers (as bf16) and
+      // scales, the values the append stores.  Every lane runs every pass
+      // (the quantizer's shuffles).
+#pragma unroll
+      for (int r0 = 0; r0 < BK; r0 += THREADS / TPR) {
+        const int r = r0 + tid / TPR;
+        const bool live = r < BK;
+        float kx[16], vx[16];
+        if (live && j0 + r < tail_end) {
+          const size_t tok = size_t(row_tok0 + j0 + r) * kv_pitch;
+          load16<D>(kn + tok, tc, true, start + j0 + r, a, kx);
+          load16<D>(vn + tok, tc, false, 0, a, vx);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) kx[e] = vx[e] = 0.f;
+        }
+        const float ks = quant16<D, FORM>(kx);
+        const float vs = quant16<D, FORM>(vx);
+        if (!live) continue;
+        store16<D>(kt + r * P, tc, kx);
+        store16<D>(vt + r * P, tc, vx);
+        if (tc == 0) {
+          ksc[r] = ks;
+          vsc[r] = vs;
+        }
+      }
+    }
+  };
+
+  // The integers of this thread's own history chunks to bf16 (exact), into
+  // stage `buf`: after its copies landed, before the tile's barrier.
+  auto convert_tile = [&](int buf) {
+    if constexpr (QUANT) {
+      constexpr int C16 = D / 16;
+      constexpr int KR = FORM == INT4 ? BK / 2 : BK;
+      __nv_bfloat16* kt = kvs + (buf * 2) * BK * P;
+      for (int c = tid; c < KR * C16; c += THREADS) {
+        const int j = c / C16;
+        const int cc = (c - j * C16) * 16;
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(bys + (plane * KR + j) * D + cc);
+          const int8_t* by = reinterpret_cast<const int8_t*>(&raw);
+          __nv_bfloat16* dst = kt + plane * BK * P;
+#pragma unroll
+          for (int half = 0; half < (FORM == INT4 ? 2 : 1); ++half) {
+            uint32_t w[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              int x0 = by[2 * e], x1 = by[2 * e + 1];
+              if constexpr (FORM == INT4) {
+                x0 = nibble(by[2 * e], half);
+                x1 = nibble(by[2 * e + 1], half);
+              }
+              w[e] = pack_bf16(float(x0), float(x1));
+            }
+            const int r = FORM == INT4 ? 2 * j + half : j;
+            uint4* o = reinterpret_cast<uint4*>(dst + r * P + cc);
+            o[0] = make_uint4(w[0], w[1], w[2], w[3]);
+            o[1] = make_uint4(w[4], w[5], w[6], w[7]);
+          }
+        }
+      }
+    }
+  };
+
+  start_tile(0, 0);
+
+  // The APPEND (row chunk 0 only): the tile's own roped K and V rows into
+  // cache[layer, slot] at [qpos0, qpos0 + n_tok) for this KV head.
   // Positions past the row's real length land junk that decode overwrites
   // before it is attendable; nothing in this launch reads them back.
   if (blockIdx.z == 0) {
     if constexpr (FORM == RAW) {
       __nv_bfloat16* kcache = static_cast<__nv_bfloat16*>(a.k_cache);
       __nv_bfloat16* vcache = static_cast<__nv_bfloat16*>(a.v_cache);
-      constexpr int NP = HALF / 2;
-      for (int c = threadIdx.x; c < a.BQ * NP; c += THREADS) {
-        const int i = c / NP;
-        const int d = 2 * (c - i * NP);
+      for (int r0 = 0; r0 < n_tok; r0 += THREADS / TPR) {
+        const int i = r0 + tid / TPR;
         const int pos = qpos0 + i;
-        if (pos >= a.S) continue;
-        const __nv_bfloat16* src = kn + size_t(qb * a.BQ + i) * kv_pitch;
-        __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(src + d);
-        __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(src + d + HALF);
-        const size_t t = size_t(pos) * HALF + d;
-        rope_pair(lo, hi, a.sin_t + t, a.cos_t + t);
-        __nv_bfloat16* dst = kcache + cache_row + size_t(pos) * kv_pitch;
-        *reinterpret_cast<__nv_bfloat162*>(dst + d) = lo;
-        *reinterpret_cast<__nv_bfloat162*>(dst + d + HALF) = hi;
+        if (i >= n_tok || pos >= a.S) continue;
+        float x[16];
+        load16<D>(kn + size_t(tok0 + i) * kv_pitch, tc, true, pos, a, x);
+        store16<D>(kcache + cache_row + size_t(pos) * kv_pitch, tc, x);
       }
-      constexpr int CH = D / 8;
-      for (int c = threadIdx.x; c < a.BQ * CH; c += THREADS) {
+      for (int c = tid; c < n_tok * CH; c += THREADS) {
         const int i = c / CH;
         const int cc = c - i * CH;
         const int pos = qpos0 + i;
         if (pos >= a.S) continue;
         *reinterpret_cast<int4*>(vcache + cache_row + size_t(pos) * kv_pitch + cc * 8) =
-            *reinterpret_cast<const int4*>(vn + size_t(qb * a.BQ + i) * kv_pitch + cc * 8);
+            *reinterpret_cast<const int4*>(vn + size_t(tok0 + i) * kv_pitch + cc * 8);
       }
     } else {
-      int8_t* kcache = static_cast<int8_t*>(a.k_cache) + cache_row;
-      int8_t* vcache = static_cast<int8_t*>(a.v_cache) + cache_row;
-      append_quant<D, FORM>(kn, kcache, a.k_scale + scale_row, qb * a.BQ,
-                            qpos0, kv_pitch, true, a);
-      append_quant<D, FORM>(vn, vcache, a.v_scale + scale_row, qb * a.BQ,
-                            qpos0, kv_pitch, false, a);
-    }
-  }
-
-  // Q tile: row r is query token (row0 + r) / G of the q-block under head
-  // kh * G + (row0 + r) % G, roped at its global position.
-  {
-    constexpr int NP = HALF / 2;
-    for (int c = threadIdx.x; c < BR * NP; c += THREADS) {
-      const int r = c / NP;
-      const int d = 2 * (c - r * NP);
-      const int grow = row0 + r;
-      __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f);
-      __nv_bfloat162 hi = lo;
-      if (grow < R) {
-        const int i = grow / G;
-        const int h = kh * G + (grow - i * G);
-        const __nv_bfloat16* src = a.q + (size_t(qb * a.BQ + i) * a.H + h) * D;
-        lo = *reinterpret_cast<const __nv_bfloat162*>(src + d);
-        hi = *reinterpret_cast<const __nv_bfloat162*>(src + d + HALF);
-        const size_t t = size_t(min(qpos0 + i, a.S - 1)) * HALF + d;
-        rope_pair(lo, hi, a.sin_t + t, a.cos_t + t);
+      // D/16 lanes per row, every lane in every pass (the shuffles); int4:
+      // the odd row's nibbles come from the lanes one row up (the same
+      // warp), and the even row's lanes store the whole bytes.  Rows at
+      // positions >= S are skipped (S is even).
+      int8_t* caches[2] = {static_cast<int8_t*>(a.k_cache) + cache_row,
+                           static_cast<int8_t*>(a.v_cache) + cache_row};
+      float* scales[2] = {a.k_scale + scale_row, a.v_scale + scale_row};
+      for (int r0 = 0; r0 < n_tok; r0 += THREADS / TPR) {
+        const int r = r0 + tid / TPR;
+        const int pos = qpos0 + r;
+        float x[2][16];
+        if (r < n_tok) {
+          load16<D>(kn + size_t(tok0 + r) * kv_pitch, tc, true, pos, a, x[0]);
+          load16<D>(vn + size_t(tok0 + r) * kv_pitch, tc, false, 0, a, x[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) x[0][e] = x[1][e] = 0.f;
+        }
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane) {
+          const float sc = quant16<D, FORM>(x[plane]);
+          uint2 lo = pack8(x[plane]);
+          uint2 hi = pack8(x[plane] + 8);
+          if constexpr (FORM == INT4) {
+            // Nibbles: this row's low, the next row's high (even rows).
+            const uint2 nlo = make_uint2(__shfl_down_sync(0xffffffffu, lo.x, TPR),
+                                         __shfl_down_sync(0xffffffffu, lo.y, TPR));
+            const uint2 nhi = make_uint2(__shfl_down_sync(0xffffffffu, hi.x, TPR),
+                                         __shfl_down_sync(0xffffffffu, hi.y, TPR));
+            lo = make_uint2((lo.x & 0x0F0F0F0Fu) | ((nlo.x & 0x0F0F0F0Fu) << 4),
+                            (lo.y & 0x0F0F0F0Fu) | ((nlo.y & 0x0F0F0F0Fu) << 4));
+            hi = make_uint2((hi.x & 0x0F0F0F0Fu) | ((nhi.x & 0x0F0F0F0Fu) << 4),
+                            (hi.y & 0x0F0F0F0Fu) | ((nhi.y & 0x0F0F0F0Fu) << 4));
+          }
+          if (r >= n_tok || pos >= a.S) continue;
+          if (tc == 0) scales[plane][size_t(pos) * a.KH] = sc;
+          if (FORM == INT4 && (r & 1)) continue;
+          int8_t* dst = caches[plane] + size_t(FORM == INT4 ? pos >> 1 : pos) * kv_pitch;
+          *reinterpret_cast<uint2*>(dst + 8 * tc) = lo;
+          *reinterpret_cast<uint2*>(dst + HALF + 8 * tc) = hi;
+        }
       }
-      *reinterpret_cast<__nv_bfloat162*>(Qs + r * LY::LDH + d) = lo;
-      *reinterpret_cast<__nv_bfloat162*>(Qs + r * LY::LDH + d + HALF) = hi;
     }
   }
-  for (int i = threadIdx.x; i < BR * LY::LDO; i += THREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BR; i += THREADS) {
-    Ms[i] = NEG_INF;
-    Ls[i] = 0.f;
-  }
 
-  // Window floor: no row of this chunk attends a key before it.
-  const int first_q = qpos0 + row0 / G;
-  const int floor_key = max(0, first_q - a.window + 1);
-
-  // History: cache keys [floor_key, start), 64-key tiles, frontier-clamped.
-  for (int k0 = (floor_key / BK) * BK; k0 < start; k0 += BK) {
-    __syncthreads();  // Q/O initialised; previous tile's K/V reads done
-    if constexpr (FORM == RAW) {
-      const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(a.k_cache) + cache_row;
-      const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(a.v_cache) + cache_row;
-      load_rows<D>(Ks, kc, k0, start, kv_pitch);
-      load_rows<D>(Vs, vc, k0, start, kv_pitch);
-    } else {
-      const int8_t* kc = static_cast<const int8_t*>(a.k_cache) + cache_row;
-      const int8_t* vc = static_cast<const int8_t*>(a.v_cache) + cache_row;
-      load_rows_deq<D, FORM>(Ks, kc, a.k_scale + scale_row, k0, start, kv_pitch, a.KH);
-      load_rows_deq<D, FORM>(Vs, vc, a.v_scale + scale_row, k0, start, kv_pitch, a.KH);
-    }
-    __syncthreads();
-    attend_tile<D>(smem, k0, start, false, row0, R, G, qpos0, a);
-  }
-
-  // Tail: the row's own new K/V, flat tokens [base * BQ, (qb + 1) * BQ),
-  // at positions start + j, roped (and quantized) here; causal.
-  const int tail_tok0 = base * a.BQ;
-  const int tail_len = (qb + 1) * a.BQ - tail_tok0;
-  for (int j0 = 0; j0 < tail_len; j0 += BK) {
-    if (start + j0 + BK - 1 < floor_key) continue;
-    const int n = min(BK, tail_len - j0);
-    __syncthreads();
-    if constexpr (FORM == RAW) {
-      load_rows_roped<D>(Ks, kn, tail_tok0 + j0, n, kv_pitch, start + j0, a);
-      load_rows<D>(Vs, vn, tail_tok0 + j0, tail_tok0 + j0 + n, kv_pitch);
-    } else {
-      load_rows_quant<D, FORM>(Ks, kn, tail_tok0 + j0, n, kv_pitch, start + j0, true, a);
-      load_rows_quant<D, FORM>(Vs, vn, tail_tok0 + j0, n, kv_pitch, start + j0, false, a);
-    }
-    __syncthreads();
-    attend_tile<D>(smem, start + j0, start + tail_len, true, row0, R, G,
-                   qpos0, a);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < BR * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx - r * D;
+  // Q tile: row r is token (row0 + r) / G of the tile under head kh * G +
+  // (row0 + r) % G, roped at its global position and rounded to bf16; rows
+  // past the tile are 0.
+#pragma unroll
+  for (int r0 = 0; r0 < BR; r0 += THREADS / TPR) {
+    const int r = r0 + tid / TPR;
+    if (r >= BR) break;
     const int grow = row0 + r;
+    float x[16] = {};
     if (grow < R) {
       const int i = grow / G;
       const int h = kh * G + (grow - i * G);
-      const float val = Os[r * LY::LDO + c] / fmaxf(Ls[r], 1e-30f);
-      a.out[(size_t(qb * a.BQ + i) * a.H + h) * D + c] = __float2bfloat16(val);
+      load16<D>(a.q + (size_t(tok0 + i) * a.H + h) * D, tc, true, qpos0 + i, a, x);
+    }
+    store16<D>(qs + r * P, tc, x);
+  }
+
+  const int rA = row0 + warp * 16 + gid;  // the two rows this lane holds
+  const int rB = rA + 8;
+  const int qposA = qpos0 + rA / G;
+  const int qposB = qpos0 + rB / G;
+  const float sl2 = a.scale * LOG2E;
+  const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+  const float cap_l2 = a.softcap * LOG2E;
+  float mA = NEG_INF, mB = NEG_INF, lA = 0.f, lB = 0.f;  // log2 units
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    const bool hist = it < n_hist;
+    cp_async_wait<0>();
+    if (hist) convert_tile(buf);
+    // The one barrier of the tile: its K/V (and q) in place for every
+    // thread, every warp done with the other stage.
+    __syncthreads();
+    if (it + 1 < n_tiles) start_tile(it + 1, buf ^ 1);
+    const __nv_bfloat16* kt = kvs + (buf * 2) * BK * P;
+    const __nv_bfloat16* vt = kt + BK * P;
+    const float* ksc = scs + buf * 2 * BK;
+    const float* vsc = ksc + BK;
+    // Key positions of the tile, the keys below `klimit` only.
+    const int kp0 = hist ? hist_begin + it * BK
+                         : start + tail_begin + (it - n_hist) * BK;
+    const int klimit = hist ? start : 0x7fffffff;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, qs + (warp * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], af, bf[0], bf[1]);
+        mma_bf16(s[2 * j2 + 1], af, bf[2], bf[3]);
+      }
+    }
+
+    // Key scales (quantized), then scale (and cap) into log2 units; mask
+    // only the tiles that need it.
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= ksc[j * 8 + 2 * tig + (e & 1)];
+    }
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = cap_l2 * tanhf(s[j][e] * cap_in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+    }
+    const bool need_mask = kp0 + BK > klimit || kp0 + BK - 1 > q_first ||
+                           q_last - kp0 >= a.window;
+    if (need_mask) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kp0 + j * 8 + 2 * tig + (e & 1);
+          const int qp = e < 2 ? qposA : qposB;
+          if (!(kp < klimit && kp <= qp && qp - kp < a.window)) s[j][e] = NEG_INF;
+        }
+      }
+    }
+
+    // Online softmax; a row that has seen no key keeps m = NEG_INF and
+    // takes its exponentials from base 0, which sends the sentinel to 0.
+    float mxA = NEG_INF, mxB = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mxA = fmaxf(mxA, fmaxf(s[j][0], s[j][1]));
+      mxB = fmaxf(mxB, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
+    }
+    const float mA_new = fmaxf(mA, mxA);
+    const float mB_new = fmaxf(mB, mxB);
+    const float baseA = mA_new == NEG_INF ? 0.f : mA_new;
+    const float baseB = mB_new == NEG_INF ? 0.f : mB_new;
+    const float cA = exp2f(mA - baseA);
+    const float cB = exp2f(mB - baseB);
+    mA = mA_new;
+    mB = mB_new;
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = exp2f(s[j][0] - baseA);
+      s[j][1] = exp2f(s[j][1] - baseA);
+      s[j][2] = exp2f(s[j][2] - baseB);
+      s[j][3] = exp2f(s[j][3] - baseB);
+      sumA += s[j][0] + s[j][1];
+      sumB += s[j][2] + s[j][3];
+    }
+    lA = lA * cA + sumA;
+    lB = lB * cB + sumB;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= cA;
+      acc[n][1] *= cA;
+      acc[n][2] *= cB;
+      acc[n][3] *= cB;
+    }
+    // The value scale rides in P (quantized), before P is rounded to bf16.
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= vsc[j * 8 + 2 * tig + (e & 1)];
+    }
+
+    // O += P V: P from the score registers, 16 keys per k-step; V's
+    // fragments through ldmatrix.trans, two n-tiles per load.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 15)) * P + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], pf, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pf, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // Normalise; rows that saw no key have acc = 0 and l = 0 and emit 0.
+  // (n_tiles >= 1: the tail tile of the chunk's first query always runs,
+  // so every copy, q's too, was waited for behind a barrier.)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, off);
+    lB += __shfl_xor_sync(0xffffffffu, lB, off);
+  }
+  const float iA = 1.f / fmaxf(lA, 1e-30f);
+  const float iB = 1.f / fmaxf(lB, 1e-30f);
+  // The output leaves through this warp's own q rows (no other warp reads
+  // them), as 16-byte stores.
+  __syncwarp();
+  __nv_bfloat16* os = qs + warp * 16 * P;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(os + gid * P + n * 8 + 2 * tig) =
+        pack_bf16(acc[n][0] * iA, acc[n][1] * iA);
+    *reinterpret_cast<uint32_t*>(os + (gid + 8) * P + n * 8 + 2 * tig) =
+        pack_bf16(acc[n][2] * iB, acc[n][3] * iB);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const int grow = row0 + warp * 16 + r;
+    if (grow < R) {
+      const int t = grow / G;
+      const int h = kh * G + (grow - t * G);
+      *reinterpret_cast<int4*>(a.out + (size_t(tok0 + t) * a.H + h) * D + c) =
+          *reinterpret_cast<const int4*>(os + r * P + c);
     }
   }
 }
 
 template <int D, int FORM>
-cudaError_t launch(const Args& a, int nqb, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   static bool configured = false;
-  const int smem = static_cast<int>(Layout<D>::BYTES);
+  const int smem = static_cast<int>(Layout<D>::smem(FORM));
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         ragged_prefill_kernel<D, FORM>,
@@ -621,18 +718,20 @@ cudaError_t launch(const Args& a, int nqb, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const int rows = (a.H / a.KH) * a.BQ;
-  dim3 grid(nqb, a.KH, (rows + BR - 1) / BR);
-  ragged_prefill_kernel<D, FORM><<<grid, THREADS, smem, stream>>>(a);
+  const int tile_rows = a.qpt * a.BQ * (a.H / a.KH);
+  dim3 grid(a.nqb, a.KH, (tile_rows + Layout<D>::BR - 1) / Layout<D>::BR);
+  ragged_prefill_kernel<D, FORM><<<grid, Layout<D>::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_form(int form, const Args& a, int nqb, cudaStream_t stream) {
+cudaError_t launch_form(int form, Args a, cudaStream_t stream) {
+  // q-blocks per query tile: as many as fill the block's rows.
+  a.qpt = max(1, Layout<D>::BR / (a.BQ * (a.H / a.KH)));
   switch (form) {
-    case RAW: return launch<D, RAW>(a, nqb, stream);
-    case INT8: return launch<D, INT8>(a, nqb, stream);
-    case INT4: return launch<D, INT4>(a, nqb, stream);
+    case RAW: return launch<D, RAW>(a, stream);
+    case INT8: return launch<D, INT8>(a, stream);
+    case INT4: return launch<D, INT4>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -650,6 +749,7 @@ extern "C" int ragged_prefill_attention_launch(
     float softcap, int window, void* stream) {
   if (nqb <= 0 || KH <= 0 || H % KH != 0 || BQ <= 0 || B <= 0 || S <= 0 ||
       S % BQ != 0 || window <= 0 || layer < 0 || form < RAW || form > INT4 ||
+      nqb > 2147483647 / BQ || KH > 65535 ||
       (form == INT4 && (BQ % 2 || S % 2)) ||
       (form != RAW && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -668,6 +768,7 @@ extern "C" int ragged_prefill_attention_launch(
   a.qoff_of = static_cast<const int*>(qoff_of);
   a.base_of = static_cast<const int*>(base_of);
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.nqb = nqb;
   a.H = H;
   a.KH = KH;
   a.BQ = BQ;
@@ -679,11 +780,11 @@ extern "C" int ragged_prefill_attention_launch(
   a.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return static_cast<int>(launch_form<16>(form, a, nqb, s));
-    case 32: return static_cast<int>(launch_form<32>(form, a, nqb, s));
-    case 64: return static_cast<int>(launch_form<64>(form, a, nqb, s));
-    case 128: return static_cast<int>(launch_form<128>(form, a, nqb, s));
-    case 256: return static_cast<int>(launch_form<256>(form, a, nqb, s));
+    case 16: return static_cast<int>(launch_form<16>(form, a, s));
+    case 32: return static_cast<int>(launch_form<32>(form, a, s));
+    case 64: return static_cast<int>(launch_form<64>(form, a, s));
+    case 128: return static_cast<int>(launch_form<128>(form, a, s));
+    case 256: return static_cast<int>(launch_form<256>(form, a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

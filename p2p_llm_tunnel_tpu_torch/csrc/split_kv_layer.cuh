@@ -1,13 +1,14 @@
 // The split-KV decode layer body on Hopper (sm_90a), shared by the fused
-// decode layer (kernel 4, fused_decode_layer.cu: one new row per slot) and
-// the fused K-token verify layer (kernel 5, fused_spec_decode_layer.cu: T =
-// K + 1 rows per slot).  One launch per layer does, for T new rows per slot,
-// the rope of the T query rows and new keys at positions pos + t, the
-// quantization of the T new K/V rows to the cache's form, their in-place
-// appends, and for each row t attention over the committed keys below pos,
-// the burst's earlier rows and row t's own term.  bf16 activations, fp32
-// softmax.  Kernel 4 is this function at T = 1, instantiated with T fixed
-// at compile time under its own kernel name.
+// decode layer (kernel 4, fused_decode_layer.cu: one new row per slot), the
+// fused K-token verify layer (kernel 5, fused_spec_decode_layer.cu: T =
+// K + 1 rows per slot) and, in its attention-only mode, the slot-decode
+// kernel (kernel 2, flash_decode_attention.cu).  One launch per layer does,
+// for T new rows per slot, the rope of the T query rows and new keys at
+// positions pos + t, the quantization of the T new K/V rows to the cache's
+// form, their in-place appends, and for each row t attention over the
+// committed keys below pos, the burst's earlier rows and row t's own term.
+// bf16 activations, fp32 softmax.  Kernel 4 is this function at T = 1,
+// instantiated with T fixed at compile time under its own kernel name.
 //
 // The function, per slot and row t, as the Pallas bodies
 // (_fused_decode_layer_kernel, _fused_spec_decode_layer_kernel):
@@ -58,6 +59,12 @@
 //   keys, so the int4 byte shared by token pos - 1 and pos is merged after
 //   all reads of it; the bytes the burst shares with itself and with its
 //   neighbours are merged in registers and stored whole by one thread.
+// - Attention only (ATTN, kernel 2, T = 1): the query comes roped and is
+//   used as given, the scale multiplies the scores; the keys are the cache
+//   view's [window floor, min(pos, view - 1)] inclusive (the model has
+//   written the step's row already), read from any slot stride; the last
+//   block merges and writes the output, with no rope, quantization, own
+//   term or append.
 
 #pragma once
 
@@ -98,6 +105,10 @@ struct Args {
   int B, T, S, H, KH, layer, view, nsplit, split_keys;
   float scale, softcap;
   int window;
+  // Attention only: each slot's cache view starts slot_stride elements
+  // (bf16 or bytes) after the previous one, its scales scale_slot_stride
+  // floats after.
+  long long slot_stride, scale_slot_stride;
 };
 
 // Warps share a 64-key tile by key slices when the rows make few tiles.
@@ -122,8 +133,9 @@ __device__ __forceinline__ int clamp_floor(long long x, int hi) {
 
 // The layer for one (KV head, slot, split) block.  TC is the number of new
 // rows per slot when fixed at compile time (kernel 4: 1), or 0 to read it
-// from a.T (kernel 5).
-template <int D, int FORM, int TC>
+// from a.T (kernel 5); ATTN selects the attention-only mode (kernel 2, TC
+// 1).
+template <int D, int FORM, int TC, bool ATTN = false>
 __device__ __forceinline__ void layer(const Args a) {
   constexpr int HALF = D / 2;
   constexpr int QP = D + PAD;   // bf16 row pitch of q and the tiles
@@ -156,15 +168,18 @@ __device__ __forceinline__ void layer(const Args a) {
   const size_t pitch = size_t(a.KH) * D;  // between consecutive cache rows
   const size_t slot = size_t(a.layer) * a.B + b;
   const size_t ebytes = FORM == RAW ? 2 : 1;
-  const size_t head_off = (slot * rows * pitch + size_t(kh) * D) * ebytes;
+  const size_t head_off =
+      ATTN ? (size_t(b) * a.slot_stride + size_t(kh) * D) * ebytes
+           : (slot * rows * pitch + size_t(kh) * D) * ebytes;
   const char* kb = static_cast<const char*>(a.k_cache) + head_off;
   const char* vb = static_cast<const char*>(a.v_cache) + head_off;
-  const size_t scale_row0 = slot * a.S * a.KH + kh;  // + position * KH
+  const size_t scale_row0 = ATTN ? size_t(b) * a.scale_slot_stride + kh
+                                 : slot * a.S * a.KH + kh;  // + position * KH
 
-  // This split's committed keys.
+  // This split's committed keys (attention only: through pos itself).
   const int first0 = clamp_floor((long long)pos - a.window + 1, a.view);
   const int lo = max(first0, split * a.split_keys);
-  const int hi = min(min(pos, a.view), (split + 1) * a.split_keys);
+  const int hi = min(min(ATTN ? pos + 1 : pos, a.view), (split + 1) * a.split_keys);
   const int t_begin = (lo / BS) * BS;
   const int n_tiles = lo < hi ? (hi - t_begin + BS - 1) / BS : 0;
 
@@ -237,8 +252,8 @@ __device__ __forceinline__ void layer(const Args a) {
 
   if (n_tiles > 0) {
     load_tile(t_begin, 0);
-    // Queries roped at pos + t, pre-scaled and rounded to bf16 once; the
-    // padding rows are 0.
+    // Queries roped at pos + t, pre-scaled and rounded to bf16 once (as
+    // given, attention only); the padding rows are 0.
     for (int i = tid; i < MT * 16 * HALF; i += nthreads) {
       const int r = i / HALF;
       const int dd = i - r * HALF;
@@ -248,11 +263,15 @@ __device__ __forceinline__ void layer(const Args a) {
         const int g = r - t * G;
         const __nv_bfloat16* qr =
             a.q + ((size_t(b) * T + t) * a.H + size_t(kh) * G + g) * D;
-        const size_t tab = (size_t(b) * T + t) * HALF + dd;
-        v = rope_f32(__bfloat162float(qr[dd]), __bfloat162float(qr[dd + HALF]),
-                     a.sin_t[tab], a.cos_t[tab]);
-        v.x = __fmul_rn(v.x, a.scale);
-        v.y = __fmul_rn(v.y, a.scale);
+        if constexpr (ATTN) {
+          v = make_float2(__bfloat162float(qr[dd]), __bfloat162float(qr[dd + HALF]));
+        } else {
+          const size_t tab = (size_t(b) * T + t) * HALF + dd;
+          v = rope_f32(__bfloat162float(qr[dd]), __bfloat162float(qr[dd + HALF]),
+                       a.sin_t[tab], a.cos_t[tab]);
+          v.x = __fmul_rn(v.x, a.scale);
+          v.y = __fmul_rn(v.y, a.scale);
+        }
       }
       qs[r * QP + dd] = __float2bfloat16(v.x);
       qs[r * QP + dd + HALF] = __float2bfloat16(v.y);
@@ -347,6 +366,7 @@ __device__ __forceinline__ void layer(const Args a) {
           const int kp = k0 + col;
           float x = s[j][e];
           if constexpr (FORM != RAW) x *= ksc[col];
+          if constexpr (ATTN) x *= a.scale;
           x = soft_cap(x, a.softcap);
           const bool ok = kp >= lo && kp < hi &&
                           (e < 2 ? (rA < R && kp >= firstA) : (rB < R && kp >= firstB));
@@ -464,58 +484,61 @@ __device__ __forceinline__ void layer(const Args a) {
   float* ksn = kst + T * D;     // [T] scales of the new rows
   float* vsn = ksn + T;         // [T]
 
-  for (int i = tid; i < T * HALF; i += nthreads) {
-    const int t = i / HALF;
-    const int dd = i - t * HALF;
-    const size_t off = ((size_t(b) * T + t) * a.KH + kh) * D;
-    const size_t tab = (size_t(b) * T + t) * HALF + dd;
-    const float2 v = rope_f32(__bfloat162float(a.k_new[off + dd]),
-                              __bfloat162float(a.k_new[off + dd + HALF]),
-                              a.sin_t[tab], a.cos_t[tab]);
-    kn[t * D + dd] = v.x;
-    kn[t * D + dd + HALF] = v.y;
-  }
-  for (int i = tid; i < T * D; i += nthreads) {
-    const int t = i / D;
-    vn[i] = __bfloat162float(
-        a.v_new[((size_t(b) * T + t) * a.KH + kh) * D + (i - t * D)]);
-  }
-  __syncthreads();
-
-  // Quantize each new row (per (token, head) scale over D); warp per token.
-  if constexpr (FORM != RAW) {
-    constexpr float QMAX = FORM == INT4 ? 7.f : 127.f;
-    for (int t = warp; t < T; t += nwarps) {
-      float mk = 0.f, mv = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        mk = fmaxf(mk, fabsf(kn[t * D + d]));
-        mv = fmaxf(mv, fabsf(vn[t * D + d]));
-      }
-      const float ks = quant_scale(warp_max(mk), QMAX);
-      const float vs = quant_scale(warp_max(mv), QMAX);
-      for (int d = lane; d < D; d += 32) {
-        const int i = t * D + d;
-        const float kq = quant_value(kn[i], ks, QMAX);
-        const float vq = quant_value(vn[i], vs, QMAX);
-        kn[i] = kq;
-        vn[i] = vq;
-        kd[i] = __fmul_rn(kq, ks);
-        vd[i] = __fmul_rn(vq, vs);
-        kst[i] = kd[i];
-      }
-      if (lane == 0) {
-        ksn[t] = ks;
-        vsn[t] = vs;
-      }
+  // The new rows in fp32, quantized (not in the attention-only mode).
+  if constexpr (!ATTN) {
+    for (int i = tid; i < T * HALF; i += nthreads) {
+      const int t = i / HALF;
+      const int dd = i - t * HALF;
+      const size_t off = ((size_t(b) * T + t) * a.KH + kh) * D;
+      const size_t tab = (size_t(b) * T + t) * HALF + dd;
+      const float2 v = rope_f32(__bfloat162float(a.k_new[off + dd]),
+                                __bfloat162float(a.k_new[off + dd + HALF]),
+                                a.sin_t[tab], a.cos_t[tab]);
+      kn[t * D + dd] = v.x;
+      kn[t * D + dd + HALF] = v.y;
     }
-  } else {
     for (int i = tid; i < T * D; i += nthreads) {
-      kd[i] = kn[i];
-      vd[i] = vn[i];
-      kst[i] = __bfloat162float(__float2bfloat16(kn[i]));
+      const int t = i / D;
+      vn[i] = __bfloat162float(
+          a.v_new[((size_t(b) * T + t) * a.KH + kh) * D + (i - t * D)]);
     }
+    __syncthreads();
+
+    // Quantize each new row (per (token, head) scale over D); warp per token.
+    if constexpr (FORM != RAW) {
+      constexpr float QMAX = FORM == INT4 ? 7.f : 127.f;
+      for (int t = warp; t < T; t += nwarps) {
+        float mk = 0.f, mv = 0.f;
+        for (int d = lane; d < D; d += 32) {
+          mk = fmaxf(mk, fabsf(kn[t * D + d]));
+          mv = fmaxf(mv, fabsf(vn[t * D + d]));
+        }
+        const float ks = quant_scale(warp_max(mk), QMAX);
+        const float vs = quant_scale(warp_max(mv), QMAX);
+        for (int d = lane; d < D; d += 32) {
+          const int i = t * D + d;
+          const float kq = quant_value(kn[i], ks, QMAX);
+          const float vq = quant_value(vn[i], vs, QMAX);
+          kn[i] = kq;
+          vn[i] = vq;
+          kd[i] = __fmul_rn(kq, ks);
+          vd[i] = __fmul_rn(vq, vs);
+          kst[i] = kd[i];
+        }
+        if (lane == 0) {
+          ksn[t] = ks;
+          vsn[t] = vs;
+        }
+      }
+    } else {
+      for (int i = tid; i < T * D; i += nthreads) {
+        kd[i] = kn[i];
+        vd[i] = vn[i];
+        kst[i] = __bfloat162float(__float2bfloat16(kn[i]));
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // Merge, fold the burst, emit: warp per query row.
   for (int r = warp; r < R; r += nwarps) {
@@ -542,52 +565,54 @@ __device__ __forceinline__ void layer(const Args a) {
         if (d < D) o[i] += w * __ldcg(src + d);
       }
     }
-    // The row's query in fp32 (roped, pre-scaled; unrounded).
-    float qv[NE];
-    const __nv_bfloat16* qr =
-        a.q + ((size_t(b) * T + t) * a.H + size_t(kh) * G + g) * D;
-#pragma unroll
-    for (int i = 0; i < NE; ++i) {
-      const int d = lane + 32 * i;
-      qv[i] = 0.f;
-      if (d < D) {
-        const int dd = d < HALF ? d : d - HALF;
-        const size_t tab = (size_t(b) * T + t) * HALF + dd;
-        const float2 v = rope_f32(__bfloat162float(qr[dd]),
-                                  __bfloat162float(qr[dd + HALF]), a.sin_t[tab],
-                                  a.cos_t[tab]);
-        qv[i] = __fmul_rn(d < HALF ? v.x : v.y, a.scale);
-      }
-    }
-    auto fold = [&](const float* key, const float* val) {
-      float part = 0.f;
+    if constexpr (!ATTN) {
+      // The row's query in fp32 (roped, pre-scaled; unrounded).
+      float qv[NE];
+      const __nv_bfloat16* qr =
+          a.q + ((size_t(b) * T + t) * a.H + size_t(kh) * G + g) * D;
 #pragma unroll
       for (int i = 0; i < NE; ++i) {
         const int d = lane + 32 * i;
-        if (d < D) part = fmaf(qv[i], key[d], part);
+        qv[i] = 0.f;
+        if (d < D) {
+          const int dd = d < HALF ? d : d - HALF;
+          const size_t tab = (size_t(b) * T + t) * HALF + dd;
+          const float2 v = rope_f32(__bfloat162float(qr[dd]),
+                                    __bfloat162float(qr[dd + HALF]), a.sin_t[tab],
+                                    a.cos_t[tab]);
+          qv[i] = __fmul_rn(d < HALF ? v.x : v.y, a.scale);
+        }
       }
-      const float sc = soft_cap(warp_sum(part), a.softcap);
-      const float m_new = fmaxf(m, sc);
-      const float c = m == NEG_INF ? 0.f : expf(m - m_new);
-      const float pr = expf(sc - m_new);
-      l = l * c + pr;
+      auto fold = [&](const float* key, const float* val) {
+        float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) o[i] = o[i] * c + pr * val[d];
+        for (int i = 0; i < NE; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) part = fmaf(qv[i], key[d], part);
+        }
+        const float sc = soft_cap(warp_sum(part), a.softcap);
+        const float m_new = fmaxf(m, sc);
+        const float c = m == NEG_INF ? 0.f : expf(m - m_new);
+        const float pr = expf(sc - m_new);
+        l = l * c + pr;
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) o[i] = o[i] * c + pr * val[d];
+        }
+        m = m_new;
+      };
+      // The burst's earlier rows as the cache stores them, then row t's own.
+      const int p_row = pos + t;
+      const int last = min(p_row, a.view) - 1;
+      const int first = clamp_floor((long long)p_row - a.window + 1, a.view);
+      for (int u = 0; u < t; ++u) {
+        const int kp = pos + u;
+        if (kp <= last && kp >= first && (p_row - kp) < a.window)
+          fold(kst + u * D, vd + u * D);
       }
-      m = m_new;
-    };
-    // The burst's earlier rows as the cache stores them, then row t's own.
-    const int p_row = pos + t;
-    const int last = min(p_row, a.view) - 1;
-    const int first = clamp_floor((long long)p_row - a.window + 1, a.view);
-    for (int u = 0; u < t; ++u) {
-      const int kp = pos + u;
-      if (kp <= last && kp >= first && (p_row - kp) < a.window)
-        fold(kst + u * D, vd + u * D);
+      fold(kd + t * D, vd + t * D);
     }
-    fold(kd + t * D, vd + t * D);
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     __nv_bfloat16* dst =
         a.out + ((size_t(b) * T + t) * a.H + size_t(kh) * G + g) * D;
@@ -597,6 +622,8 @@ __device__ __forceinline__ void layer(const Args a) {
       if (d < D) dst[d] = __float2bfloat16(o[i] * inv_l);
     }
   }
+
+  if constexpr (ATTN) return;
 
   // The appends of this (slot, head): tokens pos .. pos + n_live - 1.
   const int n_live = max(0, min(T, a.view - pos));
@@ -745,6 +772,7 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_cache,
   a.scale = scale;
   a.softcap = softcap;
   a.window = window;
+  a.slot_stride = a.scale_slot_stride = 0;
   return static_cast<int>(
       dispatch<K>(D, form, a, static_cast<cudaStream_t>(stream)));
 }

@@ -3,11 +3,19 @@ p2p_llm_tunnel_tpu/ops/pallas_decode_attention.py
 ``flash_decode_attention_sgrid`` and its ``_int8`` / ``_int4`` entries.
 
 The kernel is ``csrc/flash_decode_attention.cu`` (CUDA C++, sm_90a, built
-at first use and loaded with ctypes — see ``ops/kernel_build.py``).  Its
-plain version is :func:`decode_plain`: ``ops/attention.cached_attention``
-over the cache, dequantized in f32 first when it is quantized.  The wrapper
+at first use and loaded with ctypes — see ``ops/kernel_build.py``): the
+split-KV body of the fused decode layers (``csrc/split_kv_layer.cuh``) in
+its attention-only mode, one block per (KV head, slot, split) and an
+in-launch merge in split order, on the launch plan of kernels 4 and 5 at
+one row per slot (``ops/fused_decode.split_kv_workspace``).  Its plain
+version is :func:`decode_plain`: ``ops/attention.cached_attention`` over
+the cache, dequantized in f32 first when it is quantized.  The wrapper
 runs that for tensors on the CPU, and only because they lie on the CPU.
 For CUDA tensors it launches the kernel or raises; nothing falls back.
+On the card the kernel matches its plain version within a tolerance (it
+rounds P to bf16 for its tensor-core product, feeds a quantized cache's
+integers to it with the scales on the scores and on P, and sums in
+another order), and two launches on equal inputs are bitwise equal.
 
 The cache arguments may be strided windows of the model's
 ``[L, B, S_max, K, D]`` cache (``cache[l, :, :view]``): each slot's
@@ -16,8 +24,8 @@ reads the view in place with no copy.  Quantized forms, as in the
 reference: ``kv_quant="int8"`` reads int8 ``[B, S, K, D]`` planes,
 ``"int4"`` packed ``[B, S/2, K, D]`` bytes (token 2i in the low nibble of
 byte i, 2i+1 in the high), both with f32 ``[B, S, K]`` per-(token, head)
-scales (``cache_scale[l, :, :view]``).  Both dequantize in f32 and do not
-round to the activation dtype (the Pallas body's rule).
+scales (``cache_scale[l, :, :view]``).  The plain version dequantizes in
+f32 and does not round to the activation dtype (the Pallas body's rule).
 
 The module also holds kernel 3, :func:`flash_decode_attention_plane`
 (``csrc/flash_decode_attention_plane.cu``), the counterpart of the
@@ -38,7 +46,9 @@ from p2p_llm_tunnel_tpu_torch.ops.attention import cached_attention
 
 _NAME = "flash_decode_attention"
 _SUPPORTED_D = (16, 32, 64, 128, 256)  # every preset's head_dim
-_MAX_GROUP = 8
+#: Query heads per KV head the split-KV body holds at one row per slot
+#: (``ops/fused_decode.MAX_ROWS``).
+_MAX_GROUP = 72
 #: ``window=None``: no key is ever too old, parked rows (pos >= S) included.
 _NO_WINDOW = 2**31 - 1
 #: The cache forms and the kernel's code for each.
@@ -118,14 +128,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p,
         ]
     return lib
 
 
-def _check(q, k_cache, v_cache, k_scale, v_scale, positions, form) -> int:
+def _check(q, k_cache, v_cache, k_scale, v_scale, positions, form,
+           max_group: int = _MAX_GROUP, kernel: str = "flash_decode_attention") -> int:
     """Validate the kernel's inputs; returns the view's token count S."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"flash_decode_attention takes q [B,1,H,D], got {tuple(q.shape)}")
@@ -136,9 +148,9 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, positions, form) -> int:
         raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
     kh = k_cache.shape[2]
     s = k_cache.shape[1] * (2 if form == "int4" else 1)
-    if h % kh or h // kh > _MAX_GROUP:
+    if h % kh or h // kh > max_group:
         raise ValueError(
-            f"flash_decode_attention kernel takes H/K <= {_MAX_GROUP} query "
+            f"{kernel} kernel takes H/K <= {max_group} query "
             f"rows per kv head, got {h}/{kh}"
         )
     if d not in _SUPPORTED_D:
@@ -155,8 +167,10 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, positions, form) -> int:
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         if x.stride(3) != 1 or x.stride(2) != d or x.stride(1) != kh * d:
             raise ValueError(f"{name}: each slot's [S,K,D] block must be dense")
-        if x.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned")
+        if x.data_ptr() % 16 or (x.stride(0) * x.element_size()) % 16:
+            raise ValueError(f"{name}: the kernel copies cache rows 16 bytes at "
+                             f"a time, so its start and slot stride must be "
+                             f"16-byte aligned")
     if k_cache.stride(0) != v_cache.stride(0):
         raise ValueError("k and v caches must share a slot stride")
     tensors = [q, k_cache, v_cache, positions]
@@ -207,18 +221,25 @@ def flash_decode_attention(
     kh = k_cache.shape[2]
     if scale is None:
         scale = d**-0.5
+    # The split-KV plan of kernels 4 and 5 at one row per slot (imported
+    # here: that module imports this one).
+    from p2p_llm_tunnel_tpu_torch.ops.fused_decode import split_kv_workspace
+
     lib = _lib()
     out = torch.empty_like(q)
     quantized = form is not None
+    nsplit, split_keys, part_acc, part_ml, arrivals = split_kv_workspace(
+        q.device, b, kh, 1, h // kh, d, s)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
-            positions.data_ptr(), out.data_ptr(), b, s, h, kh, d,
+            positions.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), arrivals.data_ptr(), b, s, h, kh, d,
             k_cache.stride(0), k_scale.stride(0) if quantized else 0,
-            KV_FORMS[form], float(scale),
+            KV_FORMS[form], nsplit, split_keys, float(scale),
             0.0 if softcap is None else float(softcap),
             _NO_WINDOW if window is None else int(window), stream,
         )
@@ -242,6 +263,8 @@ flash_decode_attention.form_launches = {"none": 0, "int8": 0, "int4": 0}
 _PLANE = "flash_decode_attention_plane"
 #: The plane kernel's key block (the Pallas BLOCK_K): S must be a multiple.
 PLANE_BLOCK = 128
+#: Query heads per KV head the plane kernel holds (its MAX_G).
+_PLANE_MAX_GROUP = 8
 
 
 def _plane_lib() -> ctypes.CDLL:
@@ -283,7 +306,8 @@ def flash_decode_attention_plane(
                                 softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention_plane runs on cuda or cpu, not {q.device}")
-    _check(q, k_cache, v_cache, None, None, positions, None)
+    _check(q, k_cache, v_cache, None, None, positions, None,
+           max_group=_PLANE_MAX_GROUP, kernel="flash_decode_attention_plane")
     b, _, h, d = q.shape
     kh = k_cache.shape[2]
     if scale is None:

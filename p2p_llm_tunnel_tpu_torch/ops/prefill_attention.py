@@ -13,7 +13,15 @@ the ``[L, B, S, K, D]`` cache IN PLACE, and attends each query to its row's
 cache history ``[0, start)`` plus its row's own tail, causally.
 
 The kernel is ``csrc/ragged_prefill_attention.cu`` (CUDA C++, sm_90a,
-built at first use and loaded with ctypes — see ``ops/kernel_build.py``).
+built at first use and loaded with ctypes — see ``ops/kernel_build.py``):
+kernel 1's tile loop (``mma.sync`` with S/P/O in registers, ``cp.async``
+double-buffered K/V tiles, masks only on the tiles that need them) over
+each row's cache history and then its tail.  One block's query tile spans
+:func:`q_blocks_per_tile` consecutive q-blocks of a row, so a row's
+history is read once per (query tile, KV head); the launch grid is one
+block per (q-block, KV head, row chunk), computable without reading the
+descriptors, and only a tile's first q-block runs it
+(:func:`query_tiles` is the same rule on the host).
 Its plain version is :func:`ragged_prefill_plain` below: per row it ropes,
 writes the cache and runs ``ops/attention.history_attention`` over the
 cache row.  The wrapper runs the plain version for tensors on the CPU, and
@@ -23,8 +31,11 @@ agree on it exactly.
 
 Quantized caches (``kv_quant="int8"``: int8 ``[L, B, S, K, D]``;
 ``"int4"``: ``[L, B, S/2, K, D]`` bytes, token 2i in the low nibble of byte
-i; both with f32 ``[L, B, S, K]`` scales), following the Pallas body's
-rounding points, which differ from kernels 2 and 4:
+i; both with f32 ``[L, B, S, K]`` scales).  The plain version follows the
+Pallas body's rounding points, which differ from kernels 2 and 4; the
+kernel appends the same bytes and scales bit for bit, and attends in
+another order (the integers feed its bf16 products, the scales ride on the
+scores and on P), within the kernels' tolerance:
 - history is dequantized in f32 and then rounded through the activation
   dtype (the chunk path's view read);
 - the tail's keys are quantized from their f32 rope (values from
@@ -120,6 +131,60 @@ def plan_ragged_group(
             base_of[blk + j] = blk
         blk += n_blocks
     return slot_of, start_of, qoff_of, qlen_of, base_of, flat_offs
+
+
+#: Keys per tile and bf16 row padding of the kernel's shared tiles.
+_BK = 64
+_PAD = 8
+
+
+def block_rows(d: int) -> int:
+    """Query rows one block of the kernel holds: 8 warps of 16, 4 warps at
+    head dim 256 (where two K/V stages take 132 KB of shared memory)."""
+    return 64 if d > 128 else 128
+
+
+def q_blocks_per_tile(d: int, g: int, block_q: int) -> int:
+    """q-blocks in one block's query tile: as many as fill the block's rows
+    at ``g`` query heads per KV head (2 at llama3-8b's G 4, block_q 16)."""
+    return max(1, block_rows(d) // (block_q * g))
+
+
+def smem_bytes(d: int, form: Optional[str]) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: q
+    [rows, D+8] and two stages of K and V [64, D+8] in bf16, two stages of
+    64 key and value scales, and for a quantized cache the byte stage of
+    one K and V tile (64 rows of D bytes each for int8, 32 for int4)."""
+    p = d + _PAD
+    raw = 2 * block_rows(d) * p + 2 * 2 * 2 * _BK * p + 2 * 2 * _BK * 4
+    if form is None:
+        return raw
+    return raw + 2 * (_BK // 2 if form == "int4" else _BK) * d
+
+
+def launch_grid(nqb: int, h: int, kh: int, d: int,
+                block_q: int) -> Tuple[int, int, int]:
+    """The kernel's grid: (q-block, KV head, row chunk of a query tile)."""
+    rows = q_blocks_per_tile(d, h // kh, block_q) * block_q * (h // kh)
+    return nqb, kh, -(-rows // block_rows(d))
+
+
+def query_tiles(qoff_of: Sequence[int], base_of: Sequence[int], block_q: int,
+                qpt: int) -> List[Tuple[int, int]]:
+    """``[(first q-block, q-block count)]`` of the launch's query tiles,
+    by the kernel's rule: the q-block whose ``qoff / block_q`` is a multiple
+    of ``qpt`` runs a tile of itself and the following q-blocks of the same
+    row (same base), at most ``qpt``; every other block returns at once."""
+    tiles = []
+    nqb = len(base_of)
+    for j in range(nqb):
+        if (int(qoff_of[j]) // block_q) % qpt:
+            continue
+        n = 1
+        while n < qpt and j + n < nqb and base_of[j + n] == base_of[j]:
+            n += 1
+        tiles.append((j, n))
+    return tiles
 
 
 _TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -285,6 +350,9 @@ def _check_kernel(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
     for x in descs:
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("descriptor arrays must be contiguous int32 tensors")
+    if smem_bytes(d, form) > kernel_build.MAX_SMEM_BYTES:
+        raise ValueError(f"ragged_prefill_attention kernel needs {smem_bytes(d, form)} "
+                         f"bytes of shared memory at head_dim {d}")
     devices = {x.device for _, x, _ in tensors} | {x.device for x in descs}
     if len(devices) != 1:
         raise ValueError(f"ragged_prefill_attention inputs span devices {devices}")

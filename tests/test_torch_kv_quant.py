@@ -21,7 +21,9 @@ package, on the CPU.
   tests/test_torch_ragged_prefill.py's); kernel 6's appended bytes with
   the same one-level allowance (its rope goes through ``torch.sin`` vs
   ``jnp.sin``, which may differ in the last ulp) and scales within 1e-6
-  relative.
+  relative.  Also at odd decode positions (the high int4 nibble) with a
+  window, a soft cap and a parked row, and for ragged tails that start
+  mid-page, in every cache form.
 - The prefix pool's packed pages and copies equal JAX's exactly.
 """
 
@@ -392,6 +394,96 @@ def test_ragged_kernel_plain_matches_jax_interpret(mode):
     for sc, w in ((tks, want[3]), (tvs, want[4])):
         np.testing.assert_allclose(sc.numpy()[:, :3], np.asarray(w)[:, :3],
                                    rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("positions", [[1, 63, 129, 255], [3, 65, 201, 281]])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_decode_plain_odd_positions_match_jax_interpret(mode, positions):
+    """Odd positions (the high nibble of an int4 byte is the frontier), a
+    window that cuts the history, a soft cap, and a parked row (pos 281 >
+    S 256: the view's keys within the window, 242-255)."""
+    rng = np.random.default_rng(11)
+    b, s, kh, g, d = 4, 256, 2, 4, 16
+    kw = dict(window=40, softcap=25.0)
+    q = rng.standard_normal((b, 1, kh * g, d)).astype(np.float32)
+    kc, ks = _jquant(rng.standard_normal((b, s, kh, d)).astype(np.float32), mode)
+    vc, vs = _jquant(rng.standard_normal((b, s, kh, d)).astype(np.float32), mode)
+    pos = np.array(positions, np.int32)
+    jfn = j_sgrid_int4 if mode == "int4" else j_sgrid_int8
+    want = jfn(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(ks),
+               jnp.asarray(vs), jnp.asarray(pos), interpret=True, **kw)
+    got = tda.flash_decode_attention(_t(q), _t(kc), _t(vc), _t(pos),
+                                     k_scale=_t(ks), v_scale=_t(vs),
+                                     kv_quant=mode, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+#: Tails that start mid-page (a 32- and a 64-token page hold 16 and 48
+#: history tokens), cross q-block edges and end mid-block.
+MID_PAGE = [(0, 48, 29), (1, 16, 40), (2, 80, 3)]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=20, softcap=15.0)])
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+def test_ragged_plain_mid_page_tails_match_jax_interpret(mode, kw):
+    """Kernel 6's plain version against the Pallas kernel (interpret, fp32)
+    in each cache form: attention 2e-4, written rows (raw 1e-6; quantized
+    values one level apart at most, scales 1e-6 relative), and the
+    histories as given."""
+    rng = np.random.default_rng(7)
+    l, b, s, kh, g, d, tot, bq = 2, 4, 128, 2, 3, 32, 128, 16
+    h = kh * g
+    plan = tpa.plan_ragged_group(MID_PAGE, bq, tot, scratch_slot=3)
+    kf = rng.standard_normal((l, b, s, kh, d)).astype(np.float32)
+    vf = rng.standard_normal((l, b, s, kh, d)).astype(np.float32)
+    if mode is None:
+        (kc, ks), (vc, vs) = (kf, None), (vf, None)
+    else:
+        (kc, ks), (vc, vs) = _jquant(kf, mode), _jquant(vf, mode)
+    q = np.zeros((tot, h, d), np.float32)
+    kn = np.zeros((tot, kh, d), np.float32)
+    vn = np.zeros((tot, kh, d), np.float32)
+    for (_slot, _start, ln), off in zip(MID_PAGE, plan[5]):
+        q[off:off + ln] = rng.standard_normal((ln, h, d))
+        kn[off:off + ln] = rng.standard_normal((ln, kh, d))
+        vn[off:off + ln] = rng.standard_normal((ln, kh, d))
+    descs = [np.asarray(x) for x in (plan[0], plan[1], plan[2], plan[4])]
+    qkw = {} if mode is None else dict(kv_quant=mode)
+    want = j_ragged(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                    jnp.asarray(kc), jnp.asarray(vc),
+                    None if ks is None else jnp.asarray(ks),
+                    None if vs is None else jnp.asarray(vs),
+                    *[jnp.asarray(x) for x in descs], jnp.asarray(1),
+                    block_q=bq, rope_theta=THETA, interpret=True, **qkw, **kw)
+    tk, tv, tks, tvs = _t(kc), _t(vc), _t(ks), _t(vs)
+    got = tpa.ragged_prefill_attention(
+        _t(q), _t(kn), _t(vn), tk, tv, *[_t(x) for x in descs], 1,
+        k_scale=tks, v_scale=tvs, block_q=bq, rope_theta=THETA, **qkw, **kw)
+    real = np.concatenate([np.arange(o, o + ln)
+                           for (_, _, ln), o in zip(MID_PAGE, plan[5])])
+    np.testing.assert_allclose(got.numpy()[real], np.asarray(want[0])[real],
+                               atol=2e-4, rtol=2e-4)
+    for slot, start, ln in MID_PAGE:
+        for plane, w, orig in ((tk, want[1], kc), (tv, want[2], vc)):
+            rows = slice(start // 2, (start + ln + 1) // 2) if mode == "int4" \
+                else slice(start, start + ln)
+            hist = slice(0, start // 2 if mode == "int4" else start)
+            if mode is None:
+                np.testing.assert_allclose(plane.numpy()[1, slot, rows],
+                                           np.asarray(w)[1, slot, rows],
+                                           rtol=1e-6, atol=1e-6)
+            else:
+                _assert_values_close(plane.numpy()[1, slot, rows][None],
+                                     np.asarray(w)[1, slot, rows][None],
+                                     mode == "int4", 1, frac=1e-3)
+            np.testing.assert_array_equal(plane.numpy()[1, slot, hist],
+                                          orig[1, slot, hist])
+        if mode is not None:
+            for sc, w in ((tks, want[3]), (tvs, want[4])):
+                np.testing.assert_allclose(sc.numpy()[1, slot, start:start + ln],
+                                           np.asarray(w)[1, slot, start:start + ln],
+                                           rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(tk.numpy()[0], kc[0])
 
 
 def test_ragged_int4_refuses_odd_block_q():
