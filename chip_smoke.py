@@ -45,7 +45,17 @@ Phases (any failure exits non-zero before the result line):
    32 times per plain decode step, kernel 2 never, proposals made, the
    proposer's state released; then short streams with speculation on the
    raw and int8 fused engines and on the unfused int4 engine (the chunk
-   path's int4 splice).
+   path's int4 splice);
+8. weight quantization, every projection and the head through kernel 7
+   (225 launches per prefill call, decode step and verify burst on
+   llama3-8b, in the prefill or decode config's form), on weights drawn
+   directly quantized from seed 0: (a) 6a's engine with ``--quant int4
+   --quant-group-size 128`` on the conversations of phase 5; (b) the
+   serve defaults + ``--ragged-prefill`` with ``--quant int8
+   --prefill-act-quant`` (prefill W8A8, decode weight-only); (c) ``--quant
+   w8a8`` (4 streams x 16 tokens) and 8a with speculation; (d) llama3-70b
+   at full width and depth with ``--quant int4 --kv-quant int8`` (4
+   streams), its weight bytes and peak memory printed.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -53,7 +63,10 @@ also within the same tolerance of T sequential kernel-4 launches (the
 max difference printed; caches bit-exact); kernels 2, 4 and 5 also
 bitwise equal over two launches on equal inputs; kernel 3 (raw only; no
 serving path calls it) also against kernel 2; kernel 6 also at q-block
-widths 8 and 32.  Kernel rows report the median of three timing runs and
+widths 8 and 32; kernel 7 (int8, w8a8, int4) at every llama3-8b
+projection and the head at 17, 85 and 1024 rows, a tied head and group
+64, w8a8 bitwise equal to its plain version (exact int32 sums); phase 4
+also holds model logits through kernel 7 against its plain version.  Kernel rows report the median of three timing runs and
 their spread; every kernel row and its library call is timed L2-cold (the
 inputs rotate over copies, or the layer over a stacked cache, larger than
 twice the L2) and carries the kernel's device time alone
@@ -61,10 +74,11 @@ twice the L2) and carries the kernel's device time alone
 the kernel table as one JSON object, one row per (kernel, KV form); the
 last line is ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a torch.profiler window over the plain-loop engine and
-the mux engines of phases 5, 6a and 7 with every slot busy (device busy
-share, device time by kernel), and the CUDA launches of one decode step
-on the mux engines of phases 5 and 6a (fused decode layer off and on) and
-of one verify burst on phase 7's.
+the mux engines of phases 5, 6a, 7 and 8a with every slot busy (device
+busy share, device time by kernel), and the CUDA launches of one decode
+step on the mux engines of phases 5, 6a and 8a (8a: with kernel 7's
+device ms per step beside the weight-stream bound) and of one verify
+burst on phase 7's.
 ``--kernels-only`` stops after phase 2.
 """
 
@@ -79,8 +93,9 @@ import sys
 import time
 from typing import Optional
 
-# Published peaks of one H100 SXM (dense): bf16 tensor cores and HBM3.
+# Published peaks of one H100 SXM (dense): bf16 and int8 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 MODEL = "llama3-8b"
@@ -93,7 +108,8 @@ MAX_TOKENS = 64  # tokens each stream asks for
 JSON_SHAPES = {"flash_causal_attention": "T256", "flash_decode_attention": "S512",
                "flash_decode_attention_plane": "S512",
                "fused_decode_layer": "view512", "fused_spec_decode_layer": "T5 view512",
-               "ragged_prefill_attention": "TOT1024"}
+               "ragged_prefill_attention": "TOT1024",
+               "quant_matmul": "w_gate/w_up N14336 K4096 M17"}
 #: Kernel 3 has no serving path (in the JAX package either): its row counts
 #: phase 2's launches and is exempt from the main-path launch check.
 CROSS_CHECK_ONLY = {"flash_decode_attention_plane":
@@ -102,7 +118,8 @@ CROSS_CHECK_ONLY = {"flash_decode_attention_plane":
 #: them (``--profile`` lists each beside the window's top 14).
 PORT_KERNEL_NAMES = ("flash_causal_kernel", "flash_decode_kernel",
                      "plane_decode_kernel", "fused_decode_layer_kernel",
-                     "fused_spec_kernel", "ragged_prefill_kernel")
+                     "fused_spec_kernel", "ragged_prefill_kernel",
+                     "quant_matmul_kernel")
 # Phase 5: conversations of the mux phase, their system prompt and turns.
 N_CONV = 8
 SYSTEM_PROMPT = ("You are the tunnel's assistant. Answer briefly, cite the "
@@ -209,9 +226,9 @@ def kernel_ms(fn, iters: int = 20) -> dict:
     return dict(ms=ms, ms_spread=spread)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1068,6 +1085,137 @@ def ragged_preset_checks() -> dict:
     return worst
 
 
+#: Kernel 7 at the main path's shapes (llama3-8b, N x K) and rows: a
+#: decode step (16 slots + the parked row), a verify burst of T 5 and a
+#: ragged dispatch of 1024 flat tokens.
+QUANT_SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 1024, 4096),
+                ("w_gate/w_up", 14336, 4096), ("w_down", 4096, 14336),
+                ("lm_head", 128256, 4096))
+QUANT_ROWS = (17, 85, 1024)
+QUANT_FORMS = ("int8", "w8a8", "int4")
+#: A tied head: llama3.2-1b's embedding [128256, 2048] (contracts its last
+#: axis, the int4 table packed along it).
+TIED_HEAD = ("tied head llama3.2-1b", 128256, 2048)
+
+
+def quant_weights(form, n, k, layers, layout, gs, g):
+    """``layers`` random quantized weights of one shape, stacked: int8
+    values or packed int4 bytes, and scales that vary per column (and
+    group), so a kernel reading the wrong scale disagrees."""
+    import torch
+
+    kn = layout == "kn"
+    if form == "int4":
+        kp2 = -(-k // gs) * gs // 2
+        q = torch.randint(-128, 128, (layers,) + ((kp2, n) if kn else (n, kp2)),
+                          generator=g, device="cuda", dtype=torch.int8)
+        groups = 2 * kp2 // gs
+        scale = (torch.rand((layers,) + ((groups, n) if kn else (n, groups)),
+                            generator=g, device="cuda") + 0.5) * (k**-0.5 / 7)
+    else:
+        q = torch.randint(-127, 128, (layers,) + ((k, n) if kn else (n, k)),
+                          generator=g, device="cuda", dtype=torch.int8)
+        scale = (torch.rand((layers, n), generator=g, device="cuda") + 0.5) * (
+            k**-0.5 / 127)
+    return q, scale
+
+
+def quant_library(form, x, q, scale, layout, kw, layers):
+    """Kernel 7's yardstick, L2-cold (a call the port never makes): int8
+    and int4, ``torch.matmul`` of x with a bf16 copy of the dequantized
+    weight (the call a bf16 engine makes), rotating over copies; w8a8,
+    ``torch._int_mm`` of the quantized activations with the int8 weight
+    where its shape rules admit it (else the reason)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import quant as tq
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
+
+    if form == "w8a8":
+        xq, _ = tq._quantize_act(x)
+        mats = [q[i] if layout == "kn" else q[i].t() for i in range(layers)]
+        try:
+            torch._int_mm(xq, mats[0])
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            return dict(library_ms=None, library_device_ms=None,
+                        library_note=f"torch._int_mm refused: {str(e).splitlines()[0][:120]}")
+        return library_times(rotating(lambda i: torch._int_mm(xq, mats[i]), layers))
+    n, k = (q.shape[2], x.shape[1]) if layout == "kn" else (q.shape[1], x.shape[1])
+    copies = library_copies(2 * n * k, layers)
+    if form == "int4":
+        dense = [tq._dequant4(tq.QTensor4(q[i], scale[i], kw["in_dim"], kw["group_size"],
+                                          -2 if layout == "kn" else -1), torch.bfloat16)
+                 for i in range(copies)]
+    else:
+        dense = [(q[i].to(torch.bfloat16) * (scale[i] if layout == "kn" else scale[i][:, None])
+                  .to(torch.bfloat16)) for i in range(copies)]
+    mats = [d if layout == "kn" else d.t() for d in dense]
+    return library_times(rotating(lambda i: torch.matmul(x, mats[i]), copies))
+
+
+def quant_case(form, name, n, k, m, layout="kn", gs=128, seed=0):
+    """Kernel 7 in ``form`` against its plain version (bf16 within the
+    kernel tolerance; w8a8 BITWISE — its int32 sums are exact — and every
+    form bitwise over two launches), timed L2-cold over a stack of weight
+    copies larger than ``L2_COLD_BYTES``, with its device time, bound,
+    plain time and library yardstick."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wbytes = n * k // (2 if form == "int4" else 1)
+    layers = max(2, -(-int(L2_COLD_BYTES) // wbytes) + 1)
+    q, scale = quant_weights(form, n, k, layers, layout, gs, g)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    kw = dict(in_dim=k, group_size=gs) if form == "int4" else {}
+    args = dict(form=form, layout=layout, **kw)
+    got = qm.quant_matmul(x, q[0], scale[0], **args)
+    again = qm.quant_matmul(x, q[0], scale[0], **args)
+    want = qm.plain(x, q[0], scale[0], **args)
+    torch.cuda.synchronize()
+    label = (f"{name} N{n} K{k} M{m}" + (f" g{gs}" if form == "int4" else "")
+             + ("" if layout == "kn" else " nk"))
+    if not torch.equal(got, again):
+        raise AssertionError(f"quant_matmul_{form} {label}: two launches differ")
+    if form == "w8a8" and not torch.equal(got, want):
+        raise AssertionError(
+            f"quant_matmul_w8a8 {label}: not bitwise equal to its plain version "
+            f"({int(got.ne(want).sum())} values differ)")
+    err = check_close(f"quant_matmul_{form} {label}", got, want)
+    scale_bytes = scale[0].numel() * 4
+    nbytes = wbytes + scale_bytes + 2 * m * k + 2 * m * n
+    launch = rotating(lambda i: qm.quant_matmul(x, q[i], scale[i], **args), layers)
+    plain_iters = 2 if m * n * k > 1e11 else 5
+    row = dict(
+        shape=f"{label} L2-cold{layers}", max_abs_err=err,
+        **kernel_ms(launch, iters=20),
+        device_ms=device_ms(launch, "quant_matmul_kernel", iters=20),
+        plain_ms=timed_ms(lambda: qm.plain(x, q[0], scale[0], **args),
+                          iters=plain_iters, warm=1)[0],
+        **quant_library(form, x, q, scale, layout, kw, layers),
+    )
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, 2 * m * n * k, PEAK_INT8_OPS if form == "w8a8" else PEAK_BF16_FLOPS)
+    return row
+
+
+def quant_phase() -> dict:
+    """Kernel 7's rows: every form at every main-path shape and row count,
+    the tied head, and int4 at group size 64."""
+    rows = {f"quant_matmul_{form}": [] for form in QUANT_FORMS}
+    for form in QUANT_FORMS:
+        for name, n, k in QUANT_SHAPES:
+            for m in QUANT_ROWS:
+                rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, m))
+        name, n, k = TIED_HEAD
+        rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, 17, layout="nk"))
+    rows["quant_matmul_int4"].append(quant_case("int4", "w_gate/w_up", 14336, 4096, 17,
+                                                gs=64, seed=1))
+    return rows
+
+
 def decode_positions(b: int, s: int) -> list:
     """Active slots spread over 64/128/256-key block edges, plus one slot
     parked at max_seq as the engine parks idle rows."""
@@ -1104,11 +1252,13 @@ def kernel_phase(cfg) -> dict:
             spec_case(h, kh, d, form), spec_case(h, kh, d, form, t=9, seed=1)]
     for form in FORMS:
         rows[row_name("ragged_prefill_attention", form)] = [ragged_case(h, kh, d, form)]
+    rows.update(quant_phase())
     for name, cases in rows.items():
         print(f"[kernels] {name} (bf16 activations, fp32 math; tolerance "
-              f"{ATOL} + {RTOL}*|ref|; quantized caches bit-exact)")
+              f"{ATOL} + {RTOL}*|ref|; quantized caches bit-exact"
+              + ("; w8a8 bitwise" if name.startswith("quant_matmul") else "") + ")")
         for r in cases:
-            lib = ("n/a" if r["library_ms"] is None else
+            lib = (r.get("library_note", "n/a") if r["library_ms"] is None else
                    f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
             dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
@@ -1131,21 +1281,55 @@ def _kernels() -> dict:
     from p2p_llm_tunnel_tpu_torch.ops.fused_decode import fused_decode_layer
     from p2p_llm_tunnel_tpu_torch.ops.fused_spec_decode import fused_spec_decode_layer
     from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import ragged_prefill_attention
+    from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import quant_matmul
 
     return {"flash_causal_attention": flash_causal_attention,
             "flash_decode_attention": flash_decode_attention,
             "flash_decode_attention_plane": flash_decode_attention_plane,
             "fused_decode_layer": fused_decode_layer,
             "fused_spec_decode_layer": fused_spec_decode_layer,
-            "ragged_prefill_attention": ragged_prefill_attention}
+            "ragged_prefill_attention": ragged_prefill_attention,
+            "quant_matmul": quant_matmul}
+
+
+#: The engine's model-level calls since the last reset, by kind: kernel 7
+#: launches once per quantized product, 7 per layer + the head per call.
+MODEL_CALLS = {"prefill": 0, "decode": 0}
+_PREFILL_FNS = ("prefill_into_cache", "chunk_prefill_into_cache",
+                "ragged_prefill_into_cache")
+_DECODE_FNS = ("decode_step", "spec_verify_into_cache")
+
+
+def count_model_calls() -> None:
+    """Wrap the model functions the engine calls (its module's names) so
+    each call counts as a prefill or a decode-side call (a decode step or
+    a verify burst; an unfused verify's inner chunk call is not the
+    engine's and is not counted)."""
+    from p2p_llm_tunnel_tpu_torch.engine import engine as eng_mod
+
+    def counted(fn, kind):
+        def call(*a, **kw):
+            MODEL_CALLS[kind] += 1
+            return fn(*a, **kw)
+        call.counted = True
+        return call
+
+    for kind, names in (("prefill", _PREFILL_FNS), ("decode", _DECODE_FNS)):
+        for name in names:
+            fn = getattr(eng_mod, name)
+            if not getattr(fn, "counted", False):
+                setattr(eng_mod, name, counted(fn, kind))
 
 
 def reset_counters() -> None:
-    """Zero every wrapper's launch counters (total and per KV form)."""
+    """Zero every wrapper's launch counters (total and per form) and the
+    model-call counts."""
     for fn in _kernels().values():
         fn.launches = 0
         for key in getattr(fn, "form_launches", {}):
             fn.form_launches[key] = 0
+    for key in MODEL_CALLS:
+        MODEL_CALLS[key] = 0
 
 
 def read_counters() -> dict:
@@ -1155,8 +1339,8 @@ def read_counters() -> dict:
         if not hasattr(fn, "form_launches"):
             out[kname] = fn.launches
             continue
-        for form in FORMS:
-            out[row_name(kname, form)] = fn.form_launches[form or "none"]
+        for key, n in fn.form_launches.items():
+            out[row_name(kname, None if key == "none" else key)] = n
     return out
 
 
@@ -1165,13 +1349,17 @@ def engine_form(engine):
 
 
 def check_engine_launches(engine, launches: dict, steps: int,
-                          dispatches: int, spec: int = 0) -> None:
+                          dispatches: int, spec: int = 0,
+                          calls: Optional[dict] = None) -> None:
     """The engine's decode kernel in its KV form launched once per layer
     per decode step and the other decode kernel never; with speculation on
     the fused layer, the verify kernel (kernel 5) in that form once per
     layer per verify burst (never when unfused: the chunk path verifies);
     with ragged prefill the ragged kernel in that form once per layer per
-    ragged dispatch.  Kernel 3 never launches on a serving path."""
+    ragged dispatch.  Kernel 3 never launches on a serving path.  Kernel 7
+    launches 225 times per model call under ``--quant`` and never
+    otherwise (``check_quant_launches``)."""
+    calls = MODEL_CALLS if calls is None else calls
     n_layers = engine.mcfg.n_layers
     form = engine_form(engine)
     fused = engine.mcfg.fused_decode_layer
@@ -1198,6 +1386,38 @@ def check_engine_launches(engine, launches: dict, steps: int,
         if dispatches == 0 or launches[rag] != n_layers * dispatches:
             raise AssertionError(f"{rag} launches {launches[rag]} != "
                                  f"{n_layers} x {dispatches} ragged dispatches")
+    check_quant_launches(engine, launches, calls)
+
+
+def quant_forms(engine):
+    """Kernel 7's form on the engine's (prefill, decode) calls; None for
+    bf16 weights."""
+    mode = engine.ecfg.quant
+    if mode in ("none", ""):
+        return None, None
+    dec = "w8a8" if engine.mcfg.act_quant else mode
+    pre = "w8a8" if engine._prefill_mcfg.act_quant else mode
+    return pre, dec
+
+
+def check_quant_launches(engine, launches: dict, calls: dict) -> None:
+    """Kernel 7: once per quantized product — 7 per layer and the head,
+    225 per call on llama3-8b — per prefill call (in the prefill config's
+    form) and per decode step or verify burst (in the decode config's);
+    never on bf16 weights."""
+    per_call = 7 * engine.mcfg.n_layers + 1
+    pre, dec = quant_forms(engine)
+    want = dict.fromkeys(QUANT_FORMS, 0)
+    if pre is not None:
+        want[pre] += per_call * calls["prefill"]
+        want[dec] += per_call * calls["decode"]
+        if calls["decode"] == 0:
+            raise AssertionError("no decode step ran on a quantized engine")
+    got = {f: launches[f"quant_matmul_{f}"] for f in QUANT_FORMS}
+    if got != want:
+        raise AssertionError(
+            f"kernel 7 launches {got} != {per_call} per call x {calls} model calls "
+            f"(prefill form {pre}, decode form {dec})")
 
 
 # ---------------------------------------------------------------------------
@@ -1310,6 +1530,7 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
         ])
         wall = time.monotonic() - t0
         launches = read_counters()
+        calls = dict(MODEL_CALLS)
     finally:
         serve_task.cancel()
         proxy_task.cancel()
@@ -1330,9 +1551,10 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
             raise AssertionError(
                 f"prefill kernel launches {launches['flash_causal_attention']}"
                 f" != {n_layers} x {waves[0]} prefill waves")
-        check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0])
+        check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
+                              calls)
     ttfts = [r["ttft"] for r in results]
-    return dict(results=results, wall=wall, launches=launches,
+    return dict(results=results, wall=wall, launches=launches, calls=calls,
                 waves=waves[0], steps=steps[0], dispatches=dispatches[0],
                 spec=spec[0],
                 tok_s=sum(r["tokens"] for r in results) / wall,
@@ -1410,10 +1632,11 @@ def print_profile(tag: str, pr: dict, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
-                 quant=None, fused: bool = False) -> dict:
+                 quant=None, fused: bool = False, act_quant: bool = False) -> dict:
     """One prompt's prefill and ``forced`` teacher-forced decode steps
     through the kernel path and through the plain path (every kernel
-    wrapper swapped for its plain version) on the same weights, with a
+    wrapper swapped for its plain version, kernel 7's too) on the same
+    weights — bf16, or quantized (``act_quant``: W8A8 products) — with a
     ``quant`` KV cache and the unfused or fused decode layer."""
     import dataclasses
 
@@ -1423,16 +1646,18 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
     from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
     from p2p_llm_tunnel_tpu_torch.ops import fused_decode as fd
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
 
-    cfg = dataclasses.replace(cfg, fused_decode_layer=fused)
+    cfg = dataclasses.replace(cfg, fused_decode_layer=fused, act_quant=act_quant)
     dev = params["embed"].device
+    kv_dtype = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(7)
     toks = torch.randint(0, 256, (1, prompt_len), generator=g, device=dev)
     forced_toks = torch.randint(0, 256, (forced,), generator=g, device=dev)
 
     def run():
-        cache = tr.init_kv_cache(cfg, 1, 512, dtype=params["embed"].dtype,
-                                 quant=quant, device=dev)
+        cache = tr.init_kv_cache(cfg, 1, 512, dtype=kv_dtype, quant=quant,
+                                 device=dev)
         lengths = torch.tensor([prompt_len], device=dev)
         slots = torch.tensor([0], device=dev)
         last, _ = tr.prefill_into_cache(cfg, params, toks, lengths, cache, slots)
@@ -1444,18 +1669,19 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
             out.append(logits[0])
         return torch.stack(out)
 
-    swaps = {"flash_causal_attention": fa.plain, "flash_decode_attention": da.plain,
-             "fused_decode_layer": fd.plain}
+    swaps = [(tr, "flash_causal_attention", fa.plain),
+             (tr, "flash_decode_attention", da.plain),
+             (tr, "fused_decode_layer", fd.plain), (qm, "quant_matmul", qm.plain)]
     with torch.inference_mode():
         kernel = run()
-        saved = {name: getattr(tr, name) for name in swaps}
-        for name, fn in swaps.items():
-            setattr(tr, name, fn)
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         try:
             plain = run()
         finally:
-            for name, fn in saved.items():
-                setattr(tr, name, fn)
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
     if not torch.isfinite(kernel).all():
         raise AssertionError("kernel-path logits are not finite")
     diff = (kernel - plain).abs().max().item()
@@ -1467,7 +1693,7 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
     if diff > limit:
         raise AssertionError(
             f"kernel-path logits drift {diff:.4g} > {limit:.4g} from the plain "
-            f"path (kv_quant {quant}, fused {fused})")
+            f"path (kv_quant {quant}, fused {fused}, act_quant {act_quant})")
     return dict(max_abs_diff=diff, logit_scale=scale, limit=limit,
                 argmax_agree=agree, rows=forced + 1, quant=quant, fused=fused)
 
@@ -1641,6 +1867,7 @@ async def mux_phase(engine) -> dict:
             _conv_turn(base, p, TURN2_TOKENS, ndjson=False) for p in seconds])
         wall = time.monotonic() - t0
         launches = read_counters()
+        calls = dict(MODEL_CALLS)
         deltas = {c: global_metrics.counter(c) - before[c] for c in counters}
     finally:
         serve_task.cancel()
@@ -1667,11 +1894,12 @@ async def mux_phase(engine) -> dict:
                 f"conversation {i}: turn-2 hit {hist} tokens does not reach "
                 f"past the system prompt ({sys_pages}) into turn 1's answer "
                 f"(turn 1 prompt {len(p1)} tokens)")
-    check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0])
+    check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
+                          calls)
     if engine._page_reserved or engine._prefix.reserved_pages:
         raise AssertionError("pool pages still reserved after every stream ended")
     ttfts = [r["ttft"] for r in one + two]
-    return dict(one=one, two=two, wall=wall, launches=launches,
+    return dict(one=one, two=two, wall=wall, launches=launches, calls=calls,
                 dispatches=dispatches[0], steps=steps[0], spec=spec[0],
                 deltas=deltas,
                 hists=[hist_of.get(tuple(p), 0) for p in seconds],
@@ -1683,11 +1911,12 @@ async def mux_phase(engine) -> dict:
                 turn2_ttft_p50_ms=statistics.median(r["ttft"] for r in two) * 1e3)
 
 
-def decode_launches(engine, steps: int = 4) -> float:
+def decode_launches(engine, steps: int = 4):
     """``--profile``: CUDA kernels (and copies) the model launches per
     decode step — per verify burst of SPEC_T tokens on a speculating engine
     — on this engine's weights and cache, every slot live at position 200,
-    view 256, no sampling, counted by torch.profiler."""
+    view 256, no sampling, counted by torch.profiler; and kernel 7's device
+    ms per step (0 on bf16 weights)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1714,19 +1943,21 @@ def decode_launches(engine, steps: int = 4) -> float:
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / steps
+    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    k7_us = sum(dev_us(e) for e in prof.key_averages() if "quant_matmul_kernel" in e.key)
+    return launches / steps, k7_us / 1e3 / steps
 
 
-def cli_engine(params, cfg, *flags):
+def cli_engine(params, cfg, *flags, model: str = MODEL):
     """The engine ``tunnel-gpu serve --backend gpu`` builds from ``flags``
-    (16 slots, 1024 positions), on the given weights."""
+    (16 slots, 1024 positions), on the given weights (None: the engine's
+    own random init from seed 0 — directly quantized under ``--quant``)."""
     from p2p_llm_tunnel_tpu_torch import cli
     from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
     from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
 
     ecfg = cli._engine_config(cli.build_parser().parse_args([
-        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", MODEL,
+        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", model,
         "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ), *flags]))
     engine = InferenceEngine(engine_cfg=ecfg, params=params,
                              tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size))
@@ -1748,12 +1979,31 @@ def run_engine(engine, phase, profile: bool = False):
             out = await phase(engine)
             if profile:
                 out["profile"] = await profile_phase(engine, NUM_SLOTS, MAX_TOKENS)
-                out["launches_per_step"] = decode_launches(engine)
+                out["launches_per_step"], out["k7_ms_per_step"] = decode_launches(engine)
             return t_ready, out
         finally:
             await engine.stop()
 
     return asyncio.run(drive())
+
+
+def stream_bound_ms(engine) -> float:
+    """The least time one decode step could take to stream the engine's
+    projection and head weights (packed bytes and scales) at 3.35 TB/s."""
+    from p2p_llm_tunnel_tpu_torch.models.quant import weight_bytes
+
+    p = engine.params
+    head = p["embed"] if engine.mcfg.tie_embeddings else p["lm_head"]
+    return (weight_bytes(p["blocks"]) + weight_bytes(head)) / PEAK_HBM_BYTES * 1e3
+
+
+def print_quant_launches(tag: str, run: dict, engine) -> None:
+    pre, dec = quant_forms(engine)
+    per_call = 7 * engine.mcfg.n_layers + 1
+    k7 = {f: run["launches"][f"quant_matmul_{f}"] for f in QUANT_FORMS}
+    print(f"{tag} kernel 7 launches {k7} = {per_call} per call x "
+          f"{run['calls']['prefill']} prefill calls ({pre}) + "
+          f"{run['calls']['decode']} decode steps / verify bursts ({dec})")
 
 
 def free_engine(engine) -> None:
@@ -1770,7 +2020,10 @@ def free_engine(engine) -> None:
 
 def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
     ec = engine.ecfg
-    print(f"{tag} {MODEL} bf16 serve-CLI defaults (mux {ec.mux}, prefix cache "
+    wq = "bf16" if ec.quant in ("none", "") else (
+        f"--quant {ec.quant}" + (f" g{ec.quant_group_size}" if ec.quant == "int4" else "")
+        + (" --prefill-act-quant" if ec.prefill_act_quant else ""))
+    print(f"{tag} {MODEL} {wq} serve-CLI defaults (mux {ec.mux}, prefix cache "
           f"{ec.prefix_cache}, conv cache {ec.conv_cache}, ragged "
           f"{ec.ragged_prefill}, kv_quant {ec.kv_quant}, fused decode layer "
           f"{ec.fused_decode_layer}, prefill_chunk {ec.prefill_chunk}, ragged "
@@ -1799,6 +2052,10 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
         print(f"{tag} profile: {mux['launches_per_step']:.1f} CUDA launches per "
               f"{what} (model only, {engine.mcfg.n_layers} layers; fused "
               f"decode layer {engine.mcfg.fused_decode_layer})")
+        if ec.quant not in ("none", ""):
+            print(f"{tag} profile: kernel 7 device {mux['k7_ms_per_step']:.4f} ms per "
+                  f"{what} against the weight-stream bound "
+                  f"{stream_bound_ms(engine):.4f} ms ({name})")
 
 
 # ---------------------------------------------------------------------------
@@ -1806,7 +2063,7 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3, 5, 6a and 7, profile each engine "
+                    help="after phases 3, 5, 6a, 7 and 8a, profile each engine "
                          "with every slot busy (device busy share, time by "
                          "kernel) and count the CUDA launches of one decode "
                          "step (phase 7: one verify burst)")
@@ -1847,6 +2104,7 @@ def main() -> int:
     from p2p_llm_tunnel_tpu_torch.models.config import get_config
 
     cfg = get_config(MODEL)
+    count_model_calls()
 
     # Phase 2: kernels against their plain versions.
     reset_counters()
@@ -1917,6 +2175,21 @@ def main() -> int:
               f"plain| {lg['max_abs_diff']:.4g} (limit {lg['limit']:.4g} = 5% "
               f"of max |logit| {lg['logit_scale']:.4g}), argmax agreement "
               f"{lg['argmax_agree']:.2f}")
+    # Kernel 7 against its plain version inside the model: the same bf16
+    # weights quantized on the card, raw cache, kernels 1 and 2 on both paths.
+    from p2p_llm_tunnel_tpu_torch.models import quant as tq
+
+    for wmode in ("int8", "w8a8", "int4"):
+        qparams = (tq.quantize_params_int4(engine.params, 128) if wmode == "int4"
+                   else tq.quantize_params(engine.params))
+        lg = logits_phase(cfg, qparams, act_quant=wmode == "w8a8")
+        print(f"[logits] weights {wmode} (kernel 7{' g128' if wmode == 'int4' else ''}"
+              f"), raw cache: prefill + {lg['rows'] - 1} teacher-forced decode "
+              f"steps: max |kernel - plain| {lg['max_abs_diff']:.4g} (limit "
+              f"{lg['limit']:.4g} = 5% of max |logit| {lg['logit_scale']:.4g}), "
+              f"argmax agreement {lg['argmax_agree']:.2f}")
+        del qparams
+        torch.cuda.empty_cache()
     sl = spec_logits_phase(cfg, engine.params)
     print(f"[logits] int4 + fused verify burst of {sl['rows']} tokens (kernel 5) "
           f"vs {sl['rows']} sequential decode steps (kernel 4): max |diff| "
@@ -2033,6 +2306,81 @@ def main() -> int:
         free_engine(e7b)
         del e7b
     del params
+    torch.cuda.empty_cache()
+
+    # Phase 8: weight quantization — llama3-8b at full width on random
+    # weights drawn directly quantized from seed 0 (no bf16 tree), kernel 7
+    # on every projection and the head (225 launches a model call).
+    from p2p_llm_tunnel_tpu_torch.models.quant import weight_bytes
+
+    # 8a: 6a's engine with --quant int4 g128, the conversations of phase 5.
+    int4_flags = ("--kv-quant", "int4", "--fused-decode-layer", "--ragged-prefill",
+                  "--quant", "int4", "--quant-group-size", "128")
+    t0 = time.monotonic()
+    e8a = cli_engine(None, cfg, *int4_flags)
+    t_init = time.monotonic() - t0
+    t_ready, m8a = run_engine(e8a, mux_phase, args.profile)
+    print(f"[8a] weights {weight_bytes(e8a.params) / 1e9:.3f} GB on the card "
+          f"(init {t_init:.1f} s); stream bound {stream_bound_ms(e8a):.4f} ms a step")
+    print_mux("[8a]", e8a, m8a, t_ready, name)
+    print_quant_launches("[8a]", m8a, e8a)
+    add_launches(m8a["launches"])
+    int4_params = e8a.params
+    free_engine(e8a)
+    del e8a
+    # 8c (spec): 8a with prompt-lookup speculation, same weights.
+    e8s = cli_engine(int4_params, cfg, *int4_flags, "--spec-ngram", "3", "--spec-k",
+                     "4", "--spec-k-max", "8")
+    t_ready, m8s = run_engine(e8s, mux_phase)
+    if m8s["spec"] <= 0:
+        raise AssertionError("phase 8c ran no verify burst")
+    print_mux("[8c spec]", e8s, m8s, t_ready, name)
+    print_quant_launches("[8c spec]", m8s, e8s)
+    add_launches(m8s["launches"])
+    free_engine(e8s)
+    del e8s, int4_params
+    torch.cuda.empty_cache()
+    # 8b: serve defaults + ragged with --quant int8 --prefill-act-quant:
+    # prefill W8A8, decode weight-only.
+    e8b = cli_engine(None, cfg, "--ragged-prefill", "--quant", "int8",
+                     "--prefill-act-quant")
+    t_ready, m8b = run_engine(e8b, mux_phase)
+    print_mux("[8b]", e8b, m8b, t_ready, name)
+    print_quant_launches("[8b]", m8b, e8b)
+    add_launches(m8b["launches"])
+    int8_params = e8b.params
+    free_engine(e8b)
+    del e8b
+    # 8c: --quant w8a8 on the same int8 weights, a short serve.
+    e8c = cli_engine(int8_params, cfg, "--quant", "w8a8")
+    t_ready, short = run_engine(e8c, lambda e: serve_phase(e, 4, 16))
+    print(f"[8c] --quant w8a8: ready in {t_ready:.1f} s; 4 streams x 16 tokens "
+          f"finished, {short['tok_s']:.1f} tok/s ({name})")
+    print_quant_launches("[8c]", short, e8c)
+    add_launches(short["launches"])
+    free_engine(e8c)
+    del e8c, int8_params
+    torch.cuda.empty_cache()
+    # 8d: llama3-70b at full width and depth, --quant int4 and --kv-quant
+    # int8: the configuration bf16 weights (~141 GB) cannot hold on one card.
+    cfg70 = get_config("llama3-70b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    e8d = cli_engine(None, cfg70, "--quant", "int4", "--kv-quant", "int8",
+                     model="llama3-70b")
+    t_init = time.monotonic() - t0
+    t_ready, short = run_engine(e8d, lambda e: serve_phase(e, 4, 16))
+    print(f"[8d] llama3-70b ({cfg70.n_layers} layers, dim {cfg70.dim}) --quant int4 "
+          f"g128 --kv-quant int8: weights {weight_bytes(e8d.params) / 1e9:.3f} GB on "
+          f"the card (init {t_init:.1f} s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; ready in {t_ready:.1f} s; "
+          f"4 streams x 16 tokens finished, {short['steps']} decode steps, "
+          f"{short['tok_s']:.1f} tok/s ({name}); stream bound "
+          f"{stream_bound_ms(e8d):.4f} ms a step")
+    print_quant_launches("[8d]", short, e8d)
+    add_launches(short["launches"])
+    free_engine(e8d)
+    del e8d
 
     source = {
         "flash_causal_attention": (
@@ -2053,6 +2401,9 @@ def main() -> int:
         "ragged_prefill_attention": (
             "p2p_llm_tunnel_tpu_torch/csrc/ragged_prefill_attention.cu",
             "p2p_llm_tunnel_tpu/ops/pallas_prefill_attention.py:563"),
+        "quant_matmul": (
+            "p2p_llm_tunnel_tpu_torch/csrc/quant_matmul.cu",
+            "p2p_llm_tunnel_tpu/models/quant.py:298"),
     }
     table = []
     for rname, cases in rows.items():
@@ -2062,6 +2413,9 @@ def main() -> int:
         pick = next((r for r in cases if tag and f" {tag} " in f" {r['shape']} "),
                     cases[0])
         extra = {}
+        if kname == "quant_matmul":
+            extra["note"] = ("no pallas_call: XLA fuses the dequant into mm's "
+                             "operand on the TPU (models/quant.py:298, :336)")
         if rname in CROSS_CHECK_ONLY:
             # No serving path calls it (checked above): its row counts
             # phase 2's launches.

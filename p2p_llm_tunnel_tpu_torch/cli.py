@@ -183,6 +183,25 @@ def build_parser() -> argparse.ArgumentParser:
                        default=_env("TUNNEL_RAGGED_PREFILL", "") == "1",
                        help="route every chunk-prefill dispatch through the "
                             "ragged grouped prefill kernel (default off)")
+    serve.add_argument("--quant", choices=("none", "int8", "w8a8", "int4"),
+                       default=_env("TUNNEL_QUANT", "none"),
+                       help="weight quantization: int8 halves the decode "
+                            "weight stream; w8a8 also quantizes activations "
+                            "(int8 tensor-core products); int4 packs two "
+                            "weights per byte with per-group scales, halving "
+                            "it again (all through the dequant-fused matmul "
+                            "kernel)")
+    serve.add_argument("--quant-group-size", type=int,
+                       default=int(_env("TUNNEL_QUANT_GROUP_SIZE", "128")),
+                       help="int4 scale group size (contracted positions "
+                            "per f32 scale; must be even, and a multiple of "
+                            "16 on the card)")
+    serve.add_argument("--prefill-act-quant",
+                       action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_PREFILL_ACT_QUANT", "") == "1",
+                       help="with --quant int8: run PREFILL activations int8 "
+                            "too; decode stays weight-only "
+                            "(--no-prefill-act-quant overrides the env)")
     serve.add_argument("--kv-quant", choices=("none", "int8", "int4"),
                        default=_env("TUNNEL_KV_QUANT", "none"),
                        help="KV-cache storage: int8 halves, int4 (two tokens "
@@ -238,11 +257,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-_BOOL = dict(action=argparse.BooleanOptionalAction, default=False)
 #: flag -> argparse kwargs; every default is the off value.
 _UNPORTED_FLAGS = {
-    "--quant": dict(default="none"),
-    "--prefill-act-quant": _BOOL,
     "--prefix-cache-dir": dict(default=None),
     "--spill-pages": dict(type=int, default=0),
     "--role": dict(default="both"),
@@ -275,7 +291,8 @@ def _engine_config(args):
         dtype=args.dtype, decode_steps=args.decode_steps,
         decode_steps_eager=args.decode_steps_eager,
         prefill_rows=args.prefill_rows, tp=args.tp, sp=args.sp, ep=args.ep,
-        ckpt_path=args.ckpt, quant=args.quant, kv_quant=args.kv_quant,
+        ckpt_path=args.ckpt, quant=args.quant,
+        quant_group_size=args.quant_group_size, kv_quant=args.kv_quant,
         prefill_act_quant=args.prefill_act_quant,
         fused_decode_layer=args.fused_decode_layer,
         prefix_cache=args.prefix_cache,

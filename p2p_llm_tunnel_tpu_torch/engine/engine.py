@@ -2,8 +2,8 @@
 pipelined decode bursts over a slot-batched KV cache, in PyTorch (port of
 p2p_llm_tunnel_tpu/engine/engine.py: the serve CLI's default engine —
 mux, prefix pool and conversation cache — and the plain non-mux loop, with
-a raw, int8 or packed-int4 KV cache and the unfused or fused decode
-layer).
+a raw, int8 or packed-int4 KV cache, the unfused or fused decode layer,
+and bf16, int8, w8a8 or packed-int4 weights).
 
 Continuous batching as in the reference: the KV cache has ``num_slots``
 fixed rows plus one scratch row; every decode burst runs ``steps`` decode
@@ -135,6 +135,11 @@ class EngineConfig:
     ``ragged_prefill`` keeps its reference meaning: it routes every chunk
     dispatch through the ragged grouped kernel; off, chunk dispatches run
     ``chunk_prefill_into_cache``'s einsum attention on either device.
+    ``quant`` ("none" | "int8" | "w8a8" | "int4"), ``quant_group_size``
+    and ``prefill_act_quant`` keep theirs (weights int8 or packed int4
+    through kernel 7; w8a8 also quantizes activations; with int8,
+    ``prefill_act_quant`` runs prefill w8a8 and decode weight-only); on
+    the card an int4 group size must be a multiple of 16.
     ``kv_quant`` ("none" | "int8" | "int4") and ``fused_decode_layer``
     keep theirs too (the cache's storage form; kernel 4 for decode, kernel 5
     for verify bursts), as do ``spec_ngram`` (the proposer's match length,
@@ -192,8 +197,6 @@ class EngineConfig:
 
 #: knob -> (values that mean "off", ROADMAP.md port-queue item)
 _UNPORTED = {
-    "quant": (("none", ""), "weight quantization"),
-    "prefill_act_quant": ((False,), "weight quantization"),
     "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
     "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
     "role": (("both",), "spill tier, snapshots and KV_PAGES"),
@@ -303,11 +306,7 @@ class InferenceEngine:
         if self.ecfg.fused_decode_layer and not self.mcfg.fused_decode_layer:
             self.mcfg = dc_replace(self.mcfg, fused_decode_layer=True)
         dtype = _DTYPES[self.ecfg.dtype]
-        if params is None:
-            log.info("initialising random params for %s on %s",
-                     self.mcfg.name, self.device)
-            params = init_params(self.mcfg, self.ecfg.seed, dtype, self.device)
-        self.params = params
+        self.params = self._init_weights(params, dtype)
 
         b, s = self.ecfg.num_slots, self.ecfg.max_seq
         # One extra cache row: the scratch slot that padded prefill rows
@@ -355,6 +354,12 @@ class InferenceEngine:
         self._align_int4_pages()
         self._init_ragged_geometry()
         self._gate_fused_decode()
+        # Prefill may run a hotter quant mode than decode
+        # (prefill_act_quant): its own model config, for every prefill path.
+        self._prefill_mcfg = self.mcfg
+        if (self.ecfg.prefill_act_quant and self.ecfg.quant == "int8"
+                and not self.mcfg.act_quant):
+            self._prefill_mcfg = dc_replace(self.mcfg, act_quant=True)
 
         # Prefix cache: host index + device block pool + batched copy ops.
         self._prefix: Optional[PrefixIndex] = None
@@ -536,12 +541,13 @@ class InferenceEngine:
         prompt_lps = None
         if echo:
             last_logits, _, prompt_lps = prefill_into_cache(
-                self.mcfg, self.params, tokens, lengths, self.kv_cache, slots,
-                return_prompt_logprobs=True,
+                self._prefill_mcfg, self.params, tokens, lengths,
+                self.kv_cache, slots, return_prompt_logprobs=True,
             )
         else:
             last_logits, _ = prefill_into_cache(
-                self.mcfg, self.params, tokens, lengths, self.kv_cache, slots,
+                self._prefill_mcfg, self.params, tokens, lengths,
+                self.kv_cache, slots,
             )
         first, lp = self._sample_rows(last_logits, samp, lengths, slots)
         return first, lp, prompt_lps
@@ -562,8 +568,8 @@ class InferenceEngine:
         and chunked-prefill segments), cache written IN PLACE; attention
         reads ``cache[:kv_view]``."""
         last_logits, _ = chunk_prefill_into_cache(
-            self.mcfg, self.params, tokens, lengths, starts, self.kv_cache,
-            slots, kv_view=kv_view,
+            self._prefill_mcfg, self.params, tokens, lengths, starts,
+            self.kv_cache, slots, kv_view=kv_view,
         )
         return self._sample_rows(last_logits, samp, starts + lengths, slots)
 
@@ -574,8 +580,8 @@ class InferenceEngine:
         ``sample_idx``/``samp_pos``/``slots`` are per ROW: each row's
         last-real-token logits sample exactly like the chunk path's."""
         last_logits, _ = ragged_prefill_into_cache(
-            self.mcfg, self.params, tokens, *descs, sample_idx, self.kv_cache,
-            block_q=self._ragged_bq,
+            self._prefill_mcfg, self.params, tokens, *descs, sample_idx,
+            self.kv_cache, block_q=self._ragged_bq,
         )
         return self._sample_rows(last_logits, samp, samp_pos, slots)
 
@@ -2100,6 +2106,57 @@ class InferenceEngine:
                     "int4", self.ecfg.min_prefill_bucket,
                     self.ecfg.prefill_chunk):
                 self._fence("prefix_cache", False, why)
+
+    def _init_weights(self, params, dtype):
+        """The served weights, as the reference builds them: with no params
+        a random init (directly int8 or packed int4 under ``quant``, so no
+        bf16 tree ever exists); an injected bf16 tree quantized once; an
+        injected int4 tree's group size wins over the config.  ``w8a8``
+        turns ``act_quant`` on.  On the card an int4 group size must be a
+        multiple of 16 (kernel 7's k-step): any other is refused here."""
+        from p2p_llm_tunnel_tpu_torch.models import quant as q
+        from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import group_size_fence
+
+        mode = self.ecfg.quant
+        if mode not in ("none", "", "int8", "w8a8", "int4"):
+            raise ValueError(f"unknown quant mode {mode!r}")
+        gs = self.ecfg.quant_group_size
+        if params is None:
+            if mode in ("int8", "w8a8"):
+                log.info("initialising %s directly in int8 on %s",
+                         self.mcfg.name, self.device)
+                params = q.init_params_quantized(self.mcfg, self.ecfg.seed,
+                                                 self.device)
+            elif mode == "int4":
+                log.info("initialising %s directly in packed int4 on %s",
+                         self.mcfg.name, self.device)
+                params = q.init_params_quantized_int4(
+                    self.mcfg, self.ecfg.seed, gs, self.device)
+            else:
+                log.info("initialising random params for %s on %s",
+                         self.mcfg.name, self.device)
+                params = init_params(self.mcfg, self.ecfg.seed, dtype,
+                                     self.device)
+        wq = params["blocks"]["wq"]
+        if mode in ("int8", "w8a8"):
+            if not isinstance(wq, q.QTensor):
+                log.info("quantizing weights to int8 (per-channel, weight-only)")
+                params = q.quantize_params(params)
+            if mode == "w8a8" and not self.mcfg.act_quant:
+                self.mcfg = dc_replace(self.mcfg, act_quant=True)
+        elif mode == "int4":
+            if not isinstance(wq, q.QTensor4):
+                log.info("quantizing weights to packed int4 (group_size=%d)", gs)
+                params = q.quantize_params_int4(params, gs)
+            elif wq.group_size != gs:
+                log.warning(
+                    "injected int4 tree uses group_size=%d; overriding "
+                    "configured quant_group_size=%d", wq.group_size, gs)
+                self.ecfg = dc_replace(self.ecfg, quant_group_size=wq.group_size)
+            why = group_size_fence(self.ecfg.quant_group_size)
+            if self.device.type == "cuda" and why is not None:
+                raise ValueError(f"--quant int4 on the card: {why}")
+        return params
 
     def _gate_fused_decode(self) -> None:
         """On the card, fence the fused decode layer when the model's head

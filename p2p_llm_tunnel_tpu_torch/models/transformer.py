@@ -29,7 +29,12 @@ Idiom differences from the JAX reference, all deliberate:
   kernel 2 for decode (``ops/fused_decode``), on the card and, as its
   plain version, on the CPU.
 - quantized KV writes are plain torch ops (the reference's are XLA ops
-  outside any Pallas kernel) through ``models/quant``'s whole-byte helpers.
+  outside any Pallas kernel) through ``models/quant``'s whole-byte helpers;
+- quantized weights (``models/quant.QTensor``/``QTensor4`` leaves, every
+  matmul weight and the embedding) go through ``quant.mm`` and
+  ``quant.head_matmul`` — kernel 7 on the card, its plain version on the
+  CPU — and a quantized embedding gathers into bf16 activations, as in
+  the reference; ``cfg.act_quant`` runs the W8A8 products.
 
 Knobs of the reference the port does not run yet raise ``NotPorted`` (a
 NotImplementedError) naming their ROADMAP.md port-queue item.
@@ -46,8 +51,14 @@ import torch.nn.functional as F
 
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig
 from p2p_llm_tunnel_tpu_torch.models.quant import (
+    QTensor,
+    QTensor4,
     _quantize_act,
     append_packed_token,
+    embed_lookup,
+    head_matmul,
+    is_quantized,
+    mm,
     quantize_sym,
     splice_packed_rows,
     write_packed_chunk,
@@ -105,8 +116,6 @@ def resolve_device(device=None) -> torch.device:
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
     if cfg.n_experts:
         raise NotPorted("mixture-of-experts (n_experts)", "checkpoints and MoE")
-    if cfg.act_quant:
-        raise NotPorted("act_quant (w8a8)", "weight quantization")
     if mesh is not None:
         raise NotPorted("device meshes (tp/sp/ep)", "parallel/")
 
@@ -185,16 +194,26 @@ def params_from_numpy(tree, device, dtype=torch.bfloat16) -> Params:
     ``[L, ...]`` stacking), as this package's params — so both packages run
     on identical weights.  Imports no JAX: callers hand over numpy arrays
     (``jax.tree.map(np.asarray, params)``).  Float leaves of any width are
-    widened to fp32 first (exact for bf16), then cast to ``dtype``."""
+    widened to fp32 first (exact for bf16), then cast to ``dtype``.
+
+    Quantized leaves (the reference's ``QTensor``/``QTensor4`` holding
+    numpy arrays) are recognised by their attributes — ``q`` and ``scale``,
+    plus ``in_dim``, ``group_size`` and ``axis`` for int4 — and become this
+    package's leaves with the int8 bytes and f32 scales unchanged."""
+    dev = torch.device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        q = torch.from_numpy(np.array(tree.q, np.int8)).to(dev)
+        scale = torch.from_numpy(np.array(tree.scale, np.float32)).to(dev)
+        if hasattr(tree, "group_size"):
+            return QTensor4(q, scale, int(tree.in_dim), int(tree.group_size),
+                            int(tree.axis))
+        return QTensor(q, scale)
     if not isinstance(tree, np.ndarray):
-        raise NotPorted(
-            f"params leaf of type {type(tree).__name__} (quantized weights?)",
-            "weight quantization",
-        )
+        raise TypeError(f"params leaf of type {type(tree).__name__}")
     arr = np.ascontiguousarray(tree.astype(np.float32))
-    return torch.from_numpy(arr).to(device=torch.device(device), dtype=dtype)
+    return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
 
 def init_kv_cache(
@@ -300,16 +319,18 @@ def _act(cfg: ModelConfig, x):
 
 
 def _mlp(cfg: ModelConfig, blk, h):
-    gate = _act(cfg, h @ blk["w_gate"]) * (h @ blk["w_up"])
-    return gate @ blk["w_down"]
+    aq = cfg.act_quant
+    gate = _act(cfg, mm(h, blk["w_gate"], aq)) * mm(h, blk["w_up"], aq)
+    return mm(gate, blk["w_down"], aq)
 
 
 def _qkv_proj(cfg: ModelConfig, blk, h):
     """QKV projections + bias + head split, no rope."""
     b, t, _ = h.shape
-    q = h @ blk["wq"]
-    k = h @ blk["wk"]
-    v = h @ blk["wv"]
+    aq = cfg.act_quant
+    q = mm(h, blk["wq"], aq)
+    k = mm(h, blk["wk"], aq)
+    v = mm(h, blk["wv"], aq)
     if cfg.attn_bias:  # qwen2: additive bias on the Q/K/V projections
         q = q + blk["bq"].to(q.dtype)
         k = k + blk["bk"].to(k.dtype)
@@ -339,7 +360,7 @@ def _layer_window(cfg: ModelConfig, layer_idx: int, seq_len: int) -> Optional[in
 def _block_tail(cfg: ModelConfig, blk, x, attn):
     """Output projection, residuals and the MLP half of one block."""
     b, t = x.shape[:2]
-    attn = attn.reshape(b, t, -1) @ blk["wo"]
+    attn = mm(attn.reshape(b, t, -1), blk["wo"], cfg.act_quant)
     if cfg.post_norms:
         attn = _norm(cfg, attn, blk["post_attn_norm"])
     x = x + attn
@@ -350,7 +371,11 @@ def _block_tail(cfg: ModelConfig, blk, x, attn):
 
 
 def _embed(cfg: ModelConfig, params, tokens):
-    x = params["embed"][tokens]
+    embed = params["embed"]
+    # A quantized table dequantizes into bf16 activations; every product
+    # downstream follows x's dtype (quant.mm).
+    dtype = torch.bfloat16 if is_quantized(embed) else embed.dtype
+    x = embed_lookup(embed, tokens, dtype)
     if cfg.embed_scale:
         x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
     return x
@@ -358,9 +383,9 @@ def _embed(cfg: ModelConfig, params, tokens):
 
 def _logits(cfg: ModelConfig, params, x):
     if cfg.tie_embeddings:
-        logits = (x @ params["embed"].T.to(x.dtype)).to(torch.float32)
+        logits = head_matmul(x, params["embed"], cfg.act_quant).to(torch.float32)
     else:
-        logits = (x @ params["lm_head"]).to(torch.float32)
+        logits = mm(x, params["lm_head"], cfg.act_quant).to(torch.float32)
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

@@ -36,6 +36,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "fused_decode_layer": "fused_decode_layer.cu",
     "fused_spec_decode_layer": "fused_spec_decode_layer.cu",
     "ragged_prefill_attention": "ragged_prefill_attention.cu",
+    "quant_matmul": "quant_matmul.cu",
 }
 
 #: Dynamic shared memory one block may use on the card (H100: 227 KB); the

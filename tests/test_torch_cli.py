@@ -73,10 +73,10 @@ def test_env_names_match_the_jax_cli(monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--prefix-cache-dir", "/x"], "spill tier, snapshots"),
     (["--spill-pages", "4"], "spill tier, snapshots"),
-    (["--quant", "int8"], "weight quantization"),
-    (["--quant", "w8a8", "--kv-quant", "int8"], "weight quantization"),
-    (["--quant", "int4"], "weight quantization"),
-    (["--prefill-act-quant"], "weight quantization"),
+    (["--ckpt", "/x"], "checkpoints and MoE"),
+    (["--role", "prefill"], "spill tier, snapshots"),
+    (["--ep", "2"], "parallel/"),
+    (["--sp", "2"], "parallel/"),
     (["--tp", "2"], "parallel/"),
     (["--replicas", "2"], "parallel/"),
 ])

@@ -167,7 +167,7 @@ def test_construction_guards():
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, spill_pages=4),
                         device="cpu")
     with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, quant="int8"),
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, ckpt_path="/x"),
                         device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int2"),

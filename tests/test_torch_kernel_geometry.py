@@ -20,7 +20,11 @@ row per slot) and the fused verify layer (kernel 5) share, on the CPU:
 - kernel 6's launch plan: its query tiles cover every real and pad q-block
   of a group exactly once, for the chip smoke test's serving group and for
   groups planned at the engine's buckets, from a grid computed without the
-  descriptors; its shared memory fits at every head dim.
+  descriptors; its shared memory fits at every head dim;
+- kernel 7's launch plan: the 32-row tile for a decode step (17 rows, one
+  tile) and every verify burst, the 64 x 128 tile for prefill, grids that
+  cover every row and column of the llama3-8b projections and head, and
+  shared memory that holds two blocks per SM in every form and layout.
 """
 
 import pytest
@@ -32,6 +36,7 @@ from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
 from p2p_llm_tunnel_tpu_torch.ops import fused_decode as fd
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops import prefill_attention as pa
+from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
 from p2p_llm_tunnel_tpu_torch.ops.decode_attention import _SUPPORTED_D
 
 #: Shared memory of one H100 SM, less the 1 KB the card reserves per block.
@@ -232,3 +237,50 @@ def test_kernel6_shared_memory_fits_every_head_dim(d, form):
         stage = {None: 0, "int8": 2 * 64 * 128, "int4": 2 * 32 * 128}[form]
         assert smem == 2 * 128 * 136 + 8 * 64 * 136 + 1024 + stage
         assert (2 * (smem + BLOCK_RESERVED) <= SM_BYTES) == (form != "int8")
+
+
+#: llama3-8b's projections and head as kernel 7 sees them: N x K.
+KERNEL7_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096),
+                  "w_gate/w_up": (14336, 4096), "w_down": (4096, 14336),
+                  "lm_head": (128256, 4096)}
+
+
+@pytest.mark.parametrize("m,plan", [(1, "small"), (17, "small"), (85, "small"),
+                                    (153, "small"), (160, "small"),
+                                    (161, "large"), (1024, "large"),
+                                    (2048, "large")])
+def test_kernel7_plan_picks_the_tile_by_rows(m, plan):
+    """Decode steps (16 slots + the parked row) and verify bursts (17 x T,
+    T <= 9) take the 32-row tile, prefill the 64 x 128 one."""
+    p = qm.launch_plan(m, 4096)
+    assert p["plan"] == plan and (p["bm"], p["bn"]) == qm.PLANS[plan][:2]
+    assert p["grid"][0] * p["bm"] >= m > (p["grid"][0] - 1) * p["bm"]
+    if m == 17:
+        assert p["grid"] == (1, 64)  # one M tile: each weight byte read once
+
+
+@pytest.mark.parametrize("shape", sorted(KERNEL7_SHAPES))
+@pytest.mark.parametrize("m", [17, 85, 1024])
+def test_kernel7_grid_covers_the_main_path_shapes(shape, m):
+    n, k = KERNEL7_SHAPES[shape]
+    p = qm.launch_plan(m, n)
+    gm, gn = p["grid"]
+    assert gm * p["bm"] >= m and gn * p["bn"] >= n
+    assert (gn - 1) * p["bn"] < n and gn <= 65535  # grid.y limit
+    assert k % p["bk"] == 0  # no ragged slab at the served widths
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("form", qm.FORMS)
+@pytest.mark.parametrize("plan", sorted(qm.PLANS))
+def test_kernel7_shared_memory_fits_two_blocks(plan, form, layout):
+    smem = qm.smem_bytes(plan, form, layout)
+    assert 2 * (smem + BLOCK_RESERVED) <= SM_BYTES
+    bm, bn, bk, warps_k, _ = qm.PLANS[plan]
+    # The warps that split k hand their 32 x 64 partial sums (64 values a
+    # lane) to warp 0 through the stage ring.
+    assert (warps_k - 1) * 32 * (bm // 16) * (bn // (4 // warps_k) // 8) * 4 * 4 <= smem
+    assert bk % (32 if form == "w8a8" else 16) == 0
+    if (plan, form, layout) == ("small", "int4", "kn"):
+        # 4 stages of x [32, 272 B], bytes [64, 80 B], scales [8, 64] f32.
+        assert smem == 4 * (32 * 272 + 64 * 80 + 8 * 64 * 4)

@@ -204,10 +204,10 @@ def test_init_params_matches_reference_layout():
 def test_unported_knobs_and_missing_card_raise():
     cfg = get_config("tiny", vocab_size=VOCAB)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.decode_step(dataclasses.replace(cfg, act_quant=True), {},
+        tt.decode_step(cfg, {},
                        tt.init_kv_cache(cfg, 2, 16, quant="int8", device="cpu"),
                        torch.zeros(2, dtype=torch.long),
-                       torch.zeros(2, dtype=torch.int32))
+                       torch.zeros(2, dtype=torch.int32), mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_params(get_config("tiny-moe", vocab_size=VOCAB), device="cpu")
     if not torch.cuda.is_available():
