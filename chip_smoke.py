@@ -119,7 +119,12 @@ CROSS_CHECK_ONLY = {"flash_decode_attention_plane":
 PORT_KERNEL_NAMES = ("flash_causal_kernel", "flash_decode_kernel",
                      "plane_decode_kernel", "fused_decode_layer_kernel",
                      "fused_spec_kernel", "ragged_prefill_kernel",
-                     "quant_matmul_kernel")
+                     "quant_matmul_decode_kernel", "quant_matmul_prefill_kernel",
+                     "quantize_rows_kernel")
+#: Kernel 7's CUDA kernels: its two plans and W8A8's activation quantizer,
+#: all launched by the one wrapper call a product makes.
+K7_KERNELS = ("quant_matmul_decode_kernel", "quant_matmul_prefill_kernel",
+              "quantize_rows_kernel")
 # Phase 5: conversations of the mux phase, their system prompt and turns.
 N_CONV = 8
 SYSTEM_PROMPT = ("You are the tunnel's assistant. Answer briefly, cite the "
@@ -174,13 +179,15 @@ def dev_us(event) -> float:
             or getattr(event, "self_cuda_time_total", 0) or 0)
 
 
-def device_ms(fn, kernel: Optional[str], iters: int = 50) -> float:
+def device_ms(fn, kernel, iters: int = 50) -> float:
     """Device time per launch of the CUDA kernels whose name holds
     ``kernel``, over ``iters`` calls of ``fn`` under torch.profiler: the
     kernel alone, without the host time between launches that CUDA events
-    also see when a call enqueues slower than the card runs it.  With
-    ``kernel`` None: the device time of every kernel ``fn`` launches, per
-    call (a library call's).
+    also see when a call enqueues slower than the card runs it.  With a
+    tuple of names: the sum of each name's time per launch over the names
+    the window shows (the kernels one call launches once each, as kernel
+    7's plan and W8A8 quantizer).  With ``kernel`` None: the device time of
+    every kernel ``fn`` launches, per call (a library call's).
 
     A profiler window can come back with some or all of the device's
     events missing (seen on the card): a kernel's time is averaged over
@@ -204,11 +211,18 @@ def device_ms(fn, kernel: Optional[str], iters: int = 50) -> float:
         if total <= 0:
             raise AssertionError("the profiler saw no device time in three windows")
         return total / iters / 1e3
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for _ in range(3):
-        events = [e for e in window() if kernel in e.key]
-        count = sum(e.count for e in events)
-        if count:
-            return sum(dev_us(e) for e in events) / count / 1e3
+        evs = window()
+        total, seen = 0.0, 0
+        for name in names:
+            events = [e for e in evs if name in e.key]
+            count = sum(e.count for e in events)
+            if count:
+                total += sum(dev_us(e) for e in events) / count / 1e3
+                seen += 1
+        if seen:
+            return total
     raise AssertionError(f"the profiler saw no launch of {kernel} in three windows")
 
 
@@ -1085,13 +1099,13 @@ def ragged_preset_checks() -> dict:
     return worst
 
 
-#: Kernel 7 at the main path's shapes (llama3-8b, N x K) and rows: a
-#: decode step (16 slots + the parked row), a verify burst of T 5 and a
-#: ragged dispatch of 1024 flat tokens.
+#: Kernel 7 at the main path's shapes (llama3-8b, N x K) and rows: one
+#: stream, a decode step (16 slots + the parked row), a verify burst of T 5
+#: and the widest of T 9, and a ragged dispatch of 1024 flat tokens.
 QUANT_SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 1024, 4096),
                 ("w_gate/w_up", 14336, 4096), ("w_down", 4096, 14336),
                 ("lm_head", 128256, 4096))
-QUANT_ROWS = (17, 85, 1024)
+QUANT_ROWS = (1, 17, 85, 153, 1024)
 QUANT_FORMS = ("int8", "w8a8", "int4")
 #: A tied head: llama3.2-1b's embedding [128256, 2048] (contracts its last
 #: axis, the int4 table packed along it).
@@ -1179,6 +1193,9 @@ def quant_case(form, name, n, k, m, layout="kn", gs=128, seed=0):
              + ("" if layout == "kn" else " nk"))
     if not torch.equal(got, again):
         raise AssertionError(f"quant_matmul_{form} {label}: two launches differ")
+    plan = qm.launch_plan(m, n, k, form, layout, gs)
+    if plan["splits"] > 1:
+        SPLIT_BITWISE.append(f"{form} {name} M{m} ({plan['splits']} splits)")
     if form == "w8a8" and not torch.equal(got, want):
         raise AssertionError(
             f"quant_matmul_w8a8 {label}: not bitwise equal to its plain version "
@@ -1191,7 +1208,8 @@ def quant_case(form, name, n, k, m, layout="kn", gs=128, seed=0):
     row = dict(
         shape=f"{label} L2-cold{layers}", max_abs_err=err,
         **kernel_ms(launch, iters=20),
-        device_ms=device_ms(launch, "quant_matmul_kernel", iters=20),
+        device_ms=device_ms(launch, K7_KERNELS, iters=20),
+        plan=f"{plan['plan']} grid {plan['grid']}",
         plain_ms=timed_ms(lambda: qm.plain(x, q[0], scale[0], **args),
                           iters=plain_iters, warm=1)[0],
         **quant_library(form, x, q, scale, layout, kw, layers),
@@ -1201,9 +1219,14 @@ def quant_case(form, name, n, k, m, layout="kn", gs=128, seed=0):
     return row
 
 
+#: Kernel 7's cases whose K was split, each bitwise equal over two launches.
+SPLIT_BITWISE: list = []
+
+
 def quant_phase() -> dict:
     """Kernel 7's rows: every form at every main-path shape and row count,
-    the tied head, and int4 at group size 64."""
+    the tied head, and int4 at group size 64; every form bitwise over two
+    launches at a split shape (wk/wv, M 17: 16 splits)."""
     rows = {f"quant_matmul_{form}": [] for form in QUANT_FORMS}
     for form in QUANT_FORMS:
         for name, n, k in QUANT_SHAPES:
@@ -1213,6 +1236,11 @@ def quant_phase() -> dict:
         rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, 17, layout="nk"))
     rows["quant_matmul_int4"].append(quant_case("int4", "w_gate/w_up", 14336, 4096, 17,
                                                 gs=64, seed=1))
+    for form in QUANT_FORMS:
+        if not any(c.startswith(f"{form} wk/wv M17 ") for c in SPLIT_BITWISE):
+            raise AssertionError(f"kernel 7 {form}: wk/wv at M 17 was not split")
+    print("[kernels] kernel 7 bitwise over two launches where K is split: "
+          + ", ".join(SPLIT_BITWISE))
     return rows
 
 
@@ -1261,6 +1289,8 @@ def kernel_phase(cfg) -> dict:
             lib = (r.get("library_note", "n/a") if r["library_ms"] is None else
                    f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
             dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
+            if "plan" in r:
+                dev += f" [{r['plan']}]"
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
                   f"kernel {r['ms']:.4f} ms (spread {r['ms_spread']:.4f}){dev}  plain {r['plain_ms']:.4f} ms  "
                   f"library {lib} ms  bound {r['bound_ms']:.4f} ms "
@@ -1944,8 +1974,62 @@ def decode_launches(engine, steps: int = 4):
                 step()
             torch.cuda.synchronize()
     launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    k7_us = sum(dev_us(e) for e in prof.key_averages() if "quant_matmul_kernel" in e.key)
-    return launches / steps, k7_us / 1e3 / steps
+    return launches / steps, k7_device_ms(prof) / steps
+
+
+def k7_device_ms(prof) -> float:
+    """Kernel 7's device ms in a torch.profiler window: both plans and
+    W8A8's quantizer."""
+    return sum(dev_us(e) for e in prof.key_averages()
+               if any(n in e.key for n in K7_KERNELS)) / 1e3
+
+
+def k7_call_ms(engine, steps: int = 4) -> dict:
+    """Kernel 7's device ms per decode step (every slot live at position
+    200, view 256) and per prefill call (one ragged dispatch of the phase-2
+    group, TOT 1024 flat tokens: its projections at M 1024 and the head at
+    its 8 sampled rows) on this engine's weights and cache, by
+    torch.profiler, with the products each call launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.ops import prefill_attention as pa
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
+
+    rows = engine.ecfg.num_slots + 1
+    toks = torch.ones((rows,), dtype=torch.long, device=engine.device)
+    pos = torch.full((rows,), 200, dtype=torch.int32, device=engine.device)
+    entries = [(i, st, ln) for i, (st, ln) in enumerate(RAGGED_ROWS)]
+    slot_of, start_of, qoff_of, _qlen, base_of, offs = pa.plan_ragged_group(
+        entries, 16, RAGGED_TOT, scratch_slot=rows - 1)
+    descs = [torch.tensor(x, dtype=torch.int32, device=engine.device)
+             for x in (slot_of, start_of, qoff_of, base_of)]
+    sample = torch.tensor([o + ln - 1 for (_, _, ln), o in zip(entries, offs)],
+                          dtype=torch.int32, device=engine.device)
+    flat = torch.ones((RAGGED_TOT,), dtype=torch.long, device=engine.device)
+
+    def decode():
+        tr.decode_step(engine.mcfg, engine.params, engine.kv_cache, toks, pos,
+                       kv_view=256)
+
+    def prefill():
+        tr.ragged_prefill_into_cache(engine.mcfg, engine.params, flat, *descs,
+                                     sample, engine.kv_cache, 16)
+
+    out = {}
+    with torch.inference_mode():
+        for kind, fn, n in (("decode", decode, steps), ("prefill", prefill, 2)):
+            fn()
+            torch.cuda.synchronize()
+            before = qm.quant_matmul.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            out[f"{kind}_ms"] = k7_device_ms(prof) / n
+            out[f"{kind}_products"] = (qm.quant_matmul.launches - before) / n
+    return out
 
 
 def cli_engine(params, cfg, *flags, model: str = MODEL):
@@ -2324,6 +2408,14 @@ def main() -> int:
           f"(init {t_init:.1f} s); stream bound {stream_bound_ms(e8a):.4f} ms a step")
     print_mux("[8a]", e8a, m8a, t_ready, name)
     print_quant_launches("[8a]", m8a, e8a)
+    k7 = k7_call_ms(e8a)
+    per_call = 7 * e8a.mcfg.n_layers + 1
+    if k7["decode_products"] != per_call or k7["prefill_products"] != per_call:
+        raise AssertionError(f"[8a] kernel 7 products per call {k7}, not {per_call}")
+    print(f"[8a] kernel 7 device {k7['decode_ms']:.4f} ms per decode step (17 rows) "
+          f"and {k7['prefill_ms']:.4f} ms per prefill call (a ragged dispatch of "
+          f"{RAGGED_TOT} tokens), {per_call} products each; the decode step's "
+          f"weight-stream bound {stream_bound_ms(e8a):.4f} ms ({name})")
     add_launches(m8a["launches"])
     int4_params = e8a.params
     free_engine(e8a)

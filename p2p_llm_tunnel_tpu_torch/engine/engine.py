@@ -2113,9 +2113,13 @@ class InferenceEngine:
         bf16 tree ever exists); an injected bf16 tree quantized once; an
         injected int4 tree's group size wins over the config.  ``w8a8``
         turns ``act_quant`` on.  On the card an int4 group size must be a
-        multiple of 16 (kernel 7's k-step): any other is refused here."""
+        multiple of 16 (kernel 7's k-step) and every quantized product a
+        shape kernel 7 takes (``model_fence``): any other is refused here."""
         from p2p_llm_tunnel_tpu_torch.models import quant as q
-        from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import group_size_fence
+        from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import (
+            group_size_fence,
+            model_fence,
+        )
 
         mode = self.ecfg.quant
         if mode not in ("none", "", "int8", "w8a8", "int4"):
@@ -2156,6 +2160,9 @@ class InferenceEngine:
             why = group_size_fence(self.ecfg.quant_group_size)
             if self.device.type == "cuda" and why is not None:
                 raise ValueError(f"--quant int4 on the card: {why}")
+        why = model_fence(self.mcfg, mode, self.ecfg.quant_group_size)
+        if self.device.type == "cuda" and why is not None:
+            raise ValueError(f"--quant {mode} on the card: {why}")
         return params
 
     def _gate_fused_decode(self) -> None:

@@ -2,7 +2,8 @@
 """A/B of the port's kernels against an earlier source of each, on one
 NVIDIA card, with ``chip_smoke.py``'s L2-cold harness: the prefill flash
 kernel (kernel 1), the slot-decode kernel (kernel 2), the fused decode
-layer (kernel 4) and the ragged prefill kernel (kernel 6).
+layer (kernel 4), the ragged prefill kernel (kernel 6) and the
+dequant-fused weight matmul (kernel 7).
 
     mkdir -p build/kernel_ab_parent
     for f in flash_decode_attention.cu ragged_prefill_attention.cu \\
@@ -26,7 +27,18 @@ The earlier sources must export these C ABIs:
 - kernel 6: ``ragged_prefill_attention_launch(q, k_new, v_new, k_cache,
   v_cache, k_scale, v_scale, sin, cos, slot_of, start_of, qoff_of,
   base_of, out, nqb, H, KH, D, BQ, B, S, layer, form, scale, softcap,
-  window, stream)``, the current one.
+  window, stream)``, the current one;
+- kernel 7: ``quant_matmul_launch(x, xs, w, ws, out, M, N, K, wrows,
+  groups, gs, form, layout, plan, stream)`` of commit 9cc2ef1 (plan 0 up
+  to 160 rows, else 1; W8A8 takes activations its caller quantized, here
+  by the port's ``_quantize_act``, as that commit's wrapper did), with
+  its ``tensor_tile.cuh``:
+
+      for f in quant_matmul.cu tensor_tile.cuh; do
+        git show 9cc2ef1:p2p_llm_tunnel_tpu_torch/csrc/$f > build/kernel_ab_parent/$f
+      done
+      python3 scripts/kernel_ab.py --parent-src build/kernel_ab_parent --kernels 7
+
 They are built with the port's nvcc flags into ``build/kernel_ab/`` (one
 nvcc process each, started together); the current sources through
 ``ops/kernel_build.py``.
@@ -36,7 +48,12 @@ Kernel 1 runs at llama3-8b's head geometry, B 8 and T 128/256/512/1024
 form at B 17 and view 512, and raw also at views 128, 256 and 1024, over
 strided windows of a 1024-position cache; kernel 4 in each KV form at the
 decode positions (B 17, view 512 over a 1024-position cache); kernel 6
-in each KV form on ``chip_smoke.RAGGED_ROWS`` (8 rows, TOT 1024).  Both
+in each KV form on ``chip_smoke.RAGGED_ROWS`` (8 rows, TOT 1024); kernel 7
+in every form at every ``chip_smoke.QUANT_SHAPES`` x ``QUANT_ROWS`` and the
+tied head (int4 group 128), outputs within the tolerance of each other
+and W8A8 bitwise, each timed L2-cold over a stack of weight copies, its
+device time summing every kernel a product launches (the earlier W8A8:
+its kernel alone, without the quantizer's torch launches).  Both
 kernels of a pair run on the same inputs — outputs within
 ``chip_smoke.ATOL``/``RTOL`` of each other, appended caches and scales
 bit-exact (kernel 6 raw: within the tolerance) — then are timed in turns
@@ -78,16 +95,19 @@ PARENT_ABI = {
                            [_PTR] * 11 + [_INT] * 9 + [_F32, _F32, _INT, _PTR]),
     "ragged_prefill_attention": ("ragged_prefill_attention_launch",
                                  [_PTR] * 14 + [_INT] * 9 + [_F32, _F32, _INT, _PTR]),
+    "quant_matmul": ("quant_matmul_launch", [_PTR] * 5 + [_INT] * 9 + [_PTR]),
 }
 #: ``--kernels`` numbers -> library names.
 KERNELS = {"1": "flash_causal_attention", "2": "flash_decode_attention",
-           "4": "fused_decode_layer", "6": "ragged_prefill_attention"}
+           "4": "fused_decode_layer", "6": "ragged_prefill_attention",
+           "7": "quant_matmul"}
 #: The kernels' names as the profiler reports them (earlier, current).
 DEVICE_NAMES = {"flash_causal_attention": ("flash_causal_kernel",) * 2,
                 "flash_decode_attention": ("flash_decode_kernel",) * 2,
                 "fused_decode_layer": ("fused_decode_kernel",
                                        "fused_decode_layer_kernel"),
-                "ragged_prefill_attention": ("ragged_prefill_kernel",) * 2}
+                "ragged_prefill_attention": ("ragged_prefill_kernel",) * 2,
+                "quant_matmul": ("quant_matmul_kernel", cs.K7_KERNELS)}
 #: Kernel 2's views: the serving bucket in every form, the others raw.
 DECODE_VIEWS = {None: (128, 256, 512, 1024), "int8": (512,), "int4": (512,)}
 PREFILL_T = (128, 256, 512, 1024)
@@ -219,7 +239,8 @@ def compare(kname: str, case: dict, old_fn, new_fn, iters: int, card: str) -> di
         row[f"{who}_ms"] = statistics.median(ts)
         row[f"{who}_spread"] = max(ts) - min(ts)
     for who, fn, dev in zip(("earlier", "current"), (old_fn, new_fn),
-                            DEVICE_NAMES[kname.split("_int")[0]]):
+                            DEVICE_NAMES[max((k for k in DEVICE_NAMES if kname == k
+                                              or kname.startswith(k + "_")), key=len)]):
         row[f"{who}_device_ms"] = cs.device_ms(fn, dev)
     row["ratio"] = row["current_ms"] / row["earlier_ms"]
     row["device_ratio"] = row["current_device_ms"] / row["earlier_device_ms"]
@@ -398,11 +419,80 @@ def ragged_ab(fn, h, kh, d, card) -> list:
     return rows
 
 
-#: The A/B of each kernel: its cases at llama3-8b's head geometry.
+def parent_quant(fn, x, q, scale, form, layout, in_dim=None, group_size=None):
+    """One product by the earlier kernel 7 (W8A8: activations quantized by
+    the port's ``_quantize_act`` first, as its wrapper did)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import quant as tq
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
+
+    m, k = x.shape
+    kn = layout == "kn"
+    wrows, n = (q.shape[0], q.shape[1]) if kn else (q.shape[1], q.shape[0])
+    groups = (scale.shape[0] if kn else scale.shape[1]) if form == "int4" else 0
+    xs = None
+    if form == "w8a8":
+        x, xs = tq._quantize_act(x)
+        xs = xs.reshape(m).contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    rc = fn(x.data_ptr(), None if xs is None else xs.data_ptr(), q.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), m, n, k, wrows, groups,
+            group_size or 0, qm._FORM_ID[form], qm._LAYOUT_ID[layout],
+            0 if m <= 160 else 1, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"earlier kernel 7 launch failed: cuda error {rc}")
+    return out
+
+
+def quant_ab(fn, h, kh, d, card) -> list:
+    """Kernel 7, earlier against current, in every form at every main-path
+    shape and row count and the tied head, L2-cold."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
+
+    rows = []
+    cases = [(name, n, k, m, "kn") for name, n, k in cs.QUANT_SHAPES
+             for m in cs.QUANT_ROWS]
+    cases.append((cs.TIED_HEAD[0], cs.TIED_HEAD[1], cs.TIED_HEAD[2], 17, "nk"))
+    for form in cs.QUANT_FORMS:
+        for name, n, k, m, layout in cases:
+            g = torch.Generator(device="cuda").manual_seed(0)
+            wbytes = n * k // (2 if form == "int4" else 1)
+            layers = max(2, -(-int(cs.L2_COLD_BYTES) // wbytes) + 1)
+            q, scale = cs.quant_weights(form, n, k, layers, layout, 128, g)
+            x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+            kw = dict(in_dim=k, group_size=128) if form == "int4" else {}
+            got = qm.quant_matmul(x, q[0], scale[0], form=form, layout=layout, **kw)
+            old = parent_quant(fn, x, q[0], scale[0], form, layout, **kw)
+            torch.cuda.synchronize()
+            rname = f"quant_matmul_{form}"
+            shape = f"{name} N{n} K{k} M{m}" + (" nk" if layout == "nk" else "")
+            if form == "w8a8" and not torch.equal(got, old):
+                raise AssertionError(f"{rname} {shape}: not bitwise equal to the "
+                                     f"earlier kernel ({int(got.ne(old).sum())} differ)")
+            diff = cs.check_close(f"{rname} {shape}", got, old, ref="the earlier kernel")
+            p = qm.launch_plan(m, n, k, form, layout, 128)
+            rows.append(compare(
+                rname, dict(shape=f"{shape} L2-cold{layers}", max_abs_diff=diff,
+                            plan=f"{p['plan']} grid {p['grid']}"),
+                cs.rotating(lambda i: parent_quant(fn, x, q[i], scale[i], form,
+                                                   layout, **kw), layers),
+                cs.rotating(lambda i: qm.quant_matmul(x, q[i], scale[i], form=form,
+                                                      layout=layout, **kw), layers),
+                20, card))
+            del q, scale, x, got, old
+            torch.cuda.empty_cache()
+    return rows
+
+
+#: The A/B of each kernel: its cases at llama3-8b's geometry.
 AB_CASES = {"flash_causal_attention": prefill_ab,
             "flash_decode_attention": slot_decode_ab,
             "fused_decode_layer": decode_ab,
-            "ragged_prefill_attention": ragged_ab}
+            "ragged_prefill_attention": ragged_ab,
+            "quant_matmul": quant_ab}
 
 
 def main() -> int:

@@ -21,10 +21,15 @@ row per slot) and the fused verify layer (kernel 5) share, on the CPU:
   of a group exactly once, for the chip smoke test's serving group and for
   groups planned at the engine's buckets, from a grid computed without the
   descriptors; its shared memory fits at every head dim;
-- kernel 7's launch plan: the 32-row tile for a decode step (17 rows, one
-  tile) and every verify burst, the 64 x 128 tile for prefill, grids that
-  cover every row and column of the llama3-8b projections and head, and
-  shared memory that holds two blocks per SM in every form and layout.
+- kernel 7's launch plan: the decode plan's 32 x 128 tile for a decode
+  step (17 rows, one tile) and every verify burst, the prefill plan's
+  128 x 256 tile above 160 rows; at every llama3-8b projection and the
+  head and at 1-1024 rows, grids and splits that cover M, N and K exactly,
+  splits of whole slabs and whole int4 groups that fill one wave (two
+  blocks an SM at decode), the workspace and counters the plan states, and
+  stages whose weight share is the source note's; shared memory that fits
+  two decode blocks an SM, or one prefill block, in every form, layout and
+  group size.
 """
 
 import pytest
@@ -245,42 +250,118 @@ KERNEL7_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096),
                   "lm_head": (128256, 4096)}
 
 
-@pytest.mark.parametrize("m,plan", [(1, "small"), (17, "small"), (85, "small"),
-                                    (153, "small"), (160, "small"),
-                                    (161, "large"), (1024, "large"),
-                                    (2048, "large")])
+@pytest.mark.parametrize("m,plan", [(1, "decode"), (17, "decode"), (85, "decode"),
+                                    (153, "decode"), (160, "decode"),
+                                    (161, "prefill"), (1024, "prefill"),
+                                    (2048, "prefill")])
 def test_kernel7_plan_picks_the_tile_by_rows(m, plan):
-    """Decode steps (16 slots + the parked row) and verify bursts (17 x T,
-    T <= 9) take the 32-row tile, prefill the 64 x 128 one."""
-    p = qm.launch_plan(m, 4096)
-    assert p["plan"] == plan and (p["bm"], p["bn"]) == qm.PLANS[plan][:2]
+    """Decode steps (16 slots + the parked row) take the 24-row tile (one
+    wgmma N), verify bursts (17 x T, T <= 9) 32-row tiles, prefill the
+    128 x 256 one."""
+    p = qm.launch_plan(m, 4096, 4096)
+    assert p["plan"] == plan and p["bn"] == qm.PLANS[plan][1]
+    assert p["bm"] == (24 if m <= 24 else qm.PLANS[plan][0])
     assert p["grid"][0] * p["bm"] >= m > (p["grid"][0] - 1) * p["bm"]
     if m == 17:
-        assert p["grid"] == (1, 64)  # one M tile: each weight byte read once
+        # One M tile (each weight byte read once), 32 column tiles, and 8
+        # splits of 2 slabs: 256 blocks, one wave of two blocks an SM.
+        assert p["grid"] == (1, 32, 8)
 
 
+KERNEL7_ROWS = [1, 17, 85, 153, 160, 161, 1024]
+#: The decode step's grids (M tiles, column tiles, splits): one wave of
+#: 264 blocks where the column tiles leave room, whole slabs a split.
+M17_GRIDS = {"wq/wo": (1, 32, 8), "wk/wv": (1, 8, 16), "w_gate/w_up": (1, 112, 2),
+             "w_down": (1, 32, 8), "lm_head": (1, 1002, 1)}
+
+
+def _split_slabs(p, k):
+    """Each split's [first, last) slab, as the kernel's split_range."""
+    return [(k0 // p["bk"], -(-k1 // p["bk"])) for k0, k1 in qm.split_ranges(p, k)]
+
+
+@pytest.mark.parametrize("form", qm.FORMS)
+@pytest.mark.parametrize("m", KERNEL7_ROWS)
 @pytest.mark.parametrize("shape", sorted(KERNEL7_SHAPES))
-@pytest.mark.parametrize("m", [17, 85, 1024])
-def test_kernel7_grid_covers_the_main_path_shapes(shape, m):
+def test_kernel7_grid_covers_the_main_path_shapes(shape, m, form):
     n, k = KERNEL7_SHAPES[shape]
-    p = qm.launch_plan(m, n)
-    gm, gn = p["grid"]
-    assert gm * p["bm"] >= m and gn * p["bn"] >= n
-    assert (gn - 1) * p["bn"] < n and gn <= 65535  # grid.y limit
-    assert k % p["bk"] == 0  # no ragged slab at the served widths
+    for layout in ("kn", "nk"):
+        for gs in ((16, 64, 128) if form == "int4" else (128,)):
+            p = qm.launch_plan(m, n, k, form, layout, gs)
+            gm, gn, splits = p["grid"]
+            assert splits == p["splits"] and 1 <= splits <= qm.SPLIT_CAP
+            # Tiles cover M and N exactly once.
+            assert (gm - 1) * p["bm"] < m <= gm * p["bm"]
+            assert (gn - 1) * p["bn"] < n <= gn * p["bn"] and gn <= 65535
+            # Splits tile K in order, without gap or overlap, none empty,
+            # each whole slabs and (int4) whole groups.
+            ranges = qm.split_ranges(p, k)
+            assert ranges[0][0] == 0 and ranges[-1][1] == k
+            assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+            assert all(k1 > k0 for k0, k1 in ranges)
+            for k0, _ in ranges:
+                assert k0 % p["bk"] == 0
+                if form == "int4":
+                    assert k0 % gs == 0
+            assert sum(s1 - s0 for s0, s1 in _split_slabs(p, k)) == p["nslabs"]
+            # Splits fill one wave (two blocks an SM at decode, one at
+            # prefill) and share the units evenly where a divisor allows.
+            units = -(-p["nslabs"] // p["unit_slabs"])
+            wave = qm.SPLIT_TARGET[p["plan"]]
+            if splits > 1:
+                assert gm * gn * splits <= wave and units % splits == 0
+            if gm * gn * splits <= wave // 2 and splits < min(units, qm.SPLIT_CAP):
+                assert units % (2 * splits) or gm * gn * 2 * splits > wave
+            if m == 17 and layout == "kn" and gs == 128:
+                assert (gm, gn, splits) == M17_GRIDS[shape]
+            # The merge's workspace (f32 / int32 partials of the real rows)
+            # and one counter per output tile, only when K is split.
+            assert p["workspace_bytes"] == (splits * m * n * 4 if splits > 1 else 0)
+            assert p["counters"] == (gm * gn if splits > 1 else 0)
+            # Stages: weights, scales and (prefill) the x tile fit the
+            # block budget; decode stages are weight bytes and scale rows
+            # only, 8 KB of weights a slab.
+            st = p["stage"]
+            assert p["smem"] <= kernel_build.MAX_SMEM_BYTES
+            wk = p["bk"] // 2 if form == "int4" else p["bk"]
+            assert st["w_copied"] == wk * p["bn"]
+            if p["plan"] == "prefill":
+                # One 128-byte row of x a slab: wgmma's swizzle span.
+                assert p["bk"] * (1 if form == "w8a8" else 2) == 128
+                assert st["x_bytes"] == p["bm"] * 128 and st["stage_bytes"] % 1024 == 0
+            if p["plan"] == "decode":
+                assert st["w_copied"] == 16384
+                assert st["x_bytes"] == 0 and p["xpiece"] % p["bk"] == 0
+                assert 2 * (p["smem"] + BLOCK_RESERVED) <= SM_BYTES
+                if form == "int4" and gs == 128 and layout == "kn":
+                    # The source note: 94% of a stage's copied bytes are
+                    # weights at group 128 (16384 of 17408).
+                    share = st["w_copied"] / (st["w_copied"] + st["s_copied"])
+                    assert st["s_copied"] == 1024 and round(share, 2) == 0.94
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("form", qm.FORMS)
 @pytest.mark.parametrize("plan", sorted(qm.PLANS))
 def test_kernel7_shared_memory_fits_two_blocks(plan, form, layout):
-    smem = qm.smem_bytes(plan, form, layout)
-    assert 2 * (smem + BLOCK_RESERVED) <= SM_BYTES
-    bm, bn, bk, warps_k, _ = qm.PLANS[plan]
-    # The warps that split k hand their 32 x 64 partial sums (64 values a
-    # lane) to warp 0 through the stage ring.
-    assert (warps_k - 1) * 32 * (bm // 16) * (bn // (4 // warps_k) // 8) * 4 * 4 <= smem
-    assert bk % (32 if form == "w8a8" else 16) == 0
-    if (plan, form, layout) == ("small", "int4", "kn"):
-        # 4 stages of x [32, 272 B], bytes [64, 80 B], scales [8, 64] f32.
-        assert smem == 4 * (32 * 272 + 64 * 80 + 8 * 64 * 4)
+    """Two decode blocks an SM at every row count up to 160; one prefill
+    block; the second warpgroup's sums (4 warps x 2 m-tiles x 16 values x
+    32 lanes) fit the decode ring they are handed through."""
+    for gs in ((16, 48, 64, 128, 256) if form == "int4" else (128,)):
+        for m in ((1, 17, 32, 85, 160) if plan == "decode" else (161, 1024)):
+            p = qm.launch_plan(m, 4096, 4096, form, layout, gs)
+            smem = qm.smem_bytes(p)
+            assert smem == p["smem"]
+            blocks = 2 if plan == "decode" else 1
+            assert blocks * (smem + BLOCK_RESERVED) <= SM_BYTES
+            assert 1 <= p["srows"] <= 16 and 2 <= p["stages"] <= qm.PLANS[plan][2]
+            st = p["stage"]
+            assert st["stage_bytes"] % 1024 == 0 and st["w_row"] % 16 == 0
+            if plan == "decode":
+                ring = p["stages"] * st["stage_bytes"]
+                assert 4 * 2 * 16 * 32 * 4 <= ring
+    if (plan, form, layout) == ("decode", "int4", "kn"):
+        # 128 byte rows of 128 columns as TMA writes them, and two scale
+        # rows of 128 f32 at group 128.
+        st = qm.stage_layout("decode", "int4", "kn", 128)
+        assert (st["w_bytes"], st["s_bytes"], st["stage_bytes"]) == (16384, 1024, 17408)

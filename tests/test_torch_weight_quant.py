@@ -244,6 +244,96 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_counts_no_launch():
     assert (qm.quant_matmul.launches, qm.quant_matmul.form_launches) == before
 
 
+def _emulate_kernel7(x, q, scale, form, layout, in_dim=None, gs=None):
+    """Kernel 7's split schedule on the CPU, from ``launch_plan``: each
+    split's partial over its K range (f32 products of the kernel's bf16
+    operands; w8a8 exact integers), merged in split order, then the form's
+    rounding as csrc/quant_matmul.cu's ``store_out`` applies it."""
+    m, k = x.shape
+    kn = layout == "kn"
+    n = q.shape[1] if kn else q.shape[0]
+    p = qm.launch_plan(m, n, k, form, layout, gs or 128)
+    if form == "w8a8":
+        xq, xs = tq._quantize_act(x)
+        lhs, w = xq.to(torch.int64), (q if kn else q.T).to(torch.int64)
+    elif form == "int4":
+        w = tq._dequant4(tq.QTensor4(q, scale, in_dim, gs, -2 if kn else -1), x.dtype)
+        lhs, w = x.float(), (w if kn else w.T).float()
+    else:
+        lhs, w = x.float(), (q if kn else q.T).float()
+    total = None
+    for k0, k1 in qm.split_ranges(p, k):
+        part = lhs[:, k0:k1] @ w[k0:k1]
+        total = part if total is None else total + part
+    if form == "int8":
+        return (total.bfloat16().float() * scale.bfloat16().float()).bfloat16(), p
+    if form == "int4":
+        return total.bfloat16(), p
+    return (total.float() * xs * scale).bfloat16(), p
+
+
+KERNEL7_CASES = [("int8", "kn", None), ("int8", "nk", None), ("w8a8", "kn", None),
+                 ("w8a8", "nk", None)] + [
+    ("int4", layout, gs) for layout in ("kn", "nk") for gs in (16, 64, 128)]
+
+
+@pytest.mark.parametrize("m", [3, 170])  # the decode plan, the prefill plan
+@pytest.mark.parametrize("form,layout,gs", KERNEL7_CASES)
+def test_kernel7_split_schedule_matches_jax(form, layout, gs, m):
+    """The split-K schedule — f32 / integer partials per split, merged in
+    split order, rounded once — against the JAX ``mm`` (KN) and
+    ``head_matmul`` (NK) on the same seeded inputs: bf16 within one bf16
+    rounding, w8a8 BITWISE (its sums are exact in any order); and against
+    the port's plain version the same way."""
+    k, n = 512, 48
+    w = _w((k, n) if layout == "kn" else (n, k), seed=12)
+    jx, tx = _act((m, k), "bfloat16", seed=13)
+    axis = (-2 if layout == "kn" else -1) if form == "int4" else (0 if layout == "kn" else 1)
+    if form == "int4":
+        jw, tw = jq._quantize4(jnp.asarray(w), axis, gs), tq._quantize4(torch.from_numpy(w), axis, gs)
+    else:
+        jw, tw = jq._quantize(jnp.asarray(w), axis), tq._quantize(torch.from_numpy(w), axis)
+    aq = form == "w8a8"
+    want = jq.mm(jx, jw, aq) if layout == "kn" else jq.head_matmul(jx, jw, aq)
+    got, plan = _emulate_kernel7(tx, tw.q, tw.scale, form, layout,
+                                 in_dim=k if form == "int4" else None, gs=gs)
+    assert plan["splits"] > 1  # the merge is exercised
+    assert plan["plan"] == ("decode" if m <= qm.SMALL_MAX_M else "prefill")
+    kw = dict(in_dim=k, group_size=gs) if form == "int4" else {}
+    plain = qm.plain(tx, tw.q, tw.scale, form=form, layout=layout, **kw)
+    if form == "w8a8":
+        _eq(got.float(), np.asarray(want, np.float32))
+        assert torch.equal(got, plain)
+    else:
+        _close(got, want, "bfloat16")
+        torch.testing.assert_close(got.float(), plain.float(), **BF16_TOL)
+
+
+def test_activation_quantizer_plain_bit_exact_against_jax():
+    """The plain version of W8A8's fused activation quantizer (the port's
+    ``_quantize_act``, which csrc/quant_matmul.cu's row kernel follows)
+    against JAX ``_quantize_act`` run eagerly: int8 values and scales
+    bit-exact on rows with ties at .5 (amax 127, so the scale is exactly
+    1), an all-zero row (scale 1e-8 / 127) and random rows."""
+    k = 64
+    rows = _w((6, k), seed=14) * 3.0
+    ties = np.zeros(k, np.float32)
+    ties[:8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, -126.5]
+    rows[0] = ties
+    rows[1] = 0.0
+    rows[2, :4] = [-127.0, 3.5, -4.5, 100.5]
+    rows[2, 4:] = np.clip(rows[2, 4:], -120, 120)
+    jx = jnp.asarray(rows, jnp.bfloat16)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    jq_, js = jq._quantize_act(jx)
+    tq_, ts = tq._quantize_act(tx)
+    _eq(tq_, jq_)
+    _eq(ts, js)
+    # Ties went to even, and the zero row quantizes to zeros at 1e-8 / 127.
+    assert tq_[0, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, -126]
+    assert tq_[1].abs().sum() == 0 and ts[1, 0] == torch.tensor(1e-8) / 127
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["int8", "w8a8", "int4"])
 def test_kernel7_matches_its_plain_version_on_the_card(form, cuda_device):
