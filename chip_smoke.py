@@ -55,7 +55,27 @@ Phases (any failure exits non-zero before the result line):
    --prefill-act-quant`` (prefill W8A8, decode weight-only); (c) ``--quant
    w8a8`` (4 streams x 16 tokens) and 8a with speculation; (d) llama3-70b
    at full width and depth with ``--quant int4 --kv-quant int8`` (4
-   streams), its weight bytes and peak memory printed.
+   streams), its weight bytes and peak memory printed; (e) tiny-qwen with
+   ``--quant int4`` (its untied head of 259 columns in kernel 7's padded
+   rows), 4 streams;
+9. the slice of embeddings, mixture-of-experts and checkpoints: (a) on
+   phase 5's llama3-8b engine (full width, 32 layers), /v1/embeddings of
+   ``prefill_rows + 1`` inputs of different lengths, each input alone and
+   /api/embed through the tunnel — 4096 dimensions, unit norms, each
+   vector against the input alone and against ``encode_pooled`` with
+   kernel 1's plain version (real rows), kernel 1 once per layer per
+   sub-batch, ms per call; (b) mixtral-8x7b's widths at 8 of 32 layers
+   (random bf16 weights from seed 0): kernel-vs-plain logits as phase 4,
+   the 8 two-turn conversations on the plain loop and on the serve
+   defaults + ``--ragged-prefill``, short streams with ``--kv-quant int4
+   --fused-decode-layer`` and with ``--spec-ngram 3 --spec-k 4``, launches
+   per layer per step checked, tok/s, TTFT p50 and peak memory; (c)
+   llama3-8b's widths at 2 layers: an HF state dict from seed 0 through
+   ``convert_hf("llama")`` and ``save_checkpoint`` under build/, an engine
+   from the serve flags with ``--ckpt`` whose greedy streams through the
+   tunnel are byte-identical to an engine injected with the converted
+   weights; file bytes and load seconds.  Each prints its seconds and peak
+   memory beside the card's name and power limit.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -65,7 +85,9 @@ bitwise equal over two launches on equal inputs; kernel 3 (raw only; no
 serving path calls it) also against kernel 2; kernel 6 also at q-block
 widths 8 and 32; kernel 7 (int8, w8a8, int4) at every llama3-8b
 projection and the head at 17, 85 and 1024 rows, a tied head and group
-64, w8a8 bitwise equal to its plain version (exact int32 sums); phase 4
+64, tiny-qwen's head (N 259) at 1, 17 and 153 rows, a K tail (K 4100) and
+int4 groups 8 and 24, w8a8 bitwise equal to its plain version (exact
+int32 sums); phase 4
 also holds model logits through kernel 7 against its plain version.  Kernel rows report the median of three timing runs and
 their spread; every kernel row and its library call is timed L2-cold (the
 inputs rotate over copies, or the layer over a stacked cache, larger than
@@ -99,6 +121,9 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 MODEL = "llama3-8b"
+#: Where phase 9's weights and engines live: the card (a CPU rehearsal of
+#: the phase's control flow sets "cpu").
+DEVICE = "cuda"
 NUM_SLOTS = 16
 MAX_SEQ = 1024
 N_REQUESTS = 8  # concurrent streams through the tunnel, SSE and NDJSON
@@ -1110,6 +1135,13 @@ QUANT_FORMS = ("int8", "w8a8", "int4")
 #: A tied head: llama3.2-1b's embedding [128256, 2048] (contracts its last
 #: axis, the int4 table packed along it).
 TIED_HEAD = ("tied head llama3.2-1b", 128256, 2048)
+#: Shapes the reference serves that need kernel 7's padded rows, narrow
+#: groups or K tail: tiny-qwen's untied head (rows of 259 bytes, stored
+#: padded) at one stream, a decode step and the widest verify burst; a
+#: contracted length no multiple of 16; int4 groups narrower than a k-step.
+ODD_HEAD = ("tiny-qwen head", 259, 64, (1, 17, 153), 32)
+K_TAIL = ("K tail", 1024, 4100)
+NARROW_GROUPS = (8, 24)
 
 
 def quant_weights(form, n, k, layers, layout, gs, g):
@@ -1176,12 +1208,18 @@ def quant_case(form, name, n, k, m, layout="kn", gs=128, seed=0):
     plain time and library yardstick."""
     import torch
 
+    from p2p_llm_tunnel_tpu_torch.models import quant as tq
     from p2p_llm_tunnel_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     wbytes = n * k // (2 if form == "int4" else 1)
     layers = max(2, -(-int(L2_COLD_BYTES) // wbytes) + 1)
     q, scale = quant_weights(form, n, k, layers, layout, gs, g)
+    # Rows padded to whole 16-byte pieces where they are not, as the
+    # engine lays its tree out (views at the logical shape).
+    lay = tq.kernel_layout(tq.QTensor4(q, scale, k, gs, -2 if layout == "kn" else -1)
+                           if form == "int4" else tq.QTensor(q, scale))
+    q, scale = lay.q, lay.scale
     x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
     kw = dict(in_dim=k, group_size=gs) if form == "int4" else {}
     args = dict(form=form, layout=layout, **kw)
@@ -1225,8 +1263,9 @@ SPLIT_BITWISE: list = []
 
 def quant_phase() -> dict:
     """Kernel 7's rows: every form at every main-path shape and row count,
-    the tied head, and int4 at group size 64; every form bitwise over two
-    launches at a split shape (wk/wv, M 17: 16 splits)."""
+    the tied head, int4 at group size 64, tiny-qwen's head (N 259), a K
+    tail and int4 at groups 8 and 24; every form bitwise over two launches
+    at a split shape (wk/wv, M 17: 16 splits)."""
     rows = {f"quant_matmul_{form}": [] for form in QUANT_FORMS}
     for form in QUANT_FORMS:
         for name, n, k in QUANT_SHAPES:
@@ -1234,8 +1273,17 @@ def quant_phase() -> dict:
                 rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, m))
         name, n, k = TIED_HEAD
         rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, 17, layout="nk"))
+        name, n, k, ms, gs = ODD_HEAD
+        for m in ms:
+            rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, m, gs=gs,
+                                                           seed=2))
+        name, n, k = K_TAIL
+        rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, 17, seed=3))
     rows["quant_matmul_int4"].append(quant_case("int4", "w_gate/w_up", 14336, 4096, 17,
                                                 gs=64, seed=1))
+    for gs in NARROW_GROUPS:
+        rows["quant_matmul_int4"].append(quant_case("int4", "wk/wv", 1024, 4096, 17,
+                                                    gs=gs, seed=4))
     for form in QUANT_FORMS:
         if not any(c.startswith(f"{form} wk/wv M17 ") for c in SPLIT_BITWISE):
             raise AssertionError(f"kernel 7 {form}: wk/wv at M 17 was not split")
@@ -1454,6 +1502,35 @@ def check_quant_launches(engine, launches: dict, calls: dict) -> None:
 # phase 3: the serving path through the tunnel
 # ---------------------------------------------------------------------------
 
+class _Tunnel:
+    """``run_serve`` + ``run_proxy`` over a loopback channel in front of an
+    engine (started by the caller); ``async with`` yields the proxy's base
+    URL."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    async def __aenter__(self):
+        from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
+        from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
+        from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
+        from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
+
+        self.serve_ch, proxy_ch = loopback_pair()
+        ready = asyncio.get_running_loop().create_future()
+        self.tasks = [
+            asyncio.create_task(run_serve(self.serve_ch,
+                                          backend=engine_backend(self.engine, MODEL))),
+            asyncio.create_task(run_proxy(proxy_ch, "127.0.0.1", 0, ready=ready))]
+        return f"http://127.0.0.1:{await asyncio.wait_for(ready, 30.0)}"
+
+    async def __aexit__(self, *exc):
+        for task in self.tasks:
+            task.cancel()
+        self.serve_ch.close()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
 async def _stream(base: str, i: int, max_tokens: int, prompt: str):
     from p2p_llm_tunnel_tpu_torch.endpoints import http11
 
@@ -1509,11 +1586,6 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
     6c); checks every stream finished and each kernel of the engine's path
     launched once per layer per prefill wave, decode step or ragged
     dispatch."""
-    from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
-    from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
-    from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
-    from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
-
     waves, steps, dispatches, spec = [0], [0], [0], [0]
     dispatch_prefill, decode_fn, ragged_rows, dispatch_spec = (
         engine._dispatch_prefill_batch, engine._decode_fn,
@@ -1540,32 +1612,21 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
     engine._dispatch_ragged_rows = counted_ragged
     engine._dispatch_spec = counted_spec
 
-    serve_ch, proxy_ch = loopback_pair()
-    ready = asyncio.get_running_loop().create_future()
-    serve_task = asyncio.create_task(
-        run_serve(serve_ch, backend=engine_backend(engine, MODEL)))
-    proxy_task = asyncio.create_task(
-        run_proxy(proxy_ch, "127.0.0.1", 0, ready=ready))
+    prompts = [
+        (f"Request {i}: summarise the tunnel design. " * (4 + 3 * i))[: 120 + 40 * i]
+        for i in range(n_requests)
+    ]
     try:
-        port = await asyncio.wait_for(ready, 30.0)
-        base = f"http://127.0.0.1:{port}"
-        prompts = [
-            (f"Request {i}: summarise the tunnel design. " * (4 + 3 * i))[: 120 + 40 * i]
-            for i in range(n_requests)
-        ]
-        reset_counters()
-        t0 = time.monotonic()
-        results = await asyncio.gather(*[
-            _stream(base, i, max_tokens, p) for i, p in enumerate(prompts)
-        ])
-        wall = time.monotonic() - t0
-        launches = read_counters()
-        calls = dict(MODEL_CALLS)
+        async with _Tunnel(engine) as base:
+            reset_counters()
+            t0 = time.monotonic()
+            results = await asyncio.gather(*[
+                _stream(base, i, max_tokens, p) for i, p in enumerate(prompts)
+            ])
+            wall = time.monotonic() - t0
+            launches = read_counters()
+            calls = dict(MODEL_CALLS)
     finally:
-        serve_task.cancel()
-        proxy_task.cancel()
-        serve_ch.close()
-        await asyncio.gather(serve_task, proxy_task, return_exceptions=True)
         engine._dispatch_prefill_batch = dispatch_prefill
         engine._decode_fn = decode_fn
         engine._dispatch_ragged_rows = ragged_rows
@@ -1667,11 +1728,13 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
     through the kernel path and through the plain path (every kernel
     wrapper swapped for its plain version, kernel 7's too) on the same
     weights — bf16, or quantized (``act_quant``: W8A8 products) — with a
-    ``quant`` KV cache and the unfused or fused decode layer."""
+    ``quant`` KV cache and the unfused or fused decode layer; on an MoE
+    config the plain path replays the kernel path's routing."""
     import dataclasses
 
     import torch
 
+    from p2p_llm_tunnel_tpu_torch.models import moe
     from p2p_llm_tunnel_tpu_torch.models import transformer as tr
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
     from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
@@ -1702,18 +1765,48 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
     swaps = [(tr, "flash_causal_attention", fa.plain),
              (tr, "flash_decode_attention", da.plain),
              (tr, "fused_decode_layer", fd.plain), (qm, "quant_matmul", qm.plain)]
+    # MoE: the router's top-k is a discrete function of bf16 activations,
+    # so a kernel's rounding can flip a near-tied choice and move a token's
+    # MLP output by a whole expert.  The plain path replays the kernel
+    # path's routing (the router is plain PyTorch on both paths), so the
+    # bound measures the kernels; the unpinned drift and the choices that
+    # differ are returned too, not gated.
+    routes, route = [], moe.route
+
+    def recorded(*a):
+        routes.append(route(*a))
+        return routes[-1]
+
+    def replayed(*a):
+        want = route(*a)
+        got = routes[replayed.calls]
+        replayed.calls += 1
+        replayed.flips += int(((want > 0) != (got > 0)).sum()) // 2
+        return got
+
+    replayed.calls = replayed.flips = 0
     with torch.inference_mode():
-        kernel = run()
+        moe.route = recorded
+        try:
+            kernel = run()
+        finally:
+            moe.route = route
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
         try:
+            unpinned = run() if cfg.n_experts else None
+            moe.route = replayed
             plain = run()
         finally:
+            moe.route = route
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
     if not torch.isfinite(kernel).all():
         raise AssertionError("kernel-path logits are not finite")
+    if replayed.calls != len(routes):
+        raise AssertionError(f"the plain path routed {replayed.calls} times, the "
+                             f"kernel path {len(routes)}")
     diff = (kernel - plain).abs().max().item()
     scale = plain.abs().max().item()
     agree = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
@@ -1725,7 +1818,10 @@ def logits_phase(cfg, params, prompt_len: int = 200, forced: int = 4,
             f"kernel-path logits drift {diff:.4g} > {limit:.4g} from the plain "
             f"path (kv_quant {quant}, fused {fused}, act_quant {act_quant})")
     return dict(max_abs_diff=diff, logit_scale=scale, limit=limit,
-                argmax_agree=agree, rows=forced + 1, quant=quant, fused=fused)
+                argmax_agree=agree, rows=forced + 1, quant=quant, fused=fused,
+                routed=len(routes), flips=replayed.flips,
+                unpinned_diff=None if unpinned is None
+                else (kernel - unpinned).abs().max().item())
 
 
 def spec_logits_phase(cfg, params, prompt_len: int = 200, t: int = SPEC_T) -> dict:
@@ -1832,19 +1928,23 @@ async def _conv_turn(base: str, prompt_ids, max_tokens: int, ndjson: bool):
 
 
 async def mux_phase(engine) -> dict:
-    """8 two-turn conversations through the tunnel on a mux engine (phases
-    5 and 6); the kernel checks follow the engine's KV form, decode kernel
-    and ragged switch."""
-    from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
-    from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
-    from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
-    from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
+    """8 two-turn conversations through the tunnel on a serving engine
+    (phases 5-9); the kernel checks follow the engine's KV form, decode
+    kernel and ragged switch, kernel 1 once per layer per whole-prompt
+    wave; on an engine with the prefix pool (the serve defaults) its
+    counters rose and each second turn hit its first turn's answer."""
     from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
 
-    dispatches, steps, spec, hist_of = [0], [0], [0], {}
-    ragged_rows, decode_fn, match, dispatch_spec = (
-        engine._dispatch_ragged_rows, engine._decode_fn, engine._prefix.match,
-        engine._dispatch_spec)
+    waves, dispatches, steps, spec, hist_of = [0], [0], [0], [0], {}
+    prefill, ragged_rows, decode_fn, dispatch_spec = (
+        engine._dispatch_prefill_batch, engine._dispatch_ragged_rows,
+        engine._decode_fn, engine._dispatch_spec)
+    pool = engine._prefix
+    match = pool.match if pool is not None else None
+
+    def counted_prefill(*a, **kw):
+        waves[0] += 1
+        return prefill(*a, **kw)
 
     def counted_ragged(rows):
         dispatches[0] += 1
@@ -1864,9 +1964,11 @@ async def mux_phase(engine) -> dict:
         spec[0] += 1
         return dispatch_spec(**kw)
 
+    engine._dispatch_prefill_batch = counted_prefill
     engine._dispatch_ragged_rows = counted_ragged
     engine._decode_fn = counted_decode
-    engine._prefix.match = recorded_match
+    if pool is not None:
+        pool.match = recorded_match
     engine._dispatch_spec = counted_spec
     counters = ("engine_prefix_hit_tokens_total",
                 "engine_prefix_dedup_hits_total",
@@ -1877,60 +1979,58 @@ async def mux_phase(engine) -> dict:
     firsts = [system + list(f"Turn one of conversation {i}: how does the "
                             f"tunnel carry request {i}? ".encode() * (1 + i % 2))
               for i in range(N_CONV)]
-    serve_ch, proxy_ch = loopback_pair()
-    ready = asyncio.get_running_loop().create_future()
-    serve_task = asyncio.create_task(
-        run_serve(serve_ch, backend=engine_backend(engine, MODEL)))
-    proxy_task = asyncio.create_task(
-        run_proxy(proxy_ch, "127.0.0.1", 0, ready=ready))
     try:
-        base = f"http://127.0.0.1:{await asyncio.wait_for(ready, 30.0)}"
-        before = {c: global_metrics.counter(c) for c in counters}
-        reset_counters()
-        t0 = time.monotonic()
-        one = await asyncio.gather(*[
-            _conv_turn(base, p, TURN1_TOKENS, ndjson=i % 2 == 1)
-            for i, p in enumerate(firsts)])
-        seconds = [p + r["ids"] + list(b" And what happens next?")
-                   for p, r in zip(firsts, one)]
-        two = await asyncio.gather(*[
-            _conv_turn(base, p, TURN2_TOKENS, ndjson=False) for p in seconds])
-        wall = time.monotonic() - t0
-        launches = read_counters()
-        calls = dict(MODEL_CALLS)
-        deltas = {c: global_metrics.counter(c) - before[c] for c in counters}
+        async with _Tunnel(engine) as base:
+            before = {c: global_metrics.counter(c) for c in counters}
+            reset_counters()
+            t0 = time.monotonic()
+            one = await asyncio.gather(*[
+                _conv_turn(base, p, TURN1_TOKENS, ndjson=i % 2 == 1)
+                for i, p in enumerate(firsts)])
+            seconds = [p + r["ids"] + list(b" And what happens next?")
+                       for p, r in zip(firsts, one)]
+            two = await asyncio.gather(*[
+                _conv_turn(base, p, TURN2_TOKENS, ndjson=False) for p in seconds])
+            wall = time.monotonic() - t0
+            launches = read_counters()
+            calls = dict(MODEL_CALLS)
+            deltas = {c: global_metrics.counter(c) - before[c] for c in counters}
     finally:
-        serve_task.cancel()
-        proxy_task.cancel()
-        serve_ch.close()
-        await asyncio.gather(serve_task, proxy_task, return_exceptions=True)
+        engine._dispatch_prefill_batch = prefill
         engine._dispatch_ragged_rows = ragged_rows
         engine._decode_fn = decode_fn
-        engine._prefix.match = match
+        if pool is not None:
+            pool.match = match
         engine._dispatch_spec = dispatch_spec
     for r, want in zip(one + two, [TURN1_TOKENS] * N_CONV + [TURN2_TOKENS] * N_CONV):
         if len(r["ids"]) != want or r["finish"] != "length":
             raise AssertionError(f"conversation stream ended early: {r}")
-    for name in counters[:3]:
-        if deltas[name] <= 0:
-            raise AssertionError(f"{name} did not rise: {deltas}")
     sys_pages = len(system) // 16 * 16
-    for i, (p1, p2) in enumerate(zip(firsts, seconds)):
-        hist = hist_of.get(tuple(p2), 0)
-        # Past the system prompt AND past turn 1's prompt pages: into the
-        # answer's conversation-cache pages.
-        if hist <= sys_pages or hist < len(p1) // 16 * 16 + 16:
-            raise AssertionError(
-                f"conversation {i}: turn-2 hit {hist} tokens does not reach "
-                f"past the system prompt ({sys_pages}) into turn 1's answer "
-                f"(turn 1 prompt {len(p1)} tokens)")
+    if pool is not None:
+        for name in counters[:3]:
+            if deltas[name] <= 0:
+                raise AssertionError(f"{name} did not rise: {deltas}")
+        for i, (p1, p2) in enumerate(zip(firsts, seconds)):
+            hist = hist_of.get(tuple(p2), 0)
+            # Past the system prompt AND past turn 1's prompt pages: into
+            # the answer's conversation-cache pages.
+            if hist <= sys_pages or hist < len(p1) // 16 * 16 + 16:
+                raise AssertionError(
+                    f"conversation {i}: turn-2 hit {hist} tokens does not reach "
+                    f"past the system prompt ({sys_pages}) into turn 1's answer "
+                    f"(turn 1 prompt {len(p1)} tokens)")
+        if engine._page_reserved or pool.reserved_pages:
+            raise AssertionError("pool pages still reserved after every stream ended")
+    if (engine.device.type == "cuda"
+            and launches["flash_causal_attention"] != engine.mcfg.n_layers * waves[0]):
+        raise AssertionError(
+            f"prefill kernel launches {launches['flash_causal_attention']} != "
+            f"{engine.mcfg.n_layers} x {waves[0]} prefill waves")
     check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
                           calls)
-    if engine._page_reserved or engine._prefix.reserved_pages:
-        raise AssertionError("pool pages still reserved after every stream ended")
     ttfts = [r["ttft"] for r in one + two]
     return dict(one=one, two=two, wall=wall, launches=launches, calls=calls,
-                dispatches=dispatches[0], steps=steps[0], spec=spec[0],
+                waves=waves[0], dispatches=dispatches[0], steps=steps[0], spec=spec[0],
                 deltas=deltas,
                 hists=[hist_of.get(tuple(p), 0) for p in seconds],
                 sys_pages=sys_pages,
@@ -2032,10 +2132,12 @@ def k7_call_ms(engine, steps: int = 4) -> dict:
     return out
 
 
-def cli_engine(params, cfg, *flags, model: str = MODEL):
+def cli_engine(params, cfg, *flags, model: str = MODEL, depth_cut: bool = False):
     """The engine ``tunnel-gpu serve --backend gpu`` builds from ``flags``
     (16 slots, 1024 positions), on the given weights (None: the engine's
-    own random init from seed 0 — directly quantized under ``--quant``)."""
+    own random init from seed 0 — directly quantized under ``--quant`` —
+    or the ``--ckpt`` file); ``depth_cut`` serves ``cfg`` itself, the
+    preset at fewer layers."""
     from p2p_llm_tunnel_tpu_torch import cli
     from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
     from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
@@ -2043,8 +2145,10 @@ def cli_engine(params, cfg, *flags, model: str = MODEL):
     ecfg = cli._engine_config(cli.build_parser().parse_args([
         "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", model,
         "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ), *flags]))
-    engine = InferenceEngine(engine_cfg=ecfg, params=params,
-                             tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size))
+    engine = InferenceEngine(model_cfg=cfg if depth_cut else None, engine_cfg=ecfg,
+                             params=params,
+                             tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size),
+                             device=DEVICE)
     if engine.config_fences:
         raise AssertionError(f"engine {flags} fenced: {engine.config_fences}")
     return engine
@@ -2140,6 +2244,325 @@ def print_mux(tag: str, engine, mux: dict, t_ready: float, name: str) -> None:
             print(f"{tag} profile: kernel 7 device {mux['k7_ms_per_step']:.4f} ms per "
                   f"{what} against the weight-stream bound "
                   f"{stream_bound_ms(engine):.4f} ms ({name})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: embeddings, mixture-of-experts, checkpoints
+# ---------------------------------------------------------------------------
+
+#: Tolerance of a pooled embedding against another of the same input (the
+#: input alone, or kernel 1's plain version): unit vectors of bf16
+#: activations through 32 layers, compared by cosine similarity.
+EMBED_MIN_COS = 0.999
+#: Phase 9b: mixtral-8x7b's widths at 8 of its 32 layers (8 x 2.9 GB of
+#: bf16 experts and attention, + 0.5 GB embedding and head: 23.5 GB; 32
+#: layers, ~93 GB, do not fit one 80 GB card in either package's forms).
+MOE_MODEL, MOE_LAYERS = "mixtral-8x7b", 8
+#: Phase 9c: llama3-8b's widths at 2 of its 32 layers (a 3 GB file).
+CKPT_LAYERS = 2
+CKPT_DIR = "build/chip_smoke_ckpt"
+
+
+async def _post_json(base: str, path: str, payload: dict):
+    from p2p_llm_tunnel_tpu_torch.endpoints import http11
+
+    t0 = time.monotonic()
+    resp = await http11.http_request(
+        "POST", base + path, {"content-type": "application/json"},
+        json.dumps(payload).encode(), timeout=600.0)
+    body = await resp.read_all()
+    if resp.status != 200:
+        raise AssertionError(f"{path} answered {resp.status}: {body[:200]!r}")
+    return json.loads(body), (time.monotonic() - t0) * 1e3
+
+
+def _cos(a, b) -> float:
+    import numpy as np
+
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+async def embed_phase(engine) -> dict:
+    """[9a] Embeddings through the tunnel on a serving engine: one
+    /v1/embeddings request of ``prefill_rows + 1`` inputs of different
+    lengths (two sub-batches), each input again alone, and /api/embed;
+    checks the width, unit norms, each vector against the input embedded
+    alone and /api/embed against /v1/embeddings (cosine >=
+    ``EMBED_MIN_COS``), kernel 1 once per layer per sub-batch, and the
+    first sub-batch's vectors against ``encode_pooled`` with kernel 1's
+    plain version on the card (real rows only: a pad row sees no key)."""
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    rows = engine.ecfg.prefill_rows
+    texts = [(f"Embedding input {i}: the tunnel carries each request across. "
+              * (1 + i))[: 24 + 90 * i] for i in range(rows + 1)]
+    encode, batches = engine._encode, []
+
+    def recorded(tokens, valid):
+        batches.append((tokens, valid))
+        return encode(tokens, valid)
+
+    engine._encode = recorded
+    try:
+        async with _Tunnel(engine) as base:
+            reset_counters()
+            obj, batch_ms = await _post_json(base, "/v1/embeddings", {"input": texts})
+            n_batch = len(batches)
+            launches = read_counters()
+            vecs = np.array([d["embedding"] for d in obj["data"]], np.float64)
+            singles, single_ms = [], []
+            for t in texts:
+                one, ms = await _post_json(base, "/v1/embeddings", {"input": t})
+                singles.append(one["data"][0]["embedding"])
+                single_ms.append(ms)
+            ollama, ollama_ms = await _post_json(base, "/api/embed", {"input": texts[:2]})
+    finally:
+        engine._encode = encode
+    dim = engine.mcfg.dim
+    if vecs.shape != (rows + 1, dim) or n_batch != 2:
+        raise AssertionError(f"[9a] {vecs.shape} vectors from {n_batch} sub-batches")
+    norms = np.linalg.norm(vecs, axis=-1)
+    if np.abs(norms - 1).max() > 1e-3:
+        raise AssertionError(f"[9a] norms {norms}")
+    alone = min(_cos(v, s) for v, s in zip(vecs, singles))
+    via_ollama = min(_cos(v, s) for v, s in zip(vecs, ollama["embeddings"]))
+    if min(alone, via_ollama) < EMBED_MIN_COS:
+        raise AssertionError(f"[9a] cosine to the input alone {alone}, /api/embed "
+                             f"{via_ollama} < {EMBED_MIN_COS}")
+    if (engine.device.type == "cuda"
+            and launches["flash_causal_attention"] != engine.mcfg.n_layers * n_batch):
+        raise AssertionError(f"[9a] kernel 1 launches {launches['flash_causal_attention']}"
+                             f" != {engine.mcfg.n_layers} x {n_batch} sub-batches")
+    # The first sub-batch again, kernel 1 against its plain version.
+    tokens, valid = batches[0]
+    t = torch.from_numpy(tokens).to(engine.device)
+    v = torch.from_numpy(valid).to(engine.device)
+    real = valid.any(axis=1)
+    with torch.inference_mode():
+        kernel = tr.encode_pooled(engine.mcfg, engine.params, t, v).cpu().numpy()
+        saved = tr.flash_causal_attention
+        tr.flash_causal_attention = fa.plain
+        try:
+            plain = tr.encode_pooled(engine.mcfg, engine.params, t, v).cpu().numpy()
+        finally:
+            tr.flash_causal_attention = saved
+    vs_plain = min(_cos(a, b) for a, b in zip(kernel[real], plain[real]))
+    if vs_plain < EMBED_MIN_COS:
+        raise AssertionError(f"[9a] kernel vs plain cosine {vs_plain} < {EMBED_MIN_COS}")
+    return dict(inputs=len(texts), dim=dim, layers=engine.mcfg.n_layers,
+                widths=[b[0].shape for b in batches[:2]],
+                batch_ms=batch_ms, single_ms=statistics.median(single_ms),
+                ollama_ms=ollama_ms, alone_cos=alone, ollama_cos=via_ollama,
+                plain_cos=vs_plain, plain_max_abs=float(np.abs(kernel[real] -
+                                                               plain[real]).max()),
+                launches=launches, seconds=time.monotonic() - t_start,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+async def mux_embed_phase(engine) -> dict:
+    """Phase 5's conversations, then [9a] on the same engine."""
+    out = await mux_phase(engine)
+    out["embed"] = await embed_phase(engine)
+    return out
+
+
+def print_embed(em: dict, name: str) -> None:
+    print(f"[9a] {MODEL} ({em['dim']} dims, {em['layers']} layers) on phase 5's engine: "
+          f"/v1/embeddings of {em['inputs']} inputs in {em['widths'][0][0]}-row "
+          f"sub-batches of widths {[w[1] for w in em['widths']]}: {em['batch_ms']:.1f} ms; "
+          f"one input alone {em['single_ms']:.1f} ms (median); /api/embed of 2 "
+          f"{em['ollama_ms']:.1f} ms ({name}; client side through the tunnel)")
+    print(f"[9a] unit norms; min cosine to the input alone {em['alone_cos']:.6f}, "
+          f"/api/embed to /v1/embeddings {em['ollama_cos']:.6f}, kernel 1 to its "
+          f"plain version {em['plain_cos']:.6f} (max |diff| {em['plain_max_abs']:.3e}; "
+          f"real rows; tolerance cosine >= {EMBED_MIN_COS}); phase {em['seconds']:.1f} s, "
+          f"peak memory {em['peak_gb']:.3f} GB ({name})")
+
+
+def moe_phase(name: str, add_launches) -> None:
+    """[9b] mixtral-8x7b's widths at MOE_LAYERS layers: random bf16 weights
+    from seed 0 on the card; kernel-vs-plain logits (raw cache with kernel
+    2, int4 cache with kernel 4); the 8 two-turn conversations on the plain
+    loop and on the serve defaults + --ragged-prefill; short streams with
+    --kv-quant int4 --fused-decode-layer and with speculation."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.quant import weight_bytes
+
+    full = get_config(MOE_MODEL)
+    cfg = get_config(MOE_MODEL, n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = tr.init_params(cfg, 0, torch.bfloat16, DEVICE)
+    torch.cuda.synchronize()
+    print(f"[9b] {MOE_MODEL} widths (dim {cfg.dim}, ffn {cfg.ffn_dim}, "
+          f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}); "
+          f"reduced: depth {MOE_LAYERS} of {full.n_layers} layers; weights "
+          f"{weight_bytes(params) / 1e9:.3f} GB bf16 from seed 0 in "
+          f"{time.monotonic() - t0:.1f} s")
+    for quant, fused in ((None, False), ("int4", True)):
+        lg = logits_phase(cfg, params, quant=quant, fused=fused)
+        print(f"[9b] logits, kv_quant {quant}, fused decode layer {fused}: prefill + "
+              f"{lg['rows'] - 1} teacher-forced decode steps, the plain path on the "
+              f"kernel path's routing: max |kernel - plain| {lg['max_abs_diff']:.4g} "
+              f"(limit {lg['limit']:.4g} = 5% of max |logit| {lg['logit_scale']:.4g}), "
+              f"argmax agreement {lg['argmax_agree']:.2f}; unpinned (printed, not "
+              f"gated): {lg['flips']} of the top-{cfg.n_experts_per_tok} choices differ "
+              f"over {lg['routed']} router calls, max |diff| {lg['unpinned_diff']:.4g}")
+    tok = NumericTokenizer(vocab_size=cfg.vocab_size)
+    plain = InferenceEngine(model_cfg=cfg, engine_cfg=EngineConfig(
+        model=MOE_MODEL, num_slots=NUM_SLOTS, max_seq=MAX_SEQ, dtype="bfloat16"),
+        params=params, tokenizer=tok, device=DEVICE)
+    t_ready, served = run_engine(plain, mux_phase)
+    add_launches(served["launches"])
+    print(f"[9b] plain loop: ready in {t_ready:.1f} s; {N_CONV} conversations x 2 "
+          f"turns ({TURN1_TOKENS} + {TURN2_TOKENS} tokens), {served['waves']} prefill "
+          f"waves, {served['steps']} decode steps; {served['tok_s']:.1f} tok/s, TTFT "
+          f"p50 {served['ttft_p50_ms']:.1f} ms ({name}); launch counts "
+          f"{ {k: v for k, v in served['launches'].items() if v} }")
+    free_engine(plain)
+    del plain
+    mux = cli_engine(params, cfg, "--ragged-prefill", model=MOE_MODEL, depth_cut=True)
+    t_ready, m = run_engine(mux, mux_phase)
+    add_launches(m["launches"])
+    print(f"[9b] serve defaults + --ragged-prefill: ready in {t_ready:.1f} s; "
+          f"{N_CONV} conversations x 2 turns ({TURN1_TOKENS} + {TURN2_TOKENS} tokens); "
+          f"{m['tok_s']:.1f} tok/s, TTFT p50 {m['ttft_p50_ms']:.1f} ms (turn 2 p50 "
+          f"{m['turn2_ttft_p50_ms']:.1f} ms; {name}); ragged dispatches "
+          f"{m['dispatches']}, decode steps {m['steps']}, counters {m['deltas']}")
+    free_engine(mux)
+    del mux
+    for flags in (("--kv-quant", "int4", "--fused-decode-layer"),
+                  ("--spec-ngram", "3", "--spec-k", "4")):
+        e = cli_engine(params, cfg, *flags, model=MOE_MODEL, depth_cut=True)
+        t_ready, short = run_engine(e, lambda e: serve_phase(e, 4, 16))
+        if "--spec-ngram" in flags and short["spec"] <= 0:
+            raise AssertionError("[9b] no verify burst ran")
+        add_launches(short["launches"])
+        print(f"[9b] {' '.join(flags)}: ready in {t_ready:.1f} s; 4 streams x 16 "
+              f"tokens, {short['steps']} decode steps, {short['spec']} verify bursts; "
+              f"{short['tok_s']:.1f} tok/s, TTFT p50 {short['ttft_p50_ms']:.1f} ms "
+              f"({name}); launch counts "
+              f"{ {k: v for k, v in short['launches'].items() if v} }")
+        free_engine(e)
+        del e
+    print(f"[9b] peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({name})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def hf_state_on_card(cfg, seed: int = 0) -> dict:
+    """An HF llama state dict (scripts/make_synth_hf_ckpt.py's key layout and
+    ``[out, in]`` orientation) of bf16 normals x 0.02 from ``seed``, drawn
+    on the card."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE, dtype=torch.bfloat16) * 0.02
+
+    def ones():
+        return torch.ones(cfg.dim, device=DEVICE, dtype=torch.bfloat16)
+
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    state = {"model.embed_tokens.weight": w(cfg.vocab_size, cfg.dim),
+             "model.norm.weight": ones(), "lm_head.weight": w(cfg.vocab_size, cfg.dim)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        state.update({
+            p + "input_layernorm.weight": ones(),
+            p + "post_attention_layernorm.weight": ones(),
+            p + "self_attn.q_proj.weight": w(q, cfg.dim),
+            p + "self_attn.k_proj.weight": w(kv, cfg.dim),
+            p + "self_attn.v_proj.weight": w(kv, cfg.dim),
+            p + "self_attn.o_proj.weight": w(cfg.dim, q),
+            p + "mlp.gate_proj.weight": w(cfg.ffn_dim, cfg.dim),
+            p + "mlp.up_proj.weight": w(cfg.ffn_dim, cfg.dim),
+            p + "mlp.down_proj.weight": w(cfg.dim, cfg.ffn_dim)})
+    return state
+
+
+async def greedy_ids(engine, prompts, max_tokens: int) -> list:
+    """Greedy streams through the tunnel, one request at a time (so every
+    batch the engine runs is the same from one engine to the next)."""
+    await engine.start()
+    try:
+        await engine.warmup()
+        async with _Tunnel(engine) as base:
+            return [(await _conv_turn(base, p, max_tokens, ndjson=i % 2 == 1))["ids"]
+                    for i, p in enumerate(prompts)]
+    finally:
+        await engine.stop()
+
+
+def ckpt_phase(name: str, add_launches) -> None:
+    """[9c] llama3-8b's widths at CKPT_LAYERS layers: an HF state dict from
+    seed 0 -> ``convert_hf("llama")`` -> ``save_checkpoint`` under build/
+    -> an engine built from the serve flags with ``--ckpt``; its greedy
+    streams through the tunnel byte-identical to an engine injected with
+    the converted weights (same kernels, same order, one card)."""
+    import os
+    import shutil
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import checkpoint as ck
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    full = get_config(MODEL)
+    cfg = get_config(MODEL, n_layers=CKPT_LAYERS)
+    t0 = time.monotonic()
+    state = hf_state_on_card(cfg)
+    params = ck.convert_hf("llama", state, cfg, torch.bfloat16, device=DEVICE)
+    del state
+    torch.cuda.synchronize()
+    t_conv = time.monotonic() - t0
+    t0 = time.monotonic()
+    ck.save_checkpoint(CKPT_DIR, params)
+    t_save = time.monotonic() - t0
+    nbytes = os.path.getsize(os.path.join(CKPT_DIR, ck.CKPT_FILE))
+    prompts = [list(f"Checkpoint stream {i}: what did the tunnel load? ".encode())
+               * (1 + i) for i in range(4)]
+    try:
+        t0 = time.monotonic()
+        loaded = cli_engine(None, cfg, "--ckpt", CKPT_DIR, depth_cut=True)
+        t_load = time.monotonic() - t0
+        for key, got in loaded.params["blocks"].items():
+            if not torch.equal(got, params["blocks"][key]):
+                raise AssertionError(f"[9c] loaded leaf blocks/{key} differs")
+        reset_counters()
+        got = asyncio.run(greedy_ids(loaded, prompts, 16))
+        add_launches(read_counters())
+        free_engine(loaded)
+        del loaded
+        injected = cli_engine(params, cfg, depth_cut=True)
+        want = asyncio.run(greedy_ids(injected, prompts, 16))
+        free_engine(injected)
+        del injected
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if got != want or any(len(ids) != 16 for ids in got):
+        raise AssertionError(f"[9c] --ckpt streams {got} != injected {want}")
+    print(f"[9c] {MODEL} widths; reduced: depth {CKPT_LAYERS} of {full.n_layers} "
+          f"layers; HF state from seed 0 converted in {t_conv:.1f} s; "
+          f"save_checkpoint {nbytes} bytes in {t_save:.1f} s; engine from the serve "
+          f"flags with --ckpt built (load + init) in {t_load:.1f} s ({name}); "
+          f"4 greedy streams x 16 tokens through the tunnel byte-identical to the "
+          f"injected engine's")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2287,9 +2710,12 @@ def main() -> int:
     free_engine(engine)
     del engine
     mux_engine = cli_engine(params, cfg, "--ragged-prefill")
-    t_ready, mux = run_engine(mux_engine, mux_phase, args.profile)
+    t_ready, mux = run_engine(mux_engine, mux_embed_phase, args.profile)
     print_mux("[mux]", mux_engine, mux, t_ready, name)
     add_launches(mux["launches"])
+    # [9a] embeddings through the tunnel on the same engine.
+    print_embed(mux["embed"], name)
+    add_launches(mux["embed"]["launches"])
     free_engine(mux_engine)
     del mux_engine
 
@@ -2473,6 +2899,30 @@ def main() -> int:
     add_launches(short["launches"])
     free_engine(e8d)
     del e8d
+    # 8e: tiny-qwen --quant int4: its untied head of 259 columns through
+    # kernel 7's padded rows.
+    cfg_tq = get_config("tiny-qwen")
+    e8e = cli_engine(None, cfg_tq, "--quant", "int4", model="tiny-qwen")
+    head = e8e.params["lm_head"]
+    t_ready, short = run_engine(e8e, lambda e: serve_phase(e, 4, 16))
+    print(f"[8e] tiny-qwen --quant int4 g128 (head {tuple(head.q.shape)} bytes in rows "
+          f"of {head.q.stride(0)}): ready in {t_ready:.1f} s; 4 streams x 16 tokens "
+          f"finished through the tunnel, {short['steps']} decode steps ({name})")
+    print_quant_launches("[8e]", short, e8e)
+    add_launches(short["launches"])
+    free_engine(e8e)
+    del e8e
+
+    # Phase 9b: mixture-of-experts at mixtral-8x7b's widths (depth cut).
+    t0 = time.monotonic()
+    moe_phase(name, add_launches)
+    print(f"[9b] phase {time.monotonic() - t0:.1f} s ({name})")
+    # Phase 9c: HF conversion -> save_checkpoint -> --ckpt (depth cut).
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_phase(name, add_launches)
+    print(f"[9c] phase {time.monotonic() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({name})")
 
     source = {
         "flash_causal_attention": (

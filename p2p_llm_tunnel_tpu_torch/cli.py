@@ -191,11 +191,16 @@ def build_parser() -> argparse.ArgumentParser:
                             "weights per byte with per-group scales, halving "
                             "it again (all through the dequant-fused matmul "
                             "kernel)")
+    serve.add_argument("--ckpt", default=_env("TUNNEL_CKPT"),
+                       help="checkpoint directory written by this package's "
+                            "models.checkpoint.save_checkpoint (convert an HF "
+                            "export with convert_hf first); unlike the JAX "
+                            "package's --ckpt it reads no orbax directory "
+                            "(default: random init)")
     serve.add_argument("--quant-group-size", type=int,
                        default=int(_env("TUNNEL_QUANT_GROUP_SIZE", "128")),
                        help="int4 scale group size (contracted positions "
-                            "per f32 scale; must be even, and a multiple of "
-                            "16 on the card)")
+                            "per f32 scale; must be even)")
     serve.add_argument("--prefill-act-quant",
                        action=argparse.BooleanOptionalAction,
                        default=_env("TUNNEL_PREFILL_ACT_QUANT", "") == "1",
@@ -262,7 +267,6 @@ _UNPORTED_FLAGS = {
     "--prefix-cache-dir": dict(default=None),
     "--spill-pages": dict(type=int, default=0),
     "--role": dict(default="both"),
-    "--ckpt": dict(default=None),
     "--tp": dict(type=int, default=1),
     "--sp": dict(type=int, default=1),
     "--ep": dict(type=int, default=1),

@@ -27,6 +27,14 @@
 // in the low nibble and 2i+1 in the high) with scales [N] / [G, N] — the
 // block projections and an untied lm_head; NK, W [N, K] or [N, Kp/2] with
 // scales [N] / [N, G] — a tied head over the [V, dm] embedding.
+// Any shape the reference serves: weight rows (and int4 KN scale rows) are
+// stored padded to whole 16-byte pieces (models/quant.kernel_layout; the
+// tensor maps keep the logical N, so TMA zero-fills past it and the
+// epilogue stores only columns below N); a contracted length that is no
+// multiple of 16 is zero-padded in x by the wrapper, and TMA zero-fills the
+// weights' rows past it; an int4 group may be any even size — the scale
+// is looked up per packed byte row (its two k share a group), one lookup a
+// 16-deep k-step where the group size is a multiple of 16.
 //
 // Bound on the card (published peaks of an H100 SXM at its 700 W limit:
 // 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8): the packed weight bytes
@@ -154,7 +162,14 @@ struct Args {
   int M, N, K;         // K: contracted length (x's width)
   int wrows;           // contracted bytes of a weight row/column: K or Kp/2
   int groups, gs;      // int4 scale groups, group size
-  unsigned gmagic;     // ceil(2^32 / (gs / 16)): k-step -> group by umulhi
+  unsigned gmagic;     // ceil(2^32 / (gs / 2)): byte row -> group by umulhi
+  int gfine;           // int4 groups narrower than a 16-deep k-step (gs % 16):
+                       // selects the kernels' FINE instances
+  // Row strides: x (elements; 16-byte multiples, zero past K), weight rows
+  // (bytes; KN rows past N, NK rows past wrows rounded to 16, are padding),
+  // int4 scale rows (elements), and the merge workspace's rows (N rounded
+  // to 4, so a partial row is whole 16-byte pieces).
+  int ldx, ldw, lds, ldp;
   int splits, unit_slabs;
   int xpiece;          // decode: k columns of one activation piece
   int srows;           // int4: scale rows a stage holds
@@ -299,9 +314,10 @@ __device__ __forceinline__ uint32_t i4x2_bf16(uint32_t b, float s) {
                                 __fmul_rn(nib_f32(b >> 4), s));
 }
 
-// The group of absolute k-step j (16 k each): j / (gs / 16) by one
-// multiply-high with gmagic = ceil(2^32 / (gs / 16)), exact for j * (gs /
-// 16) < 2^32; gmagic 0 stands for gs 16 (a group per k-step).
+// The group of packed byte row j (k = 2j and 2j + 1; the group size is
+// even, so both lie in one group): j / (gs / 2) by one multiply-high with
+// gmagic = ceil(2^32 / (gs / 2)), exact for j * (gs / 2) <= 2^32 (the
+// wrapper's shape_fence); gmagic 0 stands for gs 2 (a group per byte row).
 __device__ __forceinline__ int group_of(int j, unsigned gmagic) {
   return gmagic ? static_cast<int>(__umulhi(static_cast<unsigned>(j), gmagic)) : j;
 }
@@ -350,12 +366,8 @@ __device__ __forceinline__ void load_weights(const Args& a, uint8_t* st,
   const int cols = min(G::BN, a.N - n0);
   uint8_t* wdst = st + G::X_BYTES;
   float* sdst = reinterpret_cast<float*>(wdst + G::W_BYTES);
-  int g0 = 0, g1 = -1;
-  if constexpr (FORM == INT4) {
-    const int j0 = slab * (G::BK / 16);
-    g0 = group_of(j0, a.gmagic);
-    g1 = min(group_of(j0 + G::BK / 16 - 1, a.gmagic), a.groups - 1);
-  }
+  int g0 = 0;
+  if constexpr (FORM == INT4) g0 = group_of(kb0, a.gmagic);
   if constexpr (LAYOUT == KN) {
     // Two TMA copies: the slab's bytes and (int4) its scale rows.
     if (lane == 0) {
@@ -368,15 +380,21 @@ __device__ __forceinline__ void load_weights(const Args& a, uint8_t* st,
     (void)kbytes;
     (void)cols;
   } else {
+    // Whole 16-byte pieces: a row's last piece reads into its padding
+    // (k past K meets zero activations).
     copy_tile<G::BN, G::WK / 16>(wdst, G::W_ROW,
-                              a.w + static_cast<long long>(n0) * a.wrows + kb0,
-                              a.wrows, cols, kbytes / 16, lane);
+                              a.w + static_cast<long long>(n0) * a.ldw + kb0,
+                              a.ldw, cols, (kbytes + 15) / 16, lane);
     if constexpr (FORM == INT4) {
-      for (int g = g0; g <= g1; ++g)
+      // Every staged scale row, those past the last group repeating it: a
+      // k-step past K reads a finite scale (zero activations; stale shared
+      // memory could hold a NaN).
+      for (int r = 0; r < a.srows; ++r) {
+        const int g = min(g0 + r, a.groups - 1);
         for (int j = lane; j < cols; j += PRODUCERS)
-          tensor_tile::cp_async4(sdst + (g - g0) * G::BN + j,
-                                 a.ws + static_cast<long long>(n0 + j) * a.groups + g,
-                                 4);
+          tensor_tile::cp_async4(sdst + r * G::BN + j,
+                                 a.ws + static_cast<long long>(n0 + j) * a.lds + g, 4);
+      }
     }
   }
   mbar_arrive_cp_async(full);
@@ -398,7 +416,7 @@ __device__ __forceinline__ void merge_items(const Args& a, int m0, int n0, int r
     for (int g = 0; g < IG; ++g) {
       const int it = base + g * CONSUMERS;
       const int r = it / (BN / 4), c4 = it % (BN / 4);
-      const long long off = (static_cast<long long>(m0 + r) * a.N + n0) / 4 + c4;
+      const long long off = (static_cast<long long>(m0 + r) * a.ldp + n0) / 4 + c4;
 #pragma unroll
       for (int s = 0; s < S; ++s)
         if (it < items && 4 * c4 < cols && s < a.splits)
@@ -420,7 +438,8 @@ __device__ __forceinline__ void merge_items(const Args& a, int m0, int n0, int r
         }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store_out<FORM>(a, m0 + r, n0 + 4 * c4 + e, v[e]);
+      for (int e = 0; e < 4; ++e)  // the last item of a row may pass N
+        if (4 * c4 + e < cols) store_out<FORM>(a, m0 + r, n0 + 4 * c4 + e, v[e]);
     }
   }
 }
@@ -448,7 +467,7 @@ __device__ __forceinline__ void merge_splits(const Args& a, int m0, int n0,
   // once (IG 4 up to 4 splits, else 1; at most 16 splits), and the sums
   // run in split order.
   const int rows = min(BM, a.M - m0), cols = min(BN, a.N - n0);
-  const long long plane = static_cast<long long>(a.M) * a.N;
+  const long long plane = static_cast<long long>(a.M) * a.ldp;
   if (a.splits <= 4)
     merge_items<FORM, BN, 4, 4>(a, m0, n0, rows, cols, plane, ctid);
   else
@@ -464,7 +483,7 @@ __device__ __forceinline__ void emit(const Args& a, int split, int m, int n,
     store_out<FORM>(a, m, n, v);
   } else {
     const long long off =
-        (static_cast<long long>(split) * a.M + m) * a.N + n;
+        (static_cast<long long>(split) * a.M + m) * a.ldp + n;
     static_cast<Acc*>(a.part)[off] = v;
   }
 }
@@ -555,14 +574,17 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db
 // load) at a time from the slab's TMA box and transposed in registers;
 // each column's 32 bytes are two 16-byte stores.  NK: unit (column, kq),
 // the column's bytes contiguous already.
-template <int FORM, int LAYOUT>
+template <int FORM, int LAYOUT, bool FINE>
 __device__ __forceinline__ void dequant_tile(const Args& a, const uint8_t* wst,
                                              const float* sst, uint8_t* tb,
                                              int k0, int ctid) {
   using G = Geo<PREFILL, FORM, LAYOUT>;
   constexpr int R = G::W_ROW;
   constexpr int BN = G::BN;
-  const int gbase = FORM == INT4 ? group_of(k0 / 16, a.gmagic) : 0;
+  // int4: the scale row of a byte row of the slab (byte rows k0/2 + i);
+  // one row a k-step unless groups are narrower than one (FINE).
+  const int gbase = FORM == INT4 ? group_of(k0 / 2, a.gmagic) : 0;
+  auto srow_of = [&](int i) { return (group_of(k0 / 2 + i, a.gmagic) - gbase) * BN; };
   if constexpr (LAYOUT == KN) {
 #pragma unroll
     for (int u = ctid; u < BN; u += CONSUMERS) {  // BN / 4 groups x 4 kq
@@ -571,11 +593,12 @@ __device__ __forceinline__ void dequant_tile(const Args& a, const uint8_t* wst,
       const int nb = n & (WBOX - 1);
       uint32_t o[4][8];  // [column][register]
       if constexpr (FORM == INT4) {
-        const float4 s4 = *reinterpret_cast<const float4*>(
-            sst + (group_of(k0 / 16 + kq, a.gmagic) - gbase) * BN + n);
-        const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+        float4 s4 = *reinterpret_cast<const float4*>(sst + srow_of(kq * 8) + n);
 #pragma unroll
         for (int r = 0; r < 8; ++r) {  // byte row kq * 8 + r: k pair 2r
+          if (FINE && r > 0)
+            s4 = *reinterpret_cast<const float4*>(sst + srow_of(kq * 8 + r) + n);
+          const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
           const uint32_t w = *reinterpret_cast<const uint32_t*>(box + swz(kq * 8 + r, nb));
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[e][r] = i4x2_bf16(w >> (8 * e), sc[e]);
@@ -623,11 +646,14 @@ __device__ __forceinline__ void dequant_tile(const Args& a, const uint8_t* wst,
       const int n = it % BN, kq = it / BN;
       uint32_t o[8];
       if constexpr (FORM == INT4) {
-        const float s = sst[(group_of(k0 / 16 + kq, a.gmagic) - gbase) * BN + n];
+        float s = sst[srow_of(kq * 8) + n];
         uint8_t b[8];
         *reinterpret_cast<uint2*>(b) = *reinterpret_cast<const uint2*>(wst + n * R + kq * 8);
 #pragma unroll
-        for (int r = 0; r < 8; ++r) o[r] = i4x2_bf16(b[r], s);
+        for (int r = 0; r < 8; ++r) {
+          if (FINE && r > 0) s = sst[srow_of(kq * 8 + r) + n];
+          o[r] = i4x2_bf16(b[r], s);
+        }
       } else if constexpr (FORM == INT8) {
         const uint4 v = *reinterpret_cast<const uint4*>(wst + n * R + kq * 16);
         const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
@@ -646,7 +672,7 @@ __device__ __forceinline__ void dequant_tile(const Args& a, const uint8_t* wst,
   }
 }
 
-template <int FORM, int LAYOUT>
+template <int FORM, int LAYOUT, bool FINE>
 __global__ void __launch_bounds__(THREADS, 1)
 quant_matmul_prefill_kernel(const __grid_constant__ Args a) {
   using G = Geo<PREFILL, FORM, LAYOUT>;
@@ -699,7 +725,7 @@ quant_matmul_prefill_kernel(const __grid_constant__ Args a) {
     // Tile t % 3 was last read by slab t - 3's products, which every
     // warpgroup waited for before the barrier of slab t - 1.
     uint8_t* tb = tiles + (t % 3) * G::T_BYTES;
-    dequant_tile<FORM, LAYOUT>(a, wst, reinterpret_cast<const float*>(wst + G::W_BYTES),
+    dequant_tile<FORM, LAYOUT, FINE>(a, wst, reinterpret_cast<const float*>(wst + G::W_BYTES),
                                tb, k0, threadIdx.x);
     // The tile's generic writes and the producer's cp.async rows, before
     // the async proxy (wgmma) reads them.
@@ -801,12 +827,14 @@ __device__ __forceinline__ uint32_t ld16(const uint8_t* p) {
 // `wcol`, for lane (g, c): stage column wcol + 2g + h is A-row g + 8h, so
 // in the KN layout one 2-byte load gives a thread its byte of a k row for
 // both its columns.  a[0..3]: rows (g, g+8) x k (2c, 2c+1 | 2c+8, 2c+9) as
-// bf16 pairs (W8A8: k 4c..4c+3 | 16+4c..16+4c+3 as int8).  `srow`: the
-// int4 scale row of this k-step's group.
+// bf16 pairs (W8A8: k 4c..4c+3 | 16+4c..16+4c+3 as int8).  `s0`, `s1`:
+// the int4 scale rows of the thread's two byte rows (k 2c and 2c + 8 of the
+// k-step); `fine` when they may differ (groups narrower than a k-step),
+// else s1 is not read.
 template <int FORM, int LAYOUT, int R>
-__device__ __forceinline__ void a_frags(const uint8_t* ws, const float* srow,
-                                        int ks, int wcol, int g, int c,
-                                        uint32_t (&a)[4]) {
+__device__ __forceinline__ void a_frags(const uint8_t* ws, const float* s0,
+                                        const float* s1, bool fine, int ks, int wcol,
+                                        int g, int c, uint32_t (&a)[4]) {
   if constexpr (LAYOUT == KN) {
     // The slab as TMA wrote it: row r's 16-byte chunk j at chunk j ^ (r % 8).
     const int col = wcol + 2 * g;
@@ -815,11 +843,12 @@ __device__ __forceinline__ void a_frags(const uint8_t* ws, const float* srow,
       // Byte row 8ks + c holds k = 16ks + 2c, 2c+1; row + 4 holds k + 8.
       const uint32_t r0 = ld16(at(ks * 8 + c));
       const uint32_t r1 = ld16(at(ks * 8 + c + 4));
-      const float2 s2 = *reinterpret_cast<const float2*>(srow + wcol + 2 * g);
-      a[0] = i4x2_bf16(r0, s2.x);
-      a[1] = i4x2_bf16(r0 >> 8, s2.y);
-      a[2] = i4x2_bf16(r1, s2.x);
-      a[3] = i4x2_bf16(r1 >> 8, s2.y);
+      const float2 t0 = *reinterpret_cast<const float2*>(s0 + wcol + 2 * g);
+      const float2 t1 = fine ? *reinterpret_cast<const float2*>(s1 + wcol + 2 * g) : t0;
+      a[0] = i4x2_bf16(r0, t0.x);
+      a[1] = i4x2_bf16(r0 >> 8, t0.y);
+      a[2] = i4x2_bf16(r1, t1.x);
+      a[3] = i4x2_bf16(r1 >> 8, t1.y);
     } else if constexpr (FORM == INT8) {
       const int k = ks * 16 + 2 * c;
       const uint32_t r0 = ld16(at(k)), r1 = ld16(at(k + 1));
@@ -847,9 +876,9 @@ __device__ __forceinline__ void a_frags(const uint8_t* ws, const float* srow,
       const int col = wcol + 2 * g + h;
       const uint8_t* row = ws + col * R;
       if constexpr (FORM == INT4) {
-        const float s = srow[col];
-        a[h] = i4x2_bf16(row[ks * 8 + c], s);
-        a[2 + h] = i4x2_bf16(row[ks * 8 + c + 4], s);
+        const float t0 = s0[col];
+        a[h] = i4x2_bf16(row[ks * 8 + c], t0);
+        a[2 + h] = i4x2_bf16(row[ks * 8 + c + 4], fine ? s1[col] : t0);
       } else if constexpr (FORM == INT8) {
         const int k = ks * 16 + 2 * c;
         a[h] = i8x2_bf16(__byte_perm(ld16(row + k), 0u, 0x1100));
@@ -863,7 +892,7 @@ __device__ __forceinline__ void a_frags(const uint8_t* ws, const float* srow,
   }
 }
 
-template <int FORM, int LAYOUT, int NR>
+template <int FORM, int LAYOUT, int NR, bool FINE>
 __global__ void __launch_bounds__(THREADS, 2)
 quant_matmul_decode_kernel(const __grid_constant__ Args a) {
   using G = Geo<DECODE, FORM, LAYOUT>;
@@ -946,7 +975,7 @@ quant_matmul_decode_kernel(const __grid_constant__ Args a) {
     const uint8_t* xb = xring + slot * xslot;
     const int k0 = (s0 + t) * BK;
     const int nks = min(KS, (a.K - k0 + G::KSTEP - 1) / G::KSTEP);
-    const int gbase = FORM == INT4 ? group_of(k0 / 16, a.gmagic) : 0;
+    const int gbase = FORM == INT4 ? group_of(k0 / 2, a.gmagic) : 0;
 #pragma unroll
     for (int gi = 0; gi < KS / GROUP; ++gi) {
       const int b = gi & 1;
@@ -954,10 +983,18 @@ quant_matmul_decode_kernel(const __grid_constant__ Args a) {
 #pragma unroll
         for (int j = 0; j < GROUP; ++j) {
           const int ks = gi * GROUP + j;
-          const float* srow = sst;
-          if constexpr (FORM == INT4)
-            srow = sst + (group_of(k0 / 16 + ks, a.gmagic) - gbase) * BN;
-          a_frags<FORM, LAYOUT, G::W_ROW>(wst, srow, ks, wcol, g, c, af[b][j]);
+          const float *s0 = sst, *s1 = sst;
+          if constexpr (FORM == INT4) {
+            // Byte rows k0/2 + 8 ks + c and + 4 (k 2c and 2c + 8 of the step).
+            const int j0 = k0 / 2 + ks * 8;
+            if constexpr (FINE) {
+              s0 = sst + (group_of(j0 + c, a.gmagic) - gbase) * BN;
+              s1 = sst + (group_of(j0 + c + 4, a.gmagic) - gbase) * BN;
+            } else {
+              s0 = s1 = sst + (group_of(j0, a.gmagic) - gbase) * BN;
+            }
+          }
+          a_frags<FORM, LAYOUT, G::W_ROW>(wst, s0, s1, FINE, ks, wcol, g, c, af[b][j]);
         }
         wgmma_fence();
 #pragma unroll
@@ -1005,7 +1042,8 @@ quant_matmul_decode_kernel(const __grid_constant__ Args a) {
 // W8A8's activation quantizer, one block per row, bit for bit as
 // models/quant.quantize_sym(x, 127): xs = max(amax, 1e-8) / 127, q =
 // clip(rint(x / xs), -127, 127), both divisions IEEE (__fdiv_rn), rint ties
-// to even.  K % 8 == 0 and 16-byte aligned rows (the wrapper's fence).
+// to even.  Rows of K elements, K % 8 == 0 and 16-byte aligned (the
+// entry point passes the padded row width ldx).
 __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const __nv_bfloat16* x, int8_t* xq, float* xs, int K) {
   __shared__ float wmax[8];
@@ -1055,14 +1093,15 @@ int stage_bytes(int srows) {
   return (b + G::ALIGN - 1) / G::ALIGN * G::ALIGN;
 }
 
-// A 2-D tensor map: [outer][inner] elements of `es` bytes, boxes of
-// box_inner x box_outer, zero fill out of bounds, the 128-byte swizzle or
-// none.
+// A 2-D tensor map: [outer][inner] elements of `es` bytes, rows `ld`
+// elements apart (16-byte multiples), boxes of box_inner x box_outer, zero
+// fill out of bounds (columns past `inner` too, so a padded row's padding
+// is never read), the 128-byte swizzle or none.
 // cuTensorMapEncodeTiled is the driver's; it is reached through the
 // runtime's entry-point query, so the library links no driver stub.
 cudaError_t encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-                      int es, long long inner, long long outer, int box_inner,
-                      int box_outer, bool swizzle) {
+                      int es, long long inner, long long outer, long long ld,
+                      int box_inner, int box_outer, bool swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -1075,7 +1114,7 @@ cudaError_t encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType ty
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * es};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * es};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
@@ -1102,14 +1141,14 @@ int smem_bytes(const Args& a) {
   return 2048 + 3 * G::T_BYTES + ring;
 }
 
-template <int PLAN, int FORM, int LAYOUT, int NR>
+template <int PLAN, int FORM, int LAYOUT, int NR, bool FINE>
 cudaError_t launch(Args a, cudaStream_t stream) {
   using G = Geo<PLAN, FORM, LAYOUT>;
   void (*kernel)(const Args);  // the __grid_constant__ qualifier is no type
   if constexpr (PLAN == DECODE)
-    kernel = quant_matmul_decode_kernel<FORM, LAYOUT, NR>;
+    kernel = quant_matmul_decode_kernel<FORM, LAYOUT, NR, FINE>;
   else
-    kernel = quant_matmul_prefill_kernel<FORM, LAYOUT>;
+    kernel = quant_matmul_prefill_kernel<FORM, LAYOUT, FINE>;
   const int bm = PLAN == DECODE ? NR : G::BM;
   if (PLAN == DECODE && (a.xpiece <= 0 || a.xpiece % G::BK))
     return cudaErrorInvalidValue;
@@ -1118,13 +1157,13 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   // x the slab's byte rows; int4 KN scales: 128 columns x srows groups.
   cudaError_t ex = encode_2d(
       &a.xmap, a.x, G::ES == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-      G::ES, a.K, a.M, 128 / G::ES, bm, true);
+      G::ES, a.K, a.M, a.ldx, 128 / G::ES, bm, true);
   if (ex == cudaSuccess && LAYOUT == KN)
-    ex = encode_2d(&a.wmap, a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.N, a.wrows, WBOX,
-                   G::WK, true);
+    ex = encode_2d(&a.wmap, a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.N, a.wrows, a.ldw,
+                   WBOX, G::WK, true);
   if (ex == cudaSuccess && LAYOUT == KN && FORM == INT4)
     ex = encode_2d(&a.smap, a.ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.N, a.groups,
-                   G::BN, a.srows, false);
+                   a.lds, G::BN, a.srows, false);
   if (ex != cudaSuccess) return ex;
   const int smem = smem_bytes<PLAN, FORM, LAYOUT>(a);
   // The opt-in grows to the largest launch seen (the card refuses more
@@ -1147,51 +1186,66 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int FORM, bool FINE>
+cudaError_t dispatch_plan(const Args& a, int layout, int plan, cudaStream_t s) {
+  if (plan == DECODE && decode_rows(a.M) == 24)
+    return layout == KN ? launch<DECODE, FORM, KN, 24, FINE>(a, s)
+                        : launch<DECODE, FORM, NK, 24, FINE>(a, s);
+  if (plan == DECODE)
+    return layout == KN ? launch<DECODE, FORM, KN, 32, FINE>(a, s)
+                        : launch<DECODE, FORM, NK, 32, FINE>(a, s);
+  return layout == KN ? launch<PREFILL, FORM, KN, 0, FINE>(a, s)
+                      : launch<PREFILL, FORM, NK, 0, FINE>(a, s);
+}
+
+// int4 groups narrower than a k-step get their own instances (a scale
+// lookup per byte row); every other launch keeps one lookup a k-step.
 template <int FORM>
 cudaError_t dispatch(const Args& a, int layout, int plan, cudaStream_t s) {
-  if (plan == DECODE && decode_rows(a.M) == 24)
-    return layout == KN ? launch<DECODE, FORM, KN, 24>(a, s)
-                        : launch<DECODE, FORM, NK, 24>(a, s);
-  if (plan == DECODE)
-    return layout == KN ? launch<DECODE, FORM, KN, 32>(a, s)
-                        : launch<DECODE, FORM, NK, 32>(a, s);
-  return layout == KN ? launch<PREFILL, FORM, KN, 0>(a, s)
-                      : launch<PREFILL, FORM, NK, 0>(a, s);
+  if constexpr (FORM == INT4)
+    if (a.gfine) return dispatch_plan<FORM, true>(a, layout, plan, s);
+  return dispatch_plan<FORM, false>(a, layout, plan, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// x: [M, K] bf16; w: int8 bytes, layout 0 KN ([wrows, N]) or 1 NK ([N,
-// wrows]), wrows = K (int8) or groups * gs / 2 (int4); ws: f32 [N] (int8) or
-// [groups, N] / [N, groups] (int4); out: [M, N] bf16.  Form 1 (W8A8) also
-// takes xq [M, K] int8 and xs [M] f32, which its quantizer fills first.
-// part: [splits, M, N] f32 / int32 and arrivals (one zeroed int per output
-// tile) when splits > 1.  geo: the 14 integers below, plan 0 DECODE / 1
+// x: [M, K] bf16 in rows of ldx elements (ldx % 16 == 0; the wrapper
+// zero-pads a K tail); w: int8 bytes, layout 0 KN ([wrows, N]) or 1 NK ([N,
+// wrows]), in rows of ldw bytes (ldw % 16 == 0; KN ldw >= N, NK ldw >=
+// wrows); wrows = K (int8) or groups * gs / 2 (int4); ws: f32 [N] (int8) or
+// [groups, N] / [N, groups] (int4) in rows of lds elements (KN: lds % 4 ==
+// 0); out: [M, N] bf16.  Form 1 (W8A8) also takes xq [M, ldx] int8 and xs
+// [M] f32, which its quantizer fills first.  part: [splits, M, ldp] f32 /
+// int32 (ldp = N rounded up to 4) and arrivals (one zeroed int per output
+// tile) when splits > 1.  geo: the 17 integers below, plan 0 DECODE / 1
 // PREFILL; splits, unit_slabs, xpiece, srows and stages as
 // ops/quant_matmul.launch_plan gives them (one array, so a call converts
-// ten arguments).  Shapes the
-// kernel takes: K % 16 == 0, rows of W 16-byte aligned (KN: N % 16 == 0;
-// NK: wrows % 16 == 0), and 16-byte aligned x, xq, w and ws.
+// ten arguments).  int4 groups are even (a packed byte's two k share a
+// scale); x, xq, w and ws are 16-byte aligned.
 extern "C" int quant_matmul_launch(const void* x, const void* w, const void* ws,
                                    void* out, void* xq, void* xs, void* part,
                                    void* arrivals, const int* geo, void* stream) {
   // geo: M, N, K, wrows, groups, gs, form, layout, plan, splits,
-  // unit_slabs, xpiece, srows, stages.
+  // unit_slabs, xpiece, srows, stages, ldx, ldw, lds.
   const int M = geo[0], N = geo[1], K = geo[2], wrows = geo[3], groups = geo[4];
   const int gs = geo[5], form = geo[6], layout = geo[7], plan = geo[8];
   const int splits = geo[9], unit_slabs = geo[10], xpiece = geo[11];
   const int srows = geo[12], stages = geo[13];
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || form < INT8 || form > INT4 ||
+  const int ldx = geo[14], ldw = geo[15], lds = geo[16];
+  if (M <= 0 || N <= 0 || K <= 0 || form < INT8 || form > INT4 ||
       (layout != KN && layout != NK) || (plan != DECODE && plan != PREFILL) ||
-      splits <= 0 || splits > 16 || unit_slabs <= 0 || (layout == KN ? N : wrows) % 16 ||
+      splits <= 0 || splits > 16 || unit_slabs <= 0 || ldx < K || ldx % 16 ||
+      ldw % 16 || ldw < (layout == KN ? N : wrows) ||
       !aligned16(x) || !aligned16(w) || !aligned16(ws) ||
       (splits > 1 && (part == nullptr || arrivals == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (form == INT4) {
-    if (gs <= 0 || gs % 16 || groups <= 0 || srows <= 0 || srows > 16 ||
-        static_cast<long long>(groups) * gs != 2LL * wrows || K > 2LL * wrows)
+    if (gs <= 0 || gs % 2 || groups <= 0 || srows <= 0 || srows > 256 ||
+        static_cast<long long>(groups) * gs != 2LL * wrows || K > 2LL * wrows ||
+        lds < (layout == KN ? N : groups) || (layout == KN && lds % 4) ||
+        (static_cast<long long>(wrows) + 256) * (gs / 2) > 0x100000000LL)
       return static_cast<int>(cudaErrorInvalidValue);
   } else if (wrows != K ||
              (form == W8A8 && (xq == nullptr || xs == nullptr || !aligned16(xq)))) {
@@ -1212,9 +1266,14 @@ extern "C" int quant_matmul_launch(const void* x, const void* w, const void* ws,
   a.wrows = wrows;
   a.groups = groups;
   a.gs = gs;
-  a.gmagic = form == INT4 && gs > 16
-                 ? static_cast<unsigned>((0x100000000ULL + gs / 16 - 1) / (gs / 16))
+  a.gmagic = form == INT4 && gs > 2
+                 ? static_cast<unsigned>((0x100000000ULL + gs / 2 - 1) / (gs / 2))
                  : 0u;
+  a.gfine = form == INT4 && gs % 16 != 0;
+  a.ldx = ldx;
+  a.ldw = ldw;
+  a.lds = lds;
+  a.ldp = (N + 3) / 4 * 4;
   a.splits = splits;
   a.unit_slabs = unit_slabs;
   a.xpiece = xpiece;
@@ -1223,9 +1282,10 @@ extern "C" int quant_matmul_launch(const void* x, const void* w, const void* ws,
   if (stages < 2 || stages > 8) return static_cast<int>(cudaErrorInvalidValue);
   a.stage_bytes = 0;
   if (form == W8A8) {
+    // Over the padded row: its zeros change no amax and quantize to 0.
     quantize_rows_kernel<<<M, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
                                            static_cast<int8_t*>(xq),
-                                           static_cast<float*>(xs), K);
+                                           static_cast<float*>(xs), ldx);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     a.x = static_cast<const uint8_t*>(xq);

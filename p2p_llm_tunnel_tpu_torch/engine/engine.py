@@ -3,7 +3,9 @@ pipelined decode bursts over a slot-batched KV cache, in PyTorch (port of
 p2p_llm_tunnel_tpu/engine/engine.py: the serve CLI's default engine —
 mux, prefix pool and conversation cache — and the plain non-mux loop, with
 a raw, int8 or packed-int4 KV cache, the unfused or fused decode layer,
-and bf16, int8, w8a8 or packed-int4 weights).
+bf16, int8, w8a8 or packed-int4 weights, dense or mixture-of-experts
+models, weights from a ``--ckpt`` file (``models/checkpoint``), and
+mean-pooled embeddings).
 
 Continuous batching as in the reference: the KV cache has ``num_slots``
 fixed rows plus one scratch row; every decode burst runs ``steps`` decode
@@ -35,8 +37,8 @@ waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
 What this port does not run yet raises at construction (``EngineConfig``
-knobs set away from their off value) or answers ``NotPorted`` (embeddings,
-KV page export/import); ROADMAP.md lists each in the port queue.
+knobs set away from their off value) or answers ``NotPorted`` (KV page
+export/import); ROADMAP.md lists each in the port queue.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ from p2p_llm_tunnel_tpu_torch.models.transformer import (
     NotPorted,
     chunk_prefill_into_cache,
     decode_step,
+    encode_pooled,
     init_kv_cache,
     init_params,
     prefill_into_cache,
@@ -200,7 +203,6 @@ _UNPORTED = {
     "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
     "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
     "role": (("both",), "spill tier, snapshots and KV_PAGES"),
-    "ckpt_path": ((None, ""), "checkpoints and MoE"),
     "tp": ((1,), "parallel/"),
     "sp": ((1,), "parallel/"),
     "ep": ((1,), "parallel/"),
@@ -831,7 +833,39 @@ class InferenceEngine:
         )
 
     async def embed(self, prompts: List[List[int]]) -> np.ndarray:
-        raise NotPorted("embeddings", "embeddings")
+        """Mean-pooled embeddings for a batch of token-id prompts, as the
+        reference's ``embed``: sub-batches of ``prefill_rows`` (the
+        activation bound every serving prefill respects), each padded to
+        the bucket of its longest prompt in a ``prefill_rows``-tall batch
+        and run through ``encode_pooled`` on the engine's executor thread,
+        so the event loop never waits on the device; pad rows are dropped.
+        Returns ``[len(prompts), dim]`` float32."""
+        if self._crashed:
+            raise RuntimeError(
+                "engine loop crashed; restart the serve process"
+            )
+        loop = asyncio.get_running_loop()
+        pr = self.ecfg.prefill_rows
+        outs = []
+        for lo in range(0, len(prompts), pr):
+            chunk = prompts[lo : lo + pr]
+            width = self._bucket(max(len(p) for p in chunk))
+            tokens = np.zeros((pr, width), np.int64)
+            valid = np.zeros((pr, width), bool)
+            for i, p in enumerate(chunk):
+                tokens[i, : len(p)] = p
+                valid[i, : len(p)] = True
+            out = await loop.run_in_executor(self._executor, self._encode,
+                                             tokens, valid)
+            outs.append(out[: len(chunk)])
+        return np.concatenate(outs, axis=0)
+
+    @torch.inference_mode()
+    def _encode(self, tokens: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        out = encode_pooled(self.mcfg, self.params,
+                            torch.from_numpy(tokens).to(self.device),
+                            torch.from_numpy(valid).to(self.device))
+        return out.cpu().numpy()
 
     async def export_kv_pages(self, prompt_ids) -> Optional[Dict]:
         raise NotPorted("KV page export", "spill/KV_PAGES")
@@ -2109,22 +2143,30 @@ class InferenceEngine:
 
     def _init_weights(self, params, dtype):
         """The served weights, as the reference builds them: with no params
-        a random init (directly int8 or packed int4 under ``quant``, so no
-        bf16 tree ever exists); an injected bf16 tree quantized once; an
+        the ``ckpt_path`` file (checked leaf by leaf against the config's
+        tree) or a random init (directly int8 or packed int4 under
+        ``quant``, so no bf16 tree ever exists); an injected or loaded bf16
+        tree quantized once; an
         injected int4 tree's group size wins over the config.  ``w8a8``
-        turns ``act_quant`` on.  On the card an int4 group size must be a
-        multiple of 16 (kernel 7's k-step) and every quantized product a
-        shape kernel 7 takes (``model_fence``): any other is refused here."""
+        turns ``act_quant`` on.  The quantized tree is laid out as kernel 7
+        reads it (``quant.kernel_layout``: rows padded to whole 16-byte
+        pieces where they are not); on the card every contracted length
+        and group size must pass ``model_fence``, which every even group
+        size does at real widths."""
         from p2p_llm_tunnel_tpu_torch.models import quant as q
-        from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import (
-            group_size_fence,
-            model_fence,
-        )
+        from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import model_fence
 
         mode = self.ecfg.quant
         if mode not in ("none", "", "int8", "w8a8", "int4"):
             raise ValueError(f"unknown quant mode {mode!r}")
         gs = self.ecfg.quant_group_size
+        if params is None and self.ecfg.ckpt_path:
+            from p2p_llm_tunnel_tpu_torch.models.checkpoint import load_checkpoint
+
+            log.info("loading checkpoint from %s", self.ecfg.ckpt_path)
+            like = init_params(self.mcfg, self.ecfg.seed, dtype, "meta")
+            params = load_checkpoint(self.ecfg.ckpt_path, like=like,
+                                     device=self.device)
         if params is None:
             if mode in ("int8", "w8a8"):
                 log.info("initialising %s directly in int8 on %s",
@@ -2157,13 +2199,10 @@ class InferenceEngine:
                     "injected int4 tree uses group_size=%d; overriding "
                     "configured quant_group_size=%d", wq.group_size, gs)
                 self.ecfg = dc_replace(self.ecfg, quant_group_size=wq.group_size)
-            why = group_size_fence(self.ecfg.quant_group_size)
-            if self.device.type == "cuda" and why is not None:
-                raise ValueError(f"--quant int4 on the card: {why}")
         why = model_fence(self.mcfg, mode, self.ecfg.quant_group_size)
         if self.device.type == "cuda" and why is not None:
             raise ValueError(f"--quant {mode} on the card: {why}")
-        return params
+        return q.kernel_layout(params)
 
     def _gate_fused_decode(self) -> None:
         """On the card, fence the fused decode layer when the model's head

@@ -1,0 +1,66 @@
+"""Mixture-of-experts MLP block — p2p_llm_tunnel_tpu/models/moe.py in
+PyTorch: mixtral-style blocks where each layer's MLP is a router over
+``n_experts`` per-expert SwiGLUs, top-k routed with renormalized gate
+weights.
+
+Compute strategy, as the reference: DENSE-DROPLESS — every expert computes
+every token and the router weights (zero for unrouted experts) scale the
+combine.  Shapes stay static, nothing is dropped, and the routed math is
+reproduced exactly, at ``n_experts / n_experts_per_tok`` times the FLOPs
+of a routed gather (4x for mixtral's 8 experts, top 2).  The expert
+products are plain batched matrix products (``torch.einsum``), as the
+reference leaves them to XLA outside any Pallas kernel; a routed grouped
+GEMM is later work (ROADMAP.md).  The reference's ``moe_pspecs`` (the
+``ep`` mesh axis) belongs to the port's ``parallel/`` item and is not here.
+
+Pad and parked rows are routed like any row (their outputs are dropped by
+the caller); the softmax over the experts' logits is finite for any finite
+row, a zero row included (uniform weights).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+
+def init_moe_blocks(cfg, dense: Callable) -> Dict[str, torch.Tensor]:
+    """MoE leaves for the stacked block tree.  ``dense(shape, fan_in)`` is
+    ``init_params``' initializer, so the experts follow the dense weights'
+    distribution.  Layout as the reference: router ``[L, Dm, E]``; experts
+    ``[L, E, Dm, F]`` (gate/up) and ``[L, E, F, Dm]`` (down)."""
+    l, dm, f, e = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
+    return {
+        "router": dense((l, dm, e), dm),
+        "moe_gate": dense((l, e, dm, f), dm),
+        "moe_up": dense((l, e, dm, f), dm),
+        "moe_down": dense((l, e, f, dm), f),
+    }
+
+
+def route(cfg, router: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The router's dense weight map ``[B, T, E]`` in f32: softmax over the
+    experts' logits (``h @ router`` in f32), top ``n_experts_per_tok``,
+    renormalized with a 1e-9 floor, scattered back (zeros for unrouted
+    experts).  ``torch.topk`` may break an exact tie of probabilities
+    otherwise than ``jax.lax.top_k``; real logits have none."""
+    logits = h.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.n_experts_per_tok, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    return torch.zeros_like(probs).scatter_(-1, top_i, top_p)
+
+
+def moe_mlp(cfg, blk, h: torch.Tensor, act_fn: Callable) -> torch.Tensor:
+    """Routed MLP for one layer: ``h [B, T, Dm] -> [B, T, Dm]``.  ``blk``
+    holds this layer's slice (router ``[Dm, E]``, experts ``[E, ...]``).
+    Every expert's SwiGLU in ``h``'s dtype, the expert axis contracted last
+    in f32 against the router's weights, as the reference."""
+    weights = route(cfg, blk["router"], h)
+    gate = torch.einsum("btd,edf->btef", h, blk["moe_gate"].to(h.dtype))
+    up = torch.einsum("btd,edf->btef", h, blk["moe_up"].to(h.dtype))
+    inner = act_fn(gate) * up  # [B, T, E, F]
+    down = torch.einsum("btef,efd->bted", inner, blk["moe_down"].to(h.dtype))
+    out = torch.einsum("bted,bte->btd", down.to(torch.float32), weights)
+    return out.to(h.dtype)

@@ -535,6 +535,40 @@ def init_params_quantized_int4(cfg, seed: int = 0, group_size: int = 128,
     return _quantized_tree(cfg, gen, dev, qdense)
 
 
+def _padded_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last-axis rows in whole 16-byte pieces: ``t`` itself
+    when they are (or ``t`` is 1-D), else a view ``[..., :n]`` of
+    zero-padded storage (same values, same logical shape)."""
+    if t.dim() < 2:
+        return t
+    n, es = t.shape[-1], t.element_size()
+    if t.stride(-1) == 1 and t.stride(-2) >= n and (t.stride(-2) * es) % 16 == 0:
+        return t
+    ld = -(-n * es // 16) * 16 // es
+    buf = t.new_zeros(t.shape[:-1] + (ld,))
+    buf[..., :n] = t
+    return buf[..., :n]
+
+
+def kernel_layout(params):
+    """The tree as kernel 7 reads it on the card: every quantized leaf's
+    weight and scale rows in whole 16-byte pieces, which its bulk copies
+    need (and which keeps each layer's slice of a stacked leaf 16-byte
+    aligned) — a row that is not (an untied head of 259 columns, a
+    contracted length no multiple of 16) is stored padded with zeros and
+    kept as a view at its logical shape, so every other reader sees the
+    same values.  Leaves already so laid out are returned as they are (no
+    copy); apply after any ``.to()``, which packs views."""
+    if isinstance(params, dict):
+        return {k: kernel_layout(v) for k, v in params.items()}
+    if isinstance(params, QTensor4):
+        return QTensor4(_padded_rows(params.q), _padded_rows(params.scale),
+                        params.in_dim, params.group_size, params.axis)
+    if isinstance(params, QTensor):
+        return QTensor(_padded_rows(params.q), _padded_rows(params.scale))
+    return params
+
+
 def weight_bytes(params) -> int:
     """Bytes of every leaf of a params tree (packed bytes and scales for
     quantized leaves)."""

@@ -8,8 +8,9 @@ reused history (``chunk_prefill_into_cache``, einsum attention as in the
 reference), the ragged grouped tail prefill (``ragged_prefill_into_cache``,
 one kernel-6 launch per layer), one-token-per-slot decode, unfused
 (kernel 2) or through the fused decode layer (kernel 4, one launch per
-layer), and the speculative verify burst (``spec_verify_into_cache``:
-kernel 5 fused, the chunk path otherwise).
+layer), the speculative verify burst (``spec_verify_into_cache``:
+kernel 5 fused, the chunk path otherwise), mean-pooled embeddings
+(``encode_pooled``) and mixture-of-experts MLPs (``models/moe``).
 
 Idiom differences from the JAX reference, all deliberate:
 
@@ -50,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig
+from p2p_llm_tunnel_tpu_torch.models.moe import init_moe_blocks, moe_mlp
 from p2p_llm_tunnel_tpu_torch.models.quant import (
     QTensor,
     QTensor4,
@@ -58,6 +60,7 @@ from p2p_llm_tunnel_tpu_torch.models.quant import (
     embed_lookup,
     head_matmul,
     is_quantized,
+    kernel_layout,
     mm,
     quantize_sym,
     splice_packed_rows,
@@ -114,8 +117,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
-    if cfg.n_experts:
-        raise NotPorted("mixture-of-experts (n_experts)", "checkpoints and MoE")
     if mesh is not None:
         raise NotPorted("device meshes (tp/sp/ep)", "parallel/")
 
@@ -130,11 +131,17 @@ def init_params(
     """Random init: truncated normal in [-2, 2] times fan_in**-0.5, the
     reference's shapes and scaling, drawn from a ``torch.Generator`` seeded
     with ``seed`` on the target device (its numbers differ from
-    ``jax.random``'s; tests bridge JAX weights with params_from_numpy)."""
+    ``jax.random``'s; tests bridge JAX weights with params_from_numpy).
+    MoE configs draw the router and expert leaves (``models/moe``) in
+    place of the dense MLP's.  On the ``meta`` device it allocates nothing:
+    the tree's shapes and dtypes, which ``load_checkpoint`` checks a file
+    against."""
     _check_model(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     l, dm, h, kh, hd, f, v = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads,
         cfg.head_dim, cfg.ffn_dim, cfg.vocab_size,
@@ -147,9 +154,11 @@ def init_params(
 
     def dense(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=dev)
+        if gen is None:  # the meta device: shapes and dtypes only
+            return out
         # One layer at a time: the fp32 draw of a whole [L, ...] stack would
-        # double the 8B model's peak memory.
-        pieces = out.unbind(0) if len(shape) == 3 else (out,)
+        # double the 8B model's peak memory (MoE experts: one expert).
+        pieces = (out.flatten(0, -3).unbind(0) if len(shape) >= 3 else (out,))
         for piece in pieces:
             tmp = torch.empty(piece.shape, dtype=torch.float32, device=dev)
             tmp.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=gen)
@@ -168,10 +177,15 @@ def init_params(
         "wk": dense((l, dm, kh * hd), dm),
         "wv": dense((l, dm, kh * hd), dm),
         "wo": dense((l, h * hd, dm), h * hd),
-        "w_gate": dense((l, dm, f), dm),
-        "w_up": dense((l, dm, f), dm),
-        "w_down": dense((l, f, dm), f),
     }
+    if cfg.n_experts:
+        blocks.update(init_moe_blocks(cfg, dense))
+    else:
+        blocks.update({
+            "w_gate": dense((l, dm, f), dm),
+            "w_up": dense((l, dm, f), dm),
+            "w_down": dense((l, f, dm), f),
+        })
     if cfg.post_norms:
         blocks["post_attn_norm"] = torch.zeros((l, dm), dtype=dtype, device=dev)
         blocks["post_mlp_norm"] = torch.zeros((l, dm), dtype=dtype, device=dev)
@@ -199,7 +213,9 @@ def params_from_numpy(tree, device, dtype=torch.bfloat16) -> Params:
     Quantized leaves (the reference's ``QTensor``/``QTensor4`` holding
     numpy arrays) are recognised by their attributes — ``q`` and ``scale``,
     plus ``in_dim``, ``group_size`` and ``axis`` for int4 — and become this
-    package's leaves with the int8 bytes and f32 scales unchanged."""
+    package's leaves with the int8 bytes and f32 scales unchanged, laid
+    out as kernel 7 reads them (``quant.kernel_layout``: rows padded to
+    whole 16-byte pieces where they are not, views at the same shape)."""
     dev = torch.device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
@@ -207,9 +223,9 @@ def params_from_numpy(tree, device, dtype=torch.bfloat16) -> Params:
         q = torch.from_numpy(np.array(tree.q, np.int8)).to(dev)
         scale = torch.from_numpy(np.array(tree.scale, np.float32)).to(dev)
         if hasattr(tree, "group_size"):
-            return QTensor4(q, scale, int(tree.in_dim), int(tree.group_size),
-                            int(tree.axis))
-        return QTensor(q, scale)
+            return kernel_layout(QTensor4(q, scale, int(tree.in_dim),
+                                          int(tree.group_size), int(tree.axis)))
+        return kernel_layout(QTensor(q, scale))
     if not isinstance(tree, np.ndarray):
         raise TypeError(f"params leaf of type {type(tree).__name__}")
     arr = np.ascontiguousarray(tree.astype(np.float32))
@@ -319,6 +335,8 @@ def _act(cfg: ModelConfig, x):
 
 
 def _mlp(cfg: ModelConfig, blk, h):
+    if cfg.n_experts:
+        return moe_mlp(cfg, blk, h, lambda x: _act(cfg, x))
     aq = cfg.act_quant
     gate = _act(cfg, mm(h, blk["w_gate"], aq)) * mm(h, blk["w_up"], aq)
     return mm(gate, blk["w_down"], aq)
@@ -442,6 +460,30 @@ def prefill(
     return _logits(cfg, params, x), ks, vs
 
 
+def encode_pooled(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] right-padded
+    valid: torch.Tensor,  # [B, T] bool
+) -> torch.Tensor:
+    """Mean-pooled, L2-normalized final hidden states — the embeddings
+    surface (/v1/embeddings, Ollama /api/embed), as the reference's
+    ``encode_pooled``: the blocks through kernel 1 (no K/V kept), the
+    final norm, a masked mean over the real tokens in f32 (count floored
+    at 1), L2-normalized with a 1e-9 floor.  Returns ``[B, Dm]`` float32.
+    A row with no real token (a pad row) pools to zero; its attention
+    differs between kernel 1 (zero) and its plain version (the mean of V),
+    and the engine drops such rows."""
+    _check_model(cfg)
+    x = _embed(cfg, params, tokens)
+    x, _, _ = apply_blocks(cfg, params["blocks"], x, valid,
+                           store_kv=lambda idx, k, v: None)
+    x = _norm(cfg, x, params["final_norm"]).to(torch.float32)
+    m = valid[..., None].to(torch.float32)
+    pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+    return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp(min=1e-9)
+
+
 def prefill_into_cache(
     cfg: ModelConfig,
     params: Params,
@@ -481,7 +523,9 @@ def prefill_into_cache(
     def store(idx, k, v):
         for name, new in (("k", k[:, :t_w]), ("v", v[:, :t_w])):
             if mode is None:
-                kv_cache[name][idx, slot_idx, :t_w] = new
+                # Cast as the reference's scatter does: a quantized table
+                # gathers bf16 activations, whatever the cache's dtype.
+                kv_cache[name][idx, slot_idx, :t_w] = new.to(kv_cache[name].dtype)
                 continue
             vals, sc = (_quant_kv4 if mode == "int4" else _quant_kv)(new)
             kv_cache[name + "_scale"][idx, slot_idx, :t_w] = sc

@@ -36,10 +36,13 @@ shapes, its workspace) and the tensors every call.
 reference's expression op for op, rounding where it rounds; the wrapper
 runs it for tensors on the CPU, and only because they lie on the CPU.  For
 CUDA tensors it launches the kernel or raises; nothing falls back.  On the
-card the kernel takes bf16 activations, contracted lengths that are
-multiples of 16, weight rows of whole 16 bytes and group sizes that are
-multiples of 16 (``shape_fence``, ``group_size_fence``); the engine
-refuses other configurations on the card at construction.
+card the kernel takes bf16 activations and every shape the reference
+serves quantized: weight rows in whole 16-byte pieces, stored padded where
+the logical row is not (``models/quant.kernel_layout``, which the engine
+applies to its tree; the wrapper raises on an unpadded row), a contracted
+length of any size (the wrapper zero-pads x to a multiple of 16), and any
+even int4 group size (``shape_fence`` names the one other limit, which no
+real shape reaches).
 """
 
 from __future__ import annotations
@@ -62,8 +65,6 @@ _NAME = "quant_matmul"
 FORMS = ("int8", "w8a8", "int4")
 _FORM_ID = {"int8": 0, "w8a8": 1, "int4": 2}
 _LAYOUT_ID = {"kn": 0, "nk": 1}
-#: The kernel's k-step: an int4 group must span whole steps on the card.
-GROUP_MULTIPLE = 16
 #: Rows up to which the decode plan runs: a decode step (16 slots + the
 #: parked row = 17) and every verify burst (17 x T, T <= 9).
 SMALL_MAX_M = 160
@@ -85,56 +86,37 @@ SPLIT_CAP = 16
 DECODE_SMEM_BUDGET = 233472 // 2 - 1024
 
 
-def group_size_fence(group_size: int) -> Optional[str]:
-    """Why the card cannot serve int4 weights at ``group_size`` (None when
-    it can)."""
-    if group_size <= 0 or group_size % GROUP_MULTIPLE:
-        return (f"quant_group_size {group_size} is not a multiple of "
-                f"{GROUP_MULTIPLE}: the int4 matmul kernel applies one group "
-                f"scale per 16-deep k-step of its tensor-core products")
-    return None
-
-
-def shape_fence(n: int, k: int, form: str, layout: str = "kn",
-                group_size: Optional[int] = None) -> Optional[str]:
-    """Why kernel 7 cannot take an ``N x K`` product in ``form`` and
-    ``layout`` (None when it can): the contracted length in whole 16-deep
-    k-steps, and weight rows of whole 16 bytes (its bulk copies move
-    16-byte-aligned row pieces)."""
-    if k % 16:
-        return f"contracted length {k} is not a multiple of 16"
-    if form == "int4":
-        why = group_size_fence(group_size or 0)
-        if why is not None:
-            return why
-        wrows = -(-k // group_size) * group_size // 2
-    else:
-        wrows = k
-    row = n if layout == "kn" else wrows
-    if row % 16:
-        return (f"weight rows of {row} bytes ({layout}) are not whole 16-byte "
-                f"pieces")
+def shape_fence(k: int, form: str, group_size: Optional[int] = None) -> Optional[str]:
+    """Why kernel 7 cannot take a product contracting ``k`` positions in
+    ``form`` (None when it can).  Every width and contracted length is
+    taken; an int4 group must be even (a packed byte's two k share its
+    scale, as the reference's quantizer requires) and small enough that the
+    kernel's group index — a multiply-high by ``ceil(2**32 / (gs / 2))``
+    over the packed byte rows — is exact."""
+    if form != "int4":
+        return None
+    gs = group_size or 0
+    if gs <= 0 or gs % 2:
+        return f"int4 group size {gs} is not a positive even number"
+    wrows = -(-k // gs) * gs // 2
+    if (wrows + 256) * (gs // 2) > 2**32:
+        return (f"int4 group size {gs} over {k} contracted positions: the "
+                f"kernel's group index is exact up to 2**32 byte-row x half-group")
     return None
 
 
 def model_fence(cfg, quant: str, group_size: int) -> Optional[str]:
     """Why the card cannot serve ``cfg`` under ``--quant quant`` (None when
-    it can): every product kernel 7 runs — the block projections and the
-    head — must pass ``shape_fence``."""
+    it can): every contracted length kernel 7 runs — the block projections'
+    and the head's — must pass ``shape_fence``."""
     if quant not in ("int8", "w8a8", "int4"):
         return None
     form = "int4" if quant == "int4" else "int8"
-    q_out = cfg.n_heads * cfg.head_dim
-    kv_out = cfg.n_kv_heads * cfg.head_dim
-    products = [("wq", q_out, cfg.dim, "kn"), ("wk/wv", kv_out, cfg.dim, "kn"),
-                ("wo", cfg.dim, q_out, "kn"), ("w_gate/w_up", cfg.ffn_dim, cfg.dim, "kn"),
-                ("w_down", cfg.dim, cfg.ffn_dim, "kn"),
-                ("head", cfg.vocab_size, cfg.dim,
-                 "nk" if cfg.tie_embeddings else "kn")]
-    for name, n, k, layout in products:
-        why = shape_fence(n, k, form, layout, group_size)
+    for name, k in (("wq/wk/wv/w_gate/w_up/head", cfg.dim),
+                    ("wo", cfg.n_heads * cfg.head_dim), ("w_down", cfg.ffn_dim)):
+        why = shape_fence(k, form, group_size)
         if why is not None:
-            return f"kernel 7 cannot take {name} ({n} x {k}): {why}"
+            return f"kernel 7 cannot take {name} (K {k}): {why}"
     return None
 
 
@@ -149,10 +131,11 @@ def slab_k(plan: str, form: str) -> int:
 
 def scale_rows(plan: str, gs: int) -> int:
     """int4 scale rows a stage holds: the most groups one slab touches
-    (slabs start at multiples of the slab depth; k-steps are 16 deep)."""
+    (slabs start at multiples of the slab depth; its last packed byte holds
+    k ``bk - 2`` and ``bk - 1``)."""
     bk = slab_k(plan, "int4")
     period = math.lcm(bk, gs) // bk
-    return max((s * bk + bk - 16) // gs - (s * bk) // gs + 1 for s in range(period))
+    return max((s * bk + bk - 2) // gs - (s * bk) // gs + 1 for s in range(period))
 
 
 def stage_layout(plan: str, form: str, layout: str, gs: int = 128) -> dict:
@@ -178,7 +161,7 @@ def stage_layout(plan: str, form: str, layout: str, gs: int = 128) -> dict:
                 stage_bytes=-(-sum(parts.values()) // align) * align,
                 x_copied=bm * bk * es if plan == "prefill" else 0,
                 w_copied=wk * bn,
-                s_copied=((bk - 16) // gs + 1) * bn * 4 if form == "int4" else 0)
+                s_copied=((bk - 2) // gs + 1) * bn * 4 if form == "int4" else 0)
 
 
 def smem_bytes(plan: dict) -> int:
@@ -216,7 +199,10 @@ def launch_plan(m: int, n: int, k: int, form: str = "int4", layout: str = "kn",
     fastest, so the M tiles of one column tile share its weight bytes
     through L2; split-K on z), the split unit (whole slabs and whole int4
     groups), the decode plan's activation piece, the stage layout, shared
-    memory, the merge workspace and its arrival counters."""
+    memory, the merge workspace (rows of ``ldp``: N rounded up to 4) and its
+    arrival counters.  A decode ring that leaves no room for two blocks an
+    SM (int4 groups of a few k: many scale rows a stage) takes one block's
+    shared memory."""
     plan = "decode" if m <= SMALL_MAX_M else "prefill"
     bm, bn, stages = PLANS[plan]
     if plan == "decode" and m <= 24:
@@ -236,22 +222,27 @@ def launch_plan(m: int, n: int, k: int, form: str = "int4", layout: str = "kn",
                stage=st, xpiece=0, stages=stages)
     if plan == "decode":
         # The deepest ring (up to 4 stages) that leaves two activation
-        # slots of at least one slab within two blocks an SM.
+        # slots of at least one slab within two blocks an SM, else within
+        # one.
         es = 1 if form == "w8a8" else 2
         longest = -(-units // splits) * unit * bk
-        for stages in range(stages, 1, -1):
-            slot = (DECODE_SMEM_BUDGET - 2048 - stages * st["stage_bytes"]) // 2
-            xpiece = slot // (es * bm) // bk * bk
-            if xpiece >= bk:
-                break
-        out["stages"] = stages
-        out["xpiece"] = min(xpiece, longest)
+
+        def piece(budget, n_st):  # k of the activation slots beside the ring
+            return (budget - 2048 - n_st * st["stage_bytes"]) // 2 // (es * bm) // bk * bk
+
+        fit = next(((n_st, piece(b, n_st)) for b in (DECODE_SMEM_BUDGET, MAX_SMEM)
+                    for n_st in range(stages, 1, -1) if piece(b, n_st) >= bk), None)
+        if fit is None:
+            raise ValueError(f"kernel 7 has no decode ring for {form} at group "
+                             f"size {group_size}")
+        out["stages"], out["xpiece"] = fit[0], min(fit[1], longest)
     else:
         # One block an SM: the deepest ring beside the three tiles.
         out["stages"] = min(stages, (MAX_SMEM - 2048 - 3 * bn * 128) // st["stage_bytes"])
     out["smem"] = smem_bytes(out)
     acc = 4  # f32 or int32 partials
-    out["workspace_bytes"] = splits * m * n * acc if splits > 1 else 0
+    out["ldp"] = -(-n // 4) * 4
+    out["workspace_bytes"] = splits * m * out["ldp"] * acc if splits > 1 else 0
     out["counters"] = tiles_m * tiles_n if splits > 1 else 0
     return out
 
@@ -308,7 +299,7 @@ def _fn():
 
 def _check_shapes(k, form, layout, qshape, sshape, in_dim, group_size):
     """What the kernel takes of the shapes alone; returns (N, wrows,
-    groups).  Cached per shape by ``quant_matmul``."""
+    groups).  Cached per shape and strides by ``quant_matmul``."""
     if form not in _FORM_ID:
         raise ValueError(f"unknown quant_matmul form {form!r}")
     if layout not in _LAYOUT_ID:
@@ -317,7 +308,7 @@ def _check_shapes(k, form, layout, qshape, sshape, in_dim, group_size):
         raise ValueError(f"quant_matmul kernel takes a 2-D weight, got {qshape}")
     kn = layout == "kn"
     wrows, n = (qshape[0], qshape[1]) if kn else (qshape[1], qshape[0])
-    why = shape_fence(n, k, form, layout, group_size)
+    why = shape_fence(k, form, group_size)
     if form == "int4":
         if in_dim != k:
             raise ValueError(f"activations of width {k} against an int4 weight "
@@ -338,9 +329,27 @@ def _check_shapes(k, form, layout, qshape, sshape, in_dim, group_size):
     return n, wrows, 0
 
 
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """The row stride (elements) of a 1-D or 2-D tensor whose rows are
+    dense and lie whole 16-byte pieces apart: padded rows, as
+    ``models/quant.kernel_layout`` stores them."""
+    if t.dim() == 1:
+        if t.stride(0) != 1:
+            raise ValueError(f"quant_matmul kernel needs a dense {name}")
+        return t.shape[0]
+    ld = t.stride(0)
+    if t.stride(1) != 1 or ld < t.shape[1] or (ld * t.element_size()) % 16:
+        raise ValueError(
+            f"quant_matmul kernel needs {name} rows of whole 16-byte pieces "
+            f"(shape {tuple(t.shape)}, strides {t.stride()}): lay the tree out "
+            f"with models.quant.kernel_layout")
+    return ld
+
+
 def _check_tensors(x, q, scale):
     """What the kernel takes of these tensors: dtypes, one device,
-    contiguous 16-byte aligned weight and scales (checked every call)."""
+    16-byte aligned weight and scales in rows of whole 16-byte pieces;
+    returns their row strides (checked every call)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"quant_matmul kernel takes bfloat16 activations, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -349,10 +358,9 @@ def _check_tensors(x, q, scale):
         raise ValueError(f"quant_matmul inputs span devices "
                          f"{ {x.device, q.device, scale.device} }")
     for name, t in (("weight", q), ("scale", scale)):
-        if not t.is_contiguous():
-            raise ValueError(f"quant_matmul kernel needs a contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"quant_matmul kernel needs a 16-byte aligned {name}")
+    return _row_stride(q, "weight"), _row_stride(scale, "scale")
 
 
 #: Per-device arrival counters of the split-K merge, int32, zeroed once and
@@ -376,18 +384,19 @@ def _arrivals(device: torch.device, count: int) -> torch.Tensor:
     return arr
 
 
-def _buffers(p: dict, device, m: int, n: int, k: int, form: str):
+def _buffers(p: dict, device, m: int, ldx: int, form: str):
     """(xq, xs, part, arrivals) pointers of one launch, in the C entry
-    point's order — W8A8's quantized activations and scales, the split-K
-    workspace (no memset: every partial the merge reads is written first)
-    and counters — and the tensors that hold them."""
+    point's order — W8A8's quantized activations (rows of ``ldx``) and
+    scales, the split-K workspace (no memset: every partial the merge
+    stores is written first) and counters — and the tensors that hold
+    them."""
     part = arrivals = xq = xs = None
     if p["splits"] > 1:
         dtype = torch.int32 if form == "w8a8" else torch.float32
-        part = torch.empty(p["splits"] * m * n, dtype=dtype, device=device)
+        part = torch.empty(p["splits"] * m * p["ldp"], dtype=dtype, device=device)
         arrivals = _arrivals(device, p["counters"])
     if form == "w8a8":
-        xq = torch.empty((m, k), dtype=torch.int8, device=device)
+        xq = torch.empty((m, ldx), dtype=torch.int8, device=device)
         xs = torch.empty((m,), dtype=torch.float32, device=device)
     held = (xq, xs, part, arrivals)
     return tuple(None if t is None else t.data_ptr() for t in held), held
@@ -402,16 +411,19 @@ def _raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
-def _entry(key, m, k, form, layout, qshape, sshape, in_dim, group_size, device):
+def _entry(key, m, k, form, layout, qshape, sshape, in_dim, group_size, device,
+           ldw, lds):
     n, wrows, groups = _check_shapes(k, form, layout, qshape, sshape, in_dim,
                                      group_size)
     gs = group_size if form == "int4" else 0
     p = launch_plan(m, n, k, form, layout, gs or 128)
-    geo = (ctypes.c_int * 14)(m, n, k, wrows, groups, gs, _FORM_ID[form],
+    ldx = -(-k // 16) * 16
+    geo = (ctypes.c_int * 17)(m, n, k, wrows, groups, gs, _FORM_ID[form],
                               _LAYOUT_ID[layout], p["id"], p["splits"],
-                              p["unit_slabs"], p["xpiece"], p["srows"], p["stages"])
-    bufs = _buffers(p, device, m, n, k, form) if m <= SMALL_MAX_M else None
-    entry = _PLANS[key] = (n, p, geo, ctypes.addressof(geo), bufs)
+                              p["unit_slabs"], p["xpiece"], p["srows"], p["stages"],
+                              ldx, ldw, lds)
+    bufs = _buffers(p, device, m, ldx, form) if m <= SMALL_MAX_M else None
+    entry = _PLANS[key] = (n, p, ldx, ctypes.addressof(geo), bufs, geo)
     return entry
 
 
@@ -426,22 +438,27 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
                      group_size=group_size)
     if device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda or cpu, not {device}")
-    _check_tensors(x, q, scale)
+    ldw, lds = _check_tensors(x, q, scale)
     k = x.shape[-1]
     x2 = x if x.dim() == 2 else x.reshape(-1, k)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.clone(memory_format=torch.contiguous_format)
     m = x2.shape[0]
-    key = (device, m, k, form, layout, q.shape, scale.shape, in_dim, group_size)
+    key = (device, m, k, form, layout, q.shape, scale.shape, in_dim, group_size,
+           ldw, lds)
     entry = _PLANS.get(key)
     if entry is None:
         entry = _entry(key, m, k, form, layout, tuple(q.shape), tuple(scale.shape),
-                       in_dim, group_size, device)
-    n, p, _geo, geo_ptr, bufs = entry
+                       in_dim, group_size, device, ldw, lds)
+    n, p, ldx, geo_ptr, bufs, _geo = entry
+    if ldx != k:
+        # A K tail: rows of whole 16 k, zero past K (the kernel reads them
+        # as 0; W8A8's quantizer finds no larger |x| there).
+        x2 = torch.nn.functional.pad(x2, (0, ldx - k))
+    elif not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     out = torch.empty((m, n), dtype=x.dtype, device=device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
-    ptrs, _held = bufs or _buffers(p, device, m, n, k, form)
+    ptrs, _held = bufs or _buffers(p, device, m, ldx, form)
     fn = _FN or _fn()
     if device.index == torch.cuda.current_device():
         rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), *ptrs,

@@ -4,6 +4,7 @@ yet are rejected with their ROADMAP.md port-queue item, and ``serve
 --backend gpu --device cpu`` brings up a working engine backend (on the
 CPU, as the tests run)."""
 
+import argparse
 import asyncio
 
 import pytest
@@ -73,7 +74,6 @@ def test_env_names_match_the_jax_cli(monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--prefix-cache-dir", "/x"], "spill tier, snapshots"),
     (["--spill-pages", "4"], "spill tier, snapshots"),
-    (["--ckpt", "/x"], "checkpoints and MoE"),
     (["--role", "prefill"], "spill tier, snapshots"),
     (["--ep", "2"], "parallel/"),
     (["--sp", "2"], "parallel/"),
@@ -85,6 +85,26 @@ def test_unported_flags_exit_with_their_queue_item(extra, item):
     with pytest.raises(SystemExit) as exc:
         cli._engine_config(args)
     assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
+
+
+def test_ckpt_flag_reaches_the_engine_config(monkeypatch):
+    """``--ckpt`` and its ``TUNNEL_CKPT`` environment default map onto
+    ``EngineConfig.ckpt_path`` as the JAX CLI's do.  A stated divergence:
+    the port's ``--ckpt`` reads a ``models.checkpoint.save_checkpoint``
+    directory, not a JAX orbax one (the help says so)."""
+    monkeypatch.delenv("TUNNEL_CKPT", raising=False)
+    assert cli._engine_config(cli.build_parser().parse_args(SERVE)).ckpt_path is None
+    flags = ["--ckpt", "/ckpt/llama"]
+    ecfg = cli._engine_config(cli.build_parser().parse_args(SERVE + flags))
+    jargs = j_cli.build_parser().parse_args(["serve", "--backend", "tpu", "--room",
+                                             "r"] + flags)
+    assert ecfg.ckpt_path == jargs.ckpt == "/ckpt/llama"
+    monkeypatch.setenv("TUNNEL_CKPT", "/ckpt/env")
+    assert cli._engine_config(cli.build_parser().parse_args(SERVE)).ckpt_path == "/ckpt/env"
+    serve = next(a for a in cli.build_parser()._actions
+                 if isinstance(a, argparse._SubParsersAction)).choices["serve"]
+    help_text = next(a.help for a in serve._actions if "--ckpt" in a.option_strings)
+    assert "save_checkpoint" in help_text and "orbax" in help_text
 
 
 def test_spec_flags_reach_the_engine_config(monkeypatch):

@@ -166,9 +166,6 @@ def test_construction_guards():
     with pytest.raises(NotPorted, match="ROADMAP"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, spill_pages=4),
                         device="cpu")
-    with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, ckpt_path="/x"),
-                        device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int2"),
                         device="cpu")
@@ -179,6 +176,8 @@ def test_construction_guards():
 
 
 def test_unported_endpoints_answer_typed_errors(weights):
+    """The embeddings endpoint, once unported (a typed 502), now answers
+    200 with one unit-norm vector of the model's width."""
     _, tp = weights
     engine = InferenceEngine(engine_cfg=EngineConfig(**ENGINE), params=tp,
                              device="cpu")
@@ -192,4 +191,7 @@ def test_unported_endpoints_answer_typed_errors(weights):
             return resp.status, await resp.read_all()
 
     status, body = asyncio.run(run())
-    assert status == 502 and b"not ported" in body
+    assert status == 200
+    vec = json.loads(body)["data"][0]["embedding"]
+    assert len(vec) == engine.mcfg.dim
+    assert abs(np.linalg.norm(vec) - 1.0) < 1e-5

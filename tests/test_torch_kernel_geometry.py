@@ -29,7 +29,11 @@ row per slot) and the fused verify layer (kernel 5) share, on the CPU:
   blocks an SM at decode), the workspace and counters the plan states, and
   stages whose weight share is the source note's; shared memory that fits
   two decode blocks an SM, or one prefill block, in every form, layout and
-  group size.
+  group size; and the shapes the reference serves beyond llama3-8b's:
+  tiny-qwen's head (N 259: column tiles past N, workspace rows of 260),
+  int4 groups of 2, 8 and 24 (scale rows covering every byte row's group,
+  splits of whole groups, two decode blocks an SM down to group 8) and a
+  contracted length no multiple of 16.
 """
 
 import pytest
@@ -365,3 +369,57 @@ def test_kernel7_shared_memory_fits_two_blocks(plan, form, layout):
         # rows of 128 f32 at group 128.
         st = qm.stage_layout("decode", "int4", "kn", 128)
         assert (st["w_bytes"], st["s_bytes"], st["stage_bytes"]) == (16384, 1024, 17408)
+
+
+@pytest.mark.parametrize("m", KERNEL7_ROWS)
+@pytest.mark.parametrize("form", qm.FORMS)
+def test_kernel7_plan_at_tiny_qwens_head(form, m):
+    """tiny-qwen's untied head, N 259 x K 64: the column tiles cover N (the
+    last one mostly past it, where TMA zero-fills and no store lands), the
+    merge workspace has rows of 260 (whole 16-byte pieces of partials)."""
+    p = qm.launch_plan(m, 259, 64, form, "kn", 32)
+    gm, gn, splits = p["grid"]
+    assert (gn - 1) * p["bn"] < 259 <= gn * p["bn"]
+    assert (gm - 1) * p["bm"] < m <= gm * p["bm"]
+    assert p["ldp"] == 260
+    assert p["workspace_bytes"] == (splits * m * 260 * 4 if splits > 1 else 0)
+    assert p["smem"] <= kernel_build.MAX_SMEM_BYTES
+    if p["plan"] == "decode":
+        assert 2 * (p["smem"] + BLOCK_RESERVED) <= SM_BYTES
+
+
+@pytest.mark.parametrize("m", [1, 17, 153, 1024])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("gs", [2, 8, 24])
+def test_kernel7_plan_at_narrow_int4_groups(gs, layout, m):
+    """int4 groups narrower than a 16-deep k-step (llama3-8b's wk shape):
+    a stage's scale rows hold every group its slab's byte rows touch (a
+    byte's two k share a group), splits start on group boundaries, and the
+    ring fits two decode blocks an SM down to group 8 (group 2's 128 scale
+    rows a stage take one block's shared memory)."""
+    n, k = 1024, 4096
+    p = qm.launch_plan(m, n, k, "int4", layout, gs)
+    bk = p["bk"]
+    for s in range(p["nslabs"]):
+        first, last = s * bk // gs, (s * bk + bk - 2) // gs
+        assert last - first + 1 <= p["srows"] <= 256
+    for k0, _ in qm.split_ranges(p, k):
+        assert k0 % gs == 0 and k0 % bk == 0
+    assert p["smem"] <= kernel_build.MAX_SMEM_BYTES and p["stages"] >= 2
+    if p["plan"] == "decode":
+        assert p["xpiece"] >= bk
+        assert (2 * (p["smem"] + BLOCK_RESERVED) <= SM_BYTES) == (gs >= 8)
+    if (gs, p["plan"]) == (8, "decode"):
+        assert p["srows"] == 32
+    if (gs, p["plan"]) == (24, "decode"):
+        assert p["srows"] == 12
+
+
+@pytest.mark.parametrize("form", qm.FORMS)
+def test_kernel7_plan_at_a_k_tail(form):
+    """K 4100: the splits cover it to its last position in whole slabs (the
+    last partial; x is zero-padded to 4112 by the wrapper)."""
+    p = qm.launch_plan(17, 1024, 4100, form, "kn", 128)
+    ranges = qm.split_ranges(p, 4100)
+    assert ranges[0][0] == 0 and ranges[-1][1] == 4100
+    assert p["nslabs"] == -(-4100 // p["bk"])

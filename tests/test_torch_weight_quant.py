@@ -23,7 +23,8 @@ package, on the CPU.
   fused decode and speculation.
 - The engine's construction rules (odd and unknown modes refused, an
   injected int4 tree's group size wins, w8a8 turns ``act_quant`` on) and
-  the card's group-size fence; the CLI's three flags and their env names.
+  the card's group-size rule (every even size, as the JAX package); the
+  CLI's three flags and their env names.
 - On CPU tensors kernel 7's wrapper runs its plain version and counts no
   launch; the card-only comparison is marked ``cuda`` and skips here.
 """
@@ -500,13 +501,15 @@ def test_engine_refuses_bad_quant_configs(kw, match):
 
 
 @pytest.mark.parametrize("gs,ok", [(16, True), (32, True), (48, True), (64, True),
-                                   (128, True), (256, True), (8, False), (24, False),
-                                   (30, False), (0, False)])
+                                   (128, True), (256, True), (8, True), (24, True),
+                                   (30, True), (2, True), (0, False), (33, False)])
 def test_group_size_fence_on_the_card(gs, ok):
-    why = qm.group_size_fence(gs)
+    """Kernel 7 takes every even int4 group size at llama3-8b's widths,
+    as the JAX package serves them; odd and empty groups are refused."""
+    why = qm.shape_fence(14336, "int4", gs)
     assert (why is None) == ok
-    if not ok:
-        assert "multiple of 16" in why
+    model = qm.model_fence(get_config("llama3-8b"), "int4", gs)
+    assert (model is None) == ok and (ok or why in model and "even" in why)
 
 
 def test_engine_applies_the_fence_only_on_the_card():
@@ -514,13 +517,15 @@ def test_engine_applies_the_fence_only_on_the_card():
     e = InferenceEngine(engine_cfg=EngineConfig(**ENGINE, quant="int4",
                                                 quant_group_size=8), device="cpu")
     assert e.params["blocks"]["wq"].group_size == 8
-    # On a CUDA device the same weights are refused at construction.
+    # A CUDA engine takes the same weights at construction (model_fence
+    # passes), laid out as kernel 7 reads them.
     eng = InferenceEngine.__new__(InferenceEngine)
     eng.ecfg = EngineConfig(**ENGINE, quant="int4", quant_group_size=8)
     eng.mcfg = e.mcfg
     eng.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="multiple of 16"):
-        eng._init_weights(e.params, torch.bfloat16)
+    got = eng._init_weights(e.params, torch.bfloat16)
+    assert got["blocks"]["wq"].group_size == 8
+    assert got["blocks"]["wq"].q.stride(-2) % 16 == 0
 
 
 SERVE = ["serve", "--backend", "gpu", "--model", "tiny", "--slots", "4",
