@@ -76,6 +76,28 @@ Phases (any failure exits non-zero before the result line):
    tunnel are byte-identical to an engine injected with the converted
    weights; file bytes and load seconds.  Each prints its seconds and peak
    memory beside the card's name and power limit.
+10. the prefix pool's host-RAM spill tier, pool snapshots and KV_PAGES
+   disaggregation on phase 5's llama3-8b weights (run after phase 7,
+   while those weights live): (a) phase 5's conversations on the serve
+   defaults + ``--ragged-prefill --spill-pages 256`` with an 84-block pool,
+   below their working set (printed): pages go out, the second turns of at
+   least 4 conversations take their history through page-ins, every
+   spliced page re-exports with its page-out checksum, every stream
+   finishes, no copy stays in flight, and the launch checks of phase 5
+   hold; then one new conversation of the system prompt, and the engine
+   stops and saves its pool under ``build/chip_smoke_snapshot`` (removed
+   after); the same with ``--kv-quant int4 --fused-decode-layer`` (packed
+   pages); per-page ms, host-tier bytes and agreement with the tier-off
+   engine printed; (b) a fresh engine from the same flags restores the
+   pool (its checksum the saved one), its index matches the system
+   prompt's 19 pages before any prefill, and an engine at ``--kv-quant
+   int8`` on the directory starts cold; file bytes, save and load
+   seconds; (c) a ``--role prefill`` and a ``--role decode`` engine on one
+   weight tree behind ``run_proxy_fabric``: the conversations through the
+   fabric, every page shipped offered to the decode peer and either
+   spliced or already resident there, no fallback and no refusal, every
+   spliced page re-exported with the sender's checksum, no transfer in
+   flight after; transfer bytes, ms a page and TTFT against phase 5.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -1927,32 +1949,35 @@ async def _conv_turn(base: str, prompt_ids, max_tokens: int, ndjson: bool):
                 seconds=time.monotonic() - t0)
 
 
-async def mux_phase(engine) -> dict:
+async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True) -> dict:
     """8 two-turn conversations through the tunnel on a serving engine
-    (phases 5-9); the kernel checks follow the engine's KV form, decode
+    (phases 5-10); the kernel checks follow the engine's KV form, decode
     kernel and ragged switch, kernel 1 once per layer per whole-prompt
     wave; on an engine with the prefix pool (the serve defaults) its
-    counters rose and each second turn hit its first turn's answer."""
+    counters rose and (``hit_gate``) each second turn hit its first
+    turn's answer.  ``tunnel`` (default: ``_Tunnel(engine)``) fronts the
+    engines; the dispatches of ``peers`` (engines of the same form behind
+    it) count toward the launch checks too."""
     from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
 
     waves, dispatches, steps, spec, hist_of = [0], [0], [0], [0], {}
-    prefill, ragged_rows, decode_fn, dispatch_spec = (
-        engine._dispatch_prefill_batch, engine._dispatch_ragged_rows,
-        engine._decode_fn, engine._dispatch_spec)
     pool = engine._prefix
     match = pool.match if pool is not None else None
+    wrapped = ("_dispatch_prefill_batch", "_dispatch_ragged_rows", "_decode_fn",
+               "_dispatch_spec")
+    saved = [(e, {n: getattr(e, n) for n in wrapped}) for e in (engine, *peers)]
 
-    def counted_prefill(*a, **kw):
-        waves[0] += 1
-        return prefill(*a, **kw)
+    def counted(tally, fn, n=lambda a: 1):
+        def call(*a, **kw):
+            tally[0] += n(a)
+            return fn(*a, **kw)
+        return call
 
-    def counted_ragged(rows):
-        dispatches[0] += 1
-        return ragged_rows(rows)
-
-    def counted_decode(*a, **kw):
-        steps[0] += a[5]
-        return decode_fn(*a, **kw)
+    for e, fns in saved:
+        e._dispatch_prefill_batch = counted(waves, fns["_dispatch_prefill_batch"])
+        e._dispatch_ragged_rows = counted(dispatches, fns["_dispatch_ragged_rows"])
+        e._decode_fn = counted(steps, fns["_decode_fn"], lambda a: a[5])
+        e._dispatch_spec = counted(spec, fns["_dispatch_spec"])
 
     def recorded_match(prompt_ids):
         hist, ids = match(prompt_ids)
@@ -1960,16 +1985,8 @@ async def mux_phase(engine) -> dict:
         hist_of[key] = max(hist_of.get(key, 0), hist)
         return hist, ids
 
-    def counted_spec(**kw):
-        spec[0] += 1
-        return dispatch_spec(**kw)
-
-    engine._dispatch_prefill_batch = counted_prefill
-    engine._dispatch_ragged_rows = counted_ragged
-    engine._decode_fn = counted_decode
     if pool is not None:
         pool.match = recorded_match
-    engine._dispatch_spec = counted_spec
     counters = ("engine_prefix_hit_tokens_total",
                 "engine_prefix_dedup_hits_total",
                 "engine_conv_saved_pages_total", "engine_conv_hits_total",
@@ -1980,7 +1997,7 @@ async def mux_phase(engine) -> dict:
                             f"tunnel carry request {i}? ".encode() * (1 + i % 2))
               for i in range(N_CONV)]
     try:
-        async with _Tunnel(engine) as base:
+        async with (tunnel or _Tunnel(engine)) as base:
             before = {c: global_metrics.counter(c) for c in counters}
             reset_counters()
             t0 = time.monotonic()
@@ -1989,6 +2006,7 @@ async def mux_phase(engine) -> dict:
                 for i, p in enumerate(firsts)])
             seconds = [p + r["ids"] + list(b" And what happens next?")
                        for p, r in zip(firsts, one)]
+            t_two = time.monotonic()
             two = await asyncio.gather(*[
                 _conv_turn(base, p, TURN2_TOKENS, ndjson=False) for p in seconds])
             wall = time.monotonic() - t0
@@ -1996,12 +2014,11 @@ async def mux_phase(engine) -> dict:
             calls = dict(MODEL_CALLS)
             deltas = {c: global_metrics.counter(c) - before[c] for c in counters}
     finally:
-        engine._dispatch_prefill_batch = prefill
-        engine._dispatch_ragged_rows = ragged_rows
-        engine._decode_fn = decode_fn
+        for e, fns in saved:
+            for n, fn in fns.items():
+                setattr(e, n, fn)
         if pool is not None:
             pool.match = match
-        engine._dispatch_spec = dispatch_spec
     for r, want in zip(one + two, [TURN1_TOKENS] * N_CONV + [TURN2_TOKENS] * N_CONV):
         if len(r["ids"]) != want or r["finish"] != "length":
             raise AssertionError(f"conversation stream ended early: {r}")
@@ -2010,7 +2027,7 @@ async def mux_phase(engine) -> dict:
         for name in counters[:3]:
             if deltas[name] <= 0:
                 raise AssertionError(f"{name} did not rise: {deltas}")
-        for i, (p1, p2) in enumerate(zip(firsts, seconds)):
+        for i, (p1, p2) in enumerate(zip(firsts, seconds) if hit_gate else ()):
             hist = hist_of.get(tuple(p2), 0)
             # Past the system prompt AND past turn 1's prompt pages: into
             # the answer's conversation-cache pages.
@@ -2029,7 +2046,8 @@ async def mux_phase(engine) -> dict:
     check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
                           calls)
     ttfts = [r["ttft"] for r in one + two]
-    return dict(one=one, two=two, wall=wall, launches=launches, calls=calls,
+    return dict(one=one, two=two, seconds=seconds, t_two=t_two, wall=wall,
+                launches=launches, calls=calls,
                 waves=waves[0], dispatches=dispatches[0], steps=steps[0], spec=spec[0],
                 deltas=deltas,
                 hists=[hist_of.get(tuple(p), 0) for p in seconds],
@@ -2566,6 +2584,494 @@ def ckpt_phase(name: str, add_launches) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the prefix pool's host-RAM spill tier, pool snapshots and
+# KV_PAGES prefill/decode disaggregation, at llama3-8b's full width
+# ---------------------------------------------------------------------------
+
+SPILL_PAGES = 256
+#: The spill engines' pool: below the conversations' working set (printed),
+#: so pages must leave the pool and come back.
+SPILL_POOL_BLOCKS = 84
+SNAPSHOT_DIR = "build/chip_smoke_snapshot"
+#: Full pool pages of the shared system prompt.
+SYS_BLOCKS = len(SYSTEM_PROMPT.encode()) // 16
+#: Conversations whose second turn must take history through page-ins.
+MIN_PAGED_IN_CONVS = 4
+#: New conversations of the shared system prompt: the last request 10a's
+#: engine serves before it stops and saves, and 10b's first request.
+SYSTEM_QUESTIONS = (" One more question before the restart?",
+                    " A new conversation: what is a page?")
+
+
+async def system_turn(engine, question: str, max_tokens: int) -> dict:
+    """One new conversation of the shared system prompt through the tunnel
+    (the engine started by the caller); returns its stream and the pool
+    hit of its first match."""
+    pi, hits = engine._prefix, []
+    match = pi.match
+
+    def first_match(prompt_ids):
+        out = match(prompt_ids)
+        hits.append(out[0])
+        return out
+
+    pi.match = first_match
+    try:
+        async with _Tunnel(engine) as base:
+            r = await _conv_turn(base, list((SYSTEM_PROMPT + question).encode()),
+                                 max_tokens, ndjson=False)
+    finally:
+        pi.match = match
+    if not hits or len(r["ids"]) != max_tokens:
+        raise AssertionError(f"system-prompt request: hits {hits}, {r}")
+    return dict(r, hit=hits[0])
+
+
+class SpillProbe:
+    """An engine's page copies, instrumented for one phase (executor
+    thread): the ms and pages of each page-out and page-in batch (the
+    engine's own copies, checksums and verification included), the time
+    each page spliced, and a re-export of every spliced page right after
+    its splice, held against the checksum it carried (a page-out's, or
+    the sender's for a KV_PAGES transfer).  On a decode peer it also
+    counts each transfer's pages: offered, and already resident (a page
+    the receiver holds is skipped, not spliced)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.out_batches, self.in_batches = [], []
+        self.spliced = []  # (monotonic time, key)
+        self.checked, self.mismatched = 0, []
+        self.offered = self.resident = 0
+        self.import_ms = []
+        self._orig = (engine._spill_copy_out, engine._spill_copy_in,
+                      engine.import_kv_pages)
+        engine._spill_copy_out = self._copy_out
+        engine._spill_copy_in = self._copy_in
+        engine.import_kv_pages = self._import
+
+    def restore(self) -> None:
+        e = self.engine
+        e._spill_copy_out, e._spill_copy_in, e.import_kv_pages = self._orig
+
+    def _copy_out(self, plan):
+        t0 = time.monotonic()
+        out = self._orig[0](plan)
+        self.out_batches.append(((time.monotonic() - t0) * 1e3, len(plan)))
+        return out
+
+    def _copy_in(self, items):
+        from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import (
+            page_checksum,
+            page_out,
+        )
+
+        t0 = time.monotonic()
+        results = self._orig[1](items)
+        self.in_batches.append(((time.monotonic() - t0) * 1e3, len(items)))
+        want = {key: page.checksum for key, _idx, page in items}
+        for key, idx, ok in results:
+            if not ok:
+                continue
+            self.spliced.append((time.monotonic(), key))
+            self.checked += 1
+            if page_checksum(page_out(self.engine._pool, idx)) != want[key]:
+                self.mismatched.append(key.hex())
+        return results
+
+    async def _import(self, meta, pages, blobs):
+        pi = self.engine._prefix
+        self.offered += len(pages)
+        self.resident += sum(1 for spec in pages
+                             if pi.id_of(bytes.fromhex(str(spec["key"]))) is not None)
+        t0 = time.monotonic()
+        try:
+            return await self._orig[2](meta, pages, blobs)
+        finally:
+            self.import_ms.append((time.monotonic() - t0) * 1e3)
+
+    @staticmethod
+    def per_page(batches) -> float:
+        pages = sum(n for _, n in batches)
+        return sum(ms for ms, _ in batches) / pages if pages else float("nan")
+
+
+def divergence(a_runs, b_runs) -> list:
+    """Tokens before the first difference, per stream."""
+    out = []
+    for a, b in zip(a_runs, b_runs):
+        out.append(next((i for i, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y),
+                        min(len(a["ids"]), len(b["ids"]))))
+    return out
+
+
+def page_costs(engine, idx: int = 1, reps: int = 5) -> dict:
+    """Median ms of one pool page's parts of a spill copy, on this
+    engine's pool (the engine stopped): the card-to-host copies
+    (``page_out``), the checksum over them, and the host-to-card copies
+    (``page_in``, writing the slot's own bytes back)."""
+    from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import (
+        page_checksum,
+        page_in,
+        page_out,
+    )
+
+    pool = engine._pool
+    payload = page_out(pool, idx)
+    parts = {"page_out": lambda: page_out(pool, idx),
+             "checksum": lambda: page_checksum(payload),
+             "page_in": lambda: page_in(pool, idx, payload)}
+    out = {}
+    for part, fn in parts.items():
+        times = []
+        for _ in range(reps):
+            t0 = time.monotonic()
+            fn()
+            if engine.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        out[part] = statistics.median(times)
+    return out
+
+
+def spill_run(tag: str, params, cfg, flags, name: str, ref: dict, add_launches,
+              snapshot: bool = False):
+    """[10a] Phase 5's conversations on the serve defaults + ragged prefill
+    + ``--spill-pages`` with a pool below their working set (``snapshot``:
+    then one new conversation of the system prompt, before the engine
+    stops and saves its pool); returns the stopped engine, the run and the
+    save's seconds."""
+    from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+
+    engine = cli_engine(params, cfg, "--ragged-prefill", "--spill-pages",
+                        str(SPILL_PAGES), "--prefix-pool-blocks",
+                        str(SPILL_POOL_BLOCKS), *flags)
+    pi = engine._prefix
+    probe = SpillProbe(engine)
+    save_s = []
+    save = engine.save_prefix_snapshot
+
+    def timed_save():
+        t0 = time.monotonic()
+        save()
+        save_s.append(time.monotonic() - t0)
+
+    engine.save_prefix_snapshot = timed_save
+    before = {c: global_metrics.counter(c) for c in
+              ("engine_spill_pageouts_total", "engine_spill_pageins_total",
+               "engine_spill_pagein_failures_total")}
+    async def phase(e):
+        m = await mux_phase(e, hit_gate=False)
+        if snapshot:
+            m["last"] = await system_turn(e, SYSTEM_QUESTIONS[0], 4)
+        return m
+
+    try:
+        t_ready, m = run_engine(engine, phase)
+    finally:
+        probe.restore()
+        engine.save_prefix_snapshot = save
+    deltas = {c: global_metrics.counter(c) - v for c, v in before.items()}
+    costs = page_costs(engine)
+    wanted = len({k for p in m["seconds"] for k in pi._keys_of(p)})
+    paged = {k for t, k in probe.spliced if t >= m["t_two"]}
+    convs = [i for i, p in enumerate(m["seconds"])
+             if paged & set(pi._keys_of(p)[SYS_BLOCKS:])]
+    print_mux(tag, engine, m, t_ready, name)
+    print(f"{tag} pool {SPILL_POOL_BLOCKS} blocks (page {engine._prefix_block_bytes} "
+          f"bytes) against {wanted} blocks the conversations want; spill tier "
+          f"{SPILL_PAGES} pages; page-outs {pi.spill_pageouts}, page-ins "
+          f"{pi.spill_pageins}, tier drops {pi.spill_drops}, evictions "
+          f"{pi.evictions}; counters {deltas}")
+    print(f"{tag} page-out {SpillProbe.per_page(probe.out_batches):.3f} ms a page "
+          f"({sum(n for _, n in probe.out_batches)} pages in "
+          f"{len(probe.out_batches)} batches), page-in "
+          f"{SpillProbe.per_page(probe.in_batches):.3f} ms a page "
+          f"({sum(n for _, n in probe.in_batches)} pages in "
+          f"{len(probe.in_batches)} batches), copy + checksum + verify on the "
+          f"engine's executor; one page alone, median of 5: page_out "
+          f"{costs['page_out']:.3f} ms, checksum {costs['checksum']:.3f} ms, "
+          f"page_in {costs['page_in']:.3f} ms ({name})")
+    print(f"{tag} host tier {pi.spill_resident} pages = "
+          f"{pi.spill_resident * engine._prefix_block_bytes} bytes; turn-2 "
+          f"conversations with history paged in: {convs}; turn-2 pool hits "
+          f"{m['hists']} tokens; {probe.checked} spliced pages re-exported "
+          f"with their page-out checksum")
+    print(f"{tag} tokens before the first divergence from the same engine with "
+          f"the tier off (phase {5 if engine.ecfg.kv_quant == 'none' else '6a'}), per stream (turn 1, then turn 2; printed, not required: "
+          f"recomputed and spliced KV run through other batches on the card): "
+          f"{divergence(m['one'] + m['two'], ref['one'] + ref['two'])}")
+    if snapshot:
+        print(f"{tag} then a new conversation of the system prompt: pool hit "
+              f"{m['last']['hit']} tokens, ttft {m['last']['ttft'] * 1e3:.1f} ms; "
+              f"{pi.used_blocks} blocks resident at stop")
+    if pi.spill_pageouts <= 0 or deltas["engine_spill_pageins_total"] <= 0:
+        raise AssertionError(f"{tag} the tier moved no pages: {deltas}")
+    if len(convs) < MIN_PAGED_IN_CONVS:
+        raise AssertionError(f"{tag} only conversations {convs} took turn-2 history "
+                             f"through page-ins (want {MIN_PAGED_IN_CONVS})")
+    if probe.mismatched or probe.checked != pi.spill_pageins:
+        raise AssertionError(f"{tag} {probe.checked} re-exports of {pi.spill_pageins} "
+                             f"page-ins; checksum mismatches {probe.mismatched}")
+    if engine._spill_inflight or global_metrics.gauge("engine_spill_inflight"):
+        raise AssertionError(f"{tag} spill copies still in flight after the drain")
+    add_launches(m["launches"])
+    return engine, m, save_s
+
+
+def snapshot_phase(params, cfg, flags, save_s: float, name: str) -> None:
+    """[10b] A fresh engine from 10a's flags restores the pool 10a's engine
+    saved at stop: its checksum is the saved one, the first request of the
+    shared system prompt hits every system-prompt page before any
+    prefill; an engine at ``--kv-quant int8`` on the directory starts cold."""
+    import os
+
+    from p2p_llm_tunnel_tpu_torch.engine import engine as em
+    from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import page_checksum, to_host
+
+    files = {f: os.path.getsize(os.path.join(SNAPSHOT_DIR, f))
+             for f in ("prefix_pool.npz", "prefix_index.json")}
+    with open(os.path.join(SNAPSHOT_DIR, "prefix_index.json")) as f:
+        saved = json.load(f)
+    load, load_s = em.load_pool_snapshot, []
+
+    def timed_load(*a):
+        t0 = time.monotonic()
+        out = load(*a)
+        load_s.append(time.monotonic() - t0)
+        return out
+
+    em.load_pool_snapshot = timed_load
+    try:
+        warm = cli_engine(params, cfg, "--ragged-prefill", "--spill-pages",
+                          str(SPILL_PAGES), "--prefix-pool-blocks",
+                          str(SPILL_POOL_BLOCKS), *flags)
+    finally:
+        em.load_pool_snapshot = load
+    pi = warm._prefix
+    restored = page_checksum({k: to_host(v) for k, v in warm._pool.items()}).hex()
+    restored_blocks = pi.used_blocks
+    if restored_blocks == 0 or restored != saved["pool_checksum"]:
+        raise AssertionError(f"[10b] restored {restored_blocks} blocks, checksum "
+                             f"{restored} vs saved {saved['pool_checksum']}")
+    # The restored index answers the system prompt before any request: the
+    # request's own admission first reserves pool pages for its insert, and
+    # in a full pool that eviction takes the cheapest pages, which are the
+    # shallow system-prompt pages (GreedyDual prices a page by its depth).
+    prompt = list((SYSTEM_PROMPT + SYSTEM_QUESTIONS[1]).encode())
+    hist = pi.match(prompt)[0]
+    if hist < SYS_BLOCKS * 16:
+        raise AssertionError(f"[10b] the restored pool holds {hist} tokens of the "
+                             f"system prompt, want >= {SYS_BLOCKS * 16}")
+
+    async def first_request():
+        await warm.start()
+        try:
+            await warm.warmup()
+            return await system_turn(warm, SYSTEM_QUESTIONS[1], 16)
+        finally:
+            await warm.stop()
+
+    hit = asyncio.run(first_request())["hit"]
+    free_engine(warm)
+    del warm
+    cold = cli_engine(params, cfg, "--ragged-prefill", "--spill-pages",
+                      str(SPILL_PAGES), "--prefix-pool-blocks", str(SPILL_POOL_BLOCKS),
+                      *flags, "--kv-quant", "int8")
+    cold_blocks = cold._prefix.used_blocks
+    free_engine(cold)
+    del cold
+    if cold_blocks:
+        raise AssertionError(f"[10b] the int8 engine restored {cold_blocks} blocks")
+    print(f"[10b] {SNAPSHOT_DIR}: {files} bytes; save {save_s:.3f} s at stop, load "
+          f"{load_s[0]:.3f} s at construction ({name}); restored "
+          f"{restored_blocks} pool blocks, pool checksum equal to the saved one; "
+          f"the restored index matched {hist} tokens of a new system-prompt "
+          f"conversation (system prompt {SYS_BLOCKS} pages) before any prefill; "
+          f"that request then hit {hit} tokens through the tunnel; --kv-quant "
+          f"int8 on the same directory started cold")
+
+
+class _Fabric:
+    """Prefill and decode peers behind one ``run_proxy_fabric`` with
+    ``ProxyState(fabric=True)``, each peer's ``run_serve`` on its own
+    loopback channel (engines started by the caller); ``async with`` yields
+    the proxy's base URL."""
+
+    def __init__(self, peers: dict):
+        self.peers = peers
+
+    async def __aenter__(self):
+        from p2p_llm_tunnel_tpu_torch.endpoints.proxy import ProxyState, run_proxy_fabric
+        from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
+        from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
+        from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
+
+        state = ProxyState(tenant_fallback="chip-smoke", fabric=True)
+        # Each handoff leg timed with its bytes: (leg, ms, bytes).
+        self.legs = []
+        fetch, push = state.kv_export_fetch, state.kv_splice_push
+
+        async def timed_fetch(*a):
+            t0 = time.monotonic()
+            got = await fetch(*a)
+            self.legs.append(("export", (time.monotonic() - t0) * 1e3,
+                              len(got[1]) if got else 0))
+            return got
+
+        async def timed_push(*a):
+            t0 = time.monotonic()
+            got = await push(*a)
+            self.legs.append(("splice", (time.monotonic() - t0) * 1e3, len(a[2])))
+            return got
+
+        state.kv_export_fetch, state.kv_splice_push = timed_fetch, timed_push
+        self.chans, self.tasks = [], []
+        for pid, engine in self.peers.items():
+            serve_ch, proxy_ch = loopback_pair()
+            self.chans.append(serve_ch)
+            self.tasks.append(asyncio.create_task(run_serve(
+                serve_ch, backend=engine_backend(engine, MODEL), max_inflight=64)))
+            await state.admit(proxy_ch, pid)
+        ready = asyncio.get_running_loop().create_future()
+        self.tasks.append(asyncio.create_task(run_proxy_fabric(
+            state, "127.0.0.1", 0, ready=ready)))
+        return f"http://127.0.0.1:{await asyncio.wait_for(ready, 30.0)}"
+
+    async def __aexit__(self, *exc):
+        for task in self.tasks:
+            task.cancel()
+        for ch in self.chans:
+            ch.close()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
+def disagg_phase(params, cfg, name: str, ref: dict, add_launches) -> None:
+    """[10c] Phase 5's conversations through a fabric of a ``--role
+    prefill`` and a ``--role decode`` peer on one weight tree: the proxy
+    has the prefill peer export each prompt's pages and splices them into
+    the decode peer before the request goes out."""
+    from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+
+    pre = cli_engine(params, cfg, "--ragged-prefill", "--role", "prefill")
+    dec = cli_engine(params, cfg, "--ragged-prefill", "--role", "decode")
+    probe = SpillProbe(dec)
+    export, export_batches = pre._export_copy_out, []
+
+    def timed_export(pairs):
+        t0 = time.monotonic()
+        out = export(pairs)
+        export_batches.append(((time.monotonic() - t0) * 1e3, len(pairs)))
+        return out
+
+    pre._export_copy_out = timed_export
+    counters = ("proxy_disagg_fallbacks_total", "proxy_disagg_handoffs_total",
+                "engine_page_xfer_bytes_total", "engine_page_refusals_total",
+                "engine_pages_shipped_total", "engine_pages_spliced_total")
+    before = {c: global_metrics.counter(c) for c in counters}
+    fabric = _Fabric({"prefill-0": pre, "decode-0": dec})
+    t0 = time.monotonic()
+
+    async def drive():
+        for e in (pre, dec):
+            await e.start()
+        try:
+            for e in (pre, dec):
+                await e.warmup()
+            t_ready = time.monotonic() - t0
+            return t_ready, await mux_phase(dec, peers=(pre,), tunnel=fabric,
+                                            hit_gate=False)
+        finally:
+            for e in (pre, dec):
+                await e.stop()
+
+    try:
+        t_ready, m = asyncio.run(drive())
+    finally:
+        probe.restore()
+        pre._export_copy_out = export
+    d = {c: global_metrics.counter(c) - v for c, v in before.items()}
+    shipped, spliced = pre.disagg_stats()["pages_shipped"], dec._prefix.wire_spliced
+    print_mux("[10c]", dec, m, t_ready, name)
+    print(f"[10c] handoffs {d['proxy_disagg_handoffs_total']:.0f}, fallbacks "
+          f"{d['proxy_disagg_fallbacks_total']:.0f}, refusals "
+          f"{d['engine_page_refusals_total']:.0f}; pages shipped {shipped} = "
+          f"offered to the decode peer {probe.offered} = spliced {spliced} + already "
+          f"resident there {probe.resident}; transfer bytes "
+          f"{d['engine_page_xfer_bytes_total']:.0f}")
+    print(f"[10c] export {SpillProbe.per_page(export_batches):.3f} ms a page on the "
+          f"prefill peer, splice {SpillProbe.per_page(probe.in_batches):.3f} ms a page "
+          f"on the decode peer, import call {statistics.median(probe.import_ms):.1f} "
+          f"ms median over {len(probe.import_ms)} transfers ({name})")
+    for leg in ("export", "splice"):
+        rows = [(ms, n) for kind, ms, n in fabric.legs if kind == leg]
+        mb = sum(n for _, n in rows) / 1e6
+        secs = sum(ms for ms, _ in rows) / 1e3
+        print(f"[10c] proxy {leg} leg: {len(rows)} transfers, median "
+              f"{statistics.median(ms for ms, _ in rows):.1f} ms, {mb:.1f} MB in "
+              f"{secs:.2f} s of leg time = {mb / secs:.1f} MB/s (the prefill probe "
+              f"and the engines' copies included; legs overlap) ({name})")
+    print(f"[10c] TTFT p50 {m['ttft_p50_ms']:.1f} ms (turn 1 "
+          f"{m['turn1_ttft_p50_ms']:.1f}, turn 2 {m['turn2_ttft_p50_ms']:.1f}) against "
+          f"phase 5's {ref['ttft_p50_ms']:.1f} ms (turn 1 {ref['turn1_ttft_p50_ms']:.1f}, "
+          f"turn 2 {ref['turn2_ttft_p50_ms']:.1f}) ({name}); tokens before the first "
+          f"divergence from phase 5 {divergence(m['one'] + m['two'], ref['one'] + ref['two'])}")
+    stats = (pre.disagg_stats(), dec.disagg_stats())
+    if shipped <= 0 or spliced <= 0 or not (
+            shipped == probe.offered == spliced + probe.resident
+            == d["engine_pages_shipped_total"]):
+        raise AssertionError(f"[10c] shipped {shipped}, offered {probe.offered}, "
+                             f"spliced {spliced}, resident {probe.resident}, {d}")
+    if d["proxy_disagg_fallbacks_total"] or d["engine_page_refusals_total"]:
+        raise AssertionError(f"[10c] fallbacks or refusals: {d}")
+    if any(s["xfer_inflight"] for s in stats):
+        raise AssertionError(f"[10c] transfers in flight after the drain: {stats}")
+    if probe.mismatched or probe.checked != spliced:
+        raise AssertionError(f"[10c] {probe.checked} re-exports of {spliced} spliced "
+                             f"pages; checksum mismatches {probe.mismatched}")
+    add_launches(m["launches"])
+    for e in (pre, dec):
+        free_engine(e)
+
+
+def spill_phases(params, cfg, name: str, ref: dict, ref_int4: dict,
+                 add_launches) -> None:
+    """Phase 10 on phase 5's weights: 10a, 10b, 10c; ``ref`` and
+    ``ref_int4`` are phases 5's and 6a's runs (the tier off)."""
+    import shutil
+
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    try:
+        snap = ("--prefix-cache-dir", SNAPSHOT_DIR)
+        t0 = time.monotonic()
+        engine, _m, save_s = spill_run("[10a]", params, cfg, snap, name, ref,
+                                       add_launches, snapshot=True)
+        free_engine(engine)
+        del engine
+        e4, _m4, _ = spill_run("[10a int4]", params, cfg,
+                               ("--kv-quant", "int4", "--fused-decode-layer"),
+                               name, ref_int4, add_launches)
+        from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import pool_packed_keys
+
+        if (pool_packed_keys(e4.kv_cache) != frozenset({"k", "v"})
+                or e4._pool["k"].shape[2] * 2 != e4._prefix_block):
+            raise AssertionError("[10a int4] pool pages are not packed half pages")
+        free_engine(e4)
+        del e4
+        print(f"[10a] phase {time.monotonic() - t0:.1f} s ({name})")
+        t0 = time.monotonic()
+        snapshot_phase(params, cfg, snap, save_s[0], name)
+        print(f"[10b] phase {time.monotonic() - t0:.1f} s ({name})")
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    disagg_phase(params, cfg, name, ref, add_launches)
+    print(f"[10c] phase {time.monotonic() - t0:.1f} s ({name})")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2815,6 +3321,12 @@ def main() -> int:
         add_launches(short["launches"])
         free_engine(e7b)
         del e7b
+    # Phase 10: the spill tier, pool snapshots and KV_PAGES disaggregation
+    # on phase 5's weights and conversations (runs here, while the weights
+    # live).
+    t0 = time.monotonic()
+    spill_phases(params, cfg, name, mux, m6a, add_launches)
+    print(f"[10] phase {time.monotonic() - t0:.1f} s ({name})")
     del params
     torch.cuda.empty_cache()
 

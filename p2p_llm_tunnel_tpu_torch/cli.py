@@ -165,6 +165,25 @@ def build_parser() -> argparse.ArgumentParser:
                        default=int(_env("TUNNEL_PREFIX_POOL_BLOCKS", "128")),
                        help="prefix-cache pool capacity in KV blocks "
                             "(block 0 is scratch)")
+    serve.add_argument("--spill-pages", type=int,
+                       default=int(_env("TUNNEL_SPILL_PAGES", "0")),
+                       help="host-RAM spill tier capacity in KV pages "
+                            "(0 = off); cold pages migrate out of the "
+                            "card's pool under pressure and splice back "
+                            "on reuse")
+    serve.add_argument("--role",
+                       choices=["both", "prefill", "decode"],
+                       default=_env("TUNNEL_ROLE", "both"),
+                       help="disaggregated serving role: 'prefill' peers "
+                            "take proxy export probes and ship KV pages "
+                            "over the tunnel; 'decode' peers splice "
+                            "shipped pages and stream tokens; 'both' "
+                            "(default) serves classic single-engine")
+    serve.add_argument("--prefix-cache-dir",
+                       default=_env("TUNNEL_PREFIX_CACHE_DIR"),
+                       help="persist the prefix-cache block pool here: warm "
+                            "prompt KV survives serve restarts (loaded at "
+                            "startup when compatible, saved at shutdown)")
     serve.add_argument("--conv-cache", action=argparse.BooleanOptionalAction,
                        default=_env("TUNNEL_CONV_CACHE", "1") == "1",
                        help="cross-request conversation cache (default ON "
@@ -264,9 +283,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: flag -> argparse kwargs; every default is the off value.
 _UNPORTED_FLAGS = {
-    "--prefix-cache-dir": dict(default=None),
-    "--spill-pages": dict(type=int, default=0),
-    "--role": dict(default="both"),
     "--tp": dict(type=int, default=1),
     "--sp": dict(type=int, default=1),
     "--ep": dict(type=int, default=1),

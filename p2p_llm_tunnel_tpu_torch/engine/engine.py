@@ -5,7 +5,8 @@ mux, prefix pool and conversation cache — and the plain non-mux loop, with
 a raw, int8 or packed-int4 KV cache, the unfused or fused decode layer,
 bf16, int8, w8a8 or packed-int4 weights, dense or mixture-of-experts
 models, weights from a ``--ckpt`` file (``models/checkpoint``), and
-mean-pooled embeddings).
+mean-pooled embeddings; the prefix pool's host-RAM spill tier, pool
+snapshots and KV_PAGES export/import for disaggregated prefill/decode).
 
 Continuous batching as in the reference: the KV cache has ``num_slots``
 fixed rows plus one scratch row; every decode burst runs ``steps`` decode
@@ -36,9 +37,8 @@ Burst n is dispatched before burst n-1's tokens are fetched: the fetch
 waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
-What this port does not run yet raises at construction (``EngineConfig``
-knobs set away from their off value) or answers ``NotPorted`` (KV page
-export/import); ROADMAP.md lists each in the port queue.
+What this port does not run yet (``tp``, ``sp``, ``ep``) raises at
+construction; ROADMAP.md lists it in the port queue.
 """
 
 from __future__ import annotations
@@ -56,13 +56,22 @@ import torch
 
 from p2p_llm_tunnel_tpu_torch.engine import sampling
 from p2p_llm_tunnel_tpu_torch.engine.prefix_cache import (
+    PagePinError,
     PrefixIndex,
+    _SpillPage,
     init_pool,
+    load_pool_snapshot,
     make_batch_copy_ops,
     pad_rows,
+    page_checksum,
+    page_in,
+    page_out,
     plan_group_admission,
     plan_inserts,
     pool_packed_keys,
+    save_pool_snapshot,
+    verify_page_pin,
+    wire_dtype_name,
 )
 from p2p_llm_tunnel_tpu_torch.engine.scheduler import (
     GenRequest,
@@ -92,6 +101,8 @@ from p2p_llm_tunnel_tpu_torch.models.transformer import (
 )
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import plan_ragged_group
+from p2p_llm_tunnel_tpu_torch.protocol.frames import MAX_KV_PAGES_PER_XFER
+from p2p_llm_tunnel_tpu_torch.transport.chaos import maybe_spill_chaos
 from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox, global_flight
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 from p2p_llm_tunnel_tpu_torch.utils.metrics import (
@@ -115,6 +126,9 @@ _SHED = object()
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+#: Minimum spill page-out batch per loop iteration (scaled up with the pool).
+_SPILL_BATCH = 8
 
 
 class DeadlineExceeded(Exception):
@@ -148,6 +162,11 @@ class EngineConfig:
     for verify bursts), as do ``spec_ngram`` (the proposer's match length,
     0 = off), ``spec_k`` (proposals per burst) and ``spec_k_max`` (the
     adaptive burst-width cap; 0 = fixed ``spec_k``).
+    ``spill_pages`` (the host-RAM tier's capacity in pool pages),
+    ``prefix_cache_dir`` (a pool snapshot loaded at construction and saved
+    at ``stop()``) and ``role`` ("both" | "prefill" | "decode": KV_PAGES
+    export/import) keep theirs; each needs the prefix cache and is fenced
+    off without it.
     """
 
     model: str = "tiny"
@@ -200,9 +219,6 @@ class EngineConfig:
 
 #: knob -> (values that mean "off", ROADMAP.md port-queue item)
 _UNPORTED = {
-    "prefix_cache_dir": ((None, ""), "spill tier, snapshots and KV_PAGES"),
-    "spill_pages": ((0,), "spill tier, snapshots and KV_PAGES"),
-    "role": (("both",), "spill tier, snapshots and KV_PAGES"),
     "tp": ((1,), "parallel/"),
     "sp": ((1,), "parallel/"),
     "ep": ((1,), "parallel/"),
@@ -372,6 +388,34 @@ class InferenceEngine:
                 "the prefix pool, which prefix_cache=False leaves "
                 "uninitialised",
             )
+        if self.ecfg.spill_pages > 0 and not self.ecfg.prefix_cache:
+            self._fence(
+                "spill_pages", 0,
+                "the spill tier shadows prefix-pool pages, which "
+                "prefix_cache=False leaves uninitialised",
+            )
+        if self.ecfg.role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"unknown engine role {self.ecfg.role!r} "
+                "(both | prefill | decode)"
+            )
+        if self.ecfg.role != "both" and not self.ecfg.prefix_cache:
+            self._fence(
+                "role", "both",
+                "disaggregated prefill/decode ships prefix-pool pages, "
+                "which prefix_cache=False leaves uninitialised",
+            )
+        # Spill tier and KV_PAGES: the pins every page carries across a
+        # tier or tunnel boundary (empty: no page I/O on this engine), the
+        # seeded fault schedule (TUNNEL_SPILL_CHAOS), and the in-flight op
+        # ledgers the leak gates read.
+        self._spill_meta: Dict = {}
+        self._spill_chaos = None
+        self._spill_inflight = 0
+        self._kv_xfer_inflight = 0
+        self._pages_shipped_total = 0
+        self._pages_shipped_pending = 0
+        self._pages_spliced_pending = 0
         if self.ecfg.prefix_cache:
             blk = self.ecfg.min_prefill_bucket
             self._prefix_block = blk
@@ -386,9 +430,17 @@ class InferenceEngine:
             ]
             self._prefix = PrefixIndex(
                 blk, self.ecfg.prefix_pool_blocks, evict=self.ecfg.prefix_evict,
+                spill_pages=self.ecfg.spill_pages,
             )
             self._pool = init_pool(self.kv_cache, blk,
                                    self.ecfg.prefix_pool_blocks)
+            if self.ecfg.prefix_cache_dir:
+                loaded = load_pool_snapshot(
+                    self.ecfg.prefix_cache_dir, self._pool, self._prefix,
+                    self._prefix_snapshot_meta(),
+                )
+                if loaded is not None:
+                    self._pool = loaded
             self._prefix_block_bytes = sum(
                 arr.numel() * arr.element_size() for arr in self._pool.values()
             ) // max(1, self.ecfg.prefix_pool_blocks)
@@ -399,6 +451,11 @@ class InferenceEngine:
                 blk, self._prefix_max_blocks, self.ecfg.prefill_rows,
                 packed_keys=pool_packed_keys(self.kv_cache),
             )
+            # The split roles reuse the spill tier's page I/O and pins for
+            # wire transfers, so both are set up for either consumer.
+            if self.ecfg.spill_pages > 0 or self.ecfg.role != "both":
+                self._spill_meta = self._prefix_snapshot_meta()
+                self._spill_chaos = maybe_spill_chaos()
             # Page reservation at admission; grants are released when the
             # insert lands or in generate()'s finally (every death path).
             self.scheduler.page_reserve = self._reserve_pages
@@ -467,6 +524,8 @@ class InferenceEngine:
         # the methods that own them, read once by the loop's record.
         self._flight_admitted = 0
         self._flight_conv = 0
+        self._flight_pageouts = 0
+        self._flight_pageins = 0
         self._last_mux: Dict[str, object] = {}
         self._last_burst: Tuple[int, int] = (0, 0)
         global_blackbox.set_engine_provider(self._blackbox_state)
@@ -690,6 +749,8 @@ class InferenceEngine:
                     # loop's crash containment.
                     pass
                 self._task = None
+            # Persist warm prompt KV while the pool is still alive.
+            self.save_prefix_snapshot()
             for state in list(self._requests.values()):
                 state.queue.put_nowait(None)
             self._executor.shutdown(wait=False)
@@ -796,6 +857,8 @@ class InferenceEngine:
                 "pages_reserved": self._prefix.reserved_pages,
                 "evictions": self._prefix.evictions,
                 "conv_pending": len(self._conv_pending),
+                "spill_pages": self._prefix.spill_resident,
+                "spill_inflight": self._spill_inflight,
                 "thrash_reallocs": self._prefix.thrash_reallocs,
             },
             "degraded": self.degraded,
@@ -807,9 +870,13 @@ class InferenceEngine:
     # -- admission surface ---------------------------------------------------
 
     def admission_check(self, n: int = 1, tenant: str = "") -> Optional[str]:
-        """Pre-flight admission verdict: None (admit), ``"busy"`` or
-        ``"tenant_overlimit"`` — the reference's queue arithmetic (this
-        port has no spill tier, so never ``"memory"``)."""
+        """Pre-flight admission verdict: None (admit), ``"memory"`` (both
+        KV tiers exhausted: the pool fully reserved AND the spill tier at
+        capacity, checked before and independent of the queue), ``"busy"``
+        or ``"tenant_overlimit"`` — the reference's arithmetic."""
+        if self._memory_exhausted():
+            global_metrics.inc("engine_memory_shed_total")
+            return "memory"
         mw = self.ecfg.max_waiting
         if mw <= 0:
             return None
@@ -867,18 +934,194 @@ class InferenceEngine:
                             torch.from_numpy(valid).to(self.device))
         return out.cpu().numpy()
 
+    # -- disaggregated prefill/decode (KV_PAGES) ----------------------------
+
+    def disagg_stats(self) -> Dict[str, object]:
+        """/healthz ``disagg`` section: role + transfer tallies;
+        ``xfer_inflight`` must read 0 after a drain (the leak gate)."""
+        pi = self._prefix
+        return {
+            "role": self.ecfg.role,
+            "pages_shipped": self._pages_shipped_total,
+            "pages_spliced": pi.wire_spliced if pi is not None else 0,
+            "xfer_inflight": self._kv_xfer_inflight,
+        }
+
+    def _xfer_inflight(self, delta: int) -> None:
+        self._kv_xfer_inflight += delta
+        global_metrics.set_gauge("engine_kv_xfer_inflight",
+                                 self._kv_xfer_inflight)
+
     async def export_kv_pages(self, prompt_ids) -> Optional[Dict]:
-        raise NotPorted("KV page export", "spill/KV_PAGES")
+        """Export the prompt's RESIDENT chain-prefix pages (at most
+        MAX_KV_PAGES_PER_XFER) for a KV_PAGES transfer: walk the resident
+        prefix on the event loop, gather + pin self-check + checksum on
+        the executor.  Returns ``{"meta", "pages", "blobs"}``, or None when
+        nothing is resident (the decode peer then prefills locally).  The
+        pool insert lands one loop tick after a probe stream's first
+        token, so the chain head is polled for up to 2 s."""
+        pi = self._prefix
+        if pi is None or not self._spill_meta:
+            return None
+        keys = pi.chain_keys(prompt_ids)[:MAX_KV_PAGES_PER_XFER]
+        if not keys:
+            return None  # shorter than one block: nothing is ever poolable
+        deadline = time.monotonic() + 2.0
+        while True:
+            pairs: List[Tuple[bytes, int]] = []
+            for key in keys:
+                idx = pi.id_of(key)
+                if idx is None:
+                    break  # only the contiguous resident prefix matches
+                pairs.append((key, idx))
+            if pairs or time.monotonic() >= deadline:
+                break
+            await asyncio.sleep(0.02)
+        if not pairs:
+            return None
+        pi.touch_resident([k for k, _ in pairs])
+        loop = asyncio.get_running_loop()
+        self._xfer_inflight(1)
+        try:
+            result = await loop.run_in_executor(
+                self._executor, self._export_copy_out, pairs
+            )
+        finally:
+            self._xfer_inflight(-1)
+        n = len(result["pages"])
+        total = sum(len(b) for b in result["blobs"])
+        self._pages_shipped_total += n
+        self._pages_shipped_pending += n
+        global_metrics.inc("engine_pages_shipped_total", n)
+        global_metrics.inc("engine_page_xfer_bytes_total", total)
+        return result
+
+    def _export_copy_out(self, pairs) -> Dict:
+        """Executor thread: gather each page to host RAM, re-pin it
+        against this engine's own meta (so an unpinned page never reaches
+        the wire), checksum it, and lay it out as one blob: leaves in
+        sorted-name order, C-order bytes, bf16 as its 2-byte view under
+        the wire dtype ``"bfloat16"``."""
+        t0 = time.monotonic()
+        pages: List[Dict] = []
+        blobs: List[bytes] = []
+        for key, idx in pairs:
+            payload = page_out(self._pool, idx)
+            payload = verify_page_pin(payload, self._spill_meta,
+                                      self._spill_meta)
+            checksum = page_checksum(payload)
+            blob = b"".join(np.ascontiguousarray(payload[name]).tobytes()
+                            for name in sorted(payload))
+            pages.append({
+                "key": key.hex(),
+                "checksum": checksum.hex(),
+                "nbytes": len(blob),
+                "leaves": {
+                    name: {"shape": list(arr.shape),
+                           "dtype": wire_dtype_name(self._pool[name])}
+                    for name, arr in payload.items()
+                },
+            })
+            blobs.append(blob)
+        global_metrics.observe("engine_page_export_ms",
+                               (time.monotonic() - t0) * 1000.0)
+        return {"meta": dict(self._spill_meta), "pages": pages,
+                "blobs": blobs}
+
+    @staticmethod
+    def _wire_dtype(name: str) -> np.dtype:
+        """The host dtype of a wire leaf spec: ``"bfloat16"`` reslices as
+        its 2-byte ``int16`` view (``page_in`` views it back as bf16)."""
+        return np.dtype(np.int16) if name == "bfloat16" else np.dtype(name)
+
+    @classmethod
+    def _blob_to_payload(cls, spec: Dict, blob: bytes) -> Dict:
+        """Reslice one page's wire bytes into per-leaf arrays (sorted leaf
+        names, contiguous C-order), length-checked so a short or padded
+        blob fails here rather than as a misaligned splice."""
+        payload: Dict[str, np.ndarray] = {}
+        off = 0
+        leaves = dict(spec["leaves"])
+        for name in sorted(leaves):
+            shape = [int(d) for d in leaves[name]["shape"]]
+            dtype = cls._wire_dtype(str(leaves[name]["dtype"]))
+            count = int(np.prod(shape)) if shape else 1
+            payload[name] = np.frombuffer(
+                blob, dtype=dtype, count=count, offset=off
+            ).reshape(shape)
+            off += count * dtype.itemsize
+        if off != len(blob):
+            raise ValueError(
+                f"page blob carries {len(blob)} bytes, leaves need {off}"
+            )
+        return payload
 
     async def import_kv_pages(self, meta: Dict, pages: List[Dict],
                               blobs: List[bytes]) -> int:
-        raise NotPorted("KV page import", "spill/KV_PAGES")
-
-    def disagg_stats(self) -> Dict[str, object]:
-        """/healthz ``disagg`` section: this engine always serves both
-        roles and moves no pages."""
-        return {"role": self.ecfg.role, "pages_shipped": 0,
-                "pages_spliced": 0, "xfer_inflight": 0}
+        """Splice a KV_PAGES transfer into the pool: the transfer's pins
+        are checked against this pool FIRST (typed refusal before any
+        allocation), then each page rides the spill tier's two-phase path
+        (claim, verify + checksum on the executor, commit or abort).
+        Returns pages spliced.  Raises PagePinError on a pin mismatch or
+        a malformed page; a failed checksum or allocation pressure only
+        splices fewer pages, and the request re-prefills the rest."""
+        pi = self._prefix
+        if pi is None or not self._spill_meta:
+            raise PagePinError(
+                "this engine has no prefix pool to splice into "
+                "(prefix_cache off or role fenced)"
+            )
+        try:
+            verify_page_pin(None, meta, self._spill_meta)
+        except PagePinError:
+            global_metrics.inc("engine_page_refusals_total")
+            raise
+        offered: Dict[bytes, _SpillPage] = {}
+        order: List[bytes] = []
+        for spec, blob in zip(pages, blobs):
+            try:
+                key = bytes.fromhex(str(spec["key"]))
+                checksum = bytes.fromhex(str(spec["checksum"]))
+                payload = self._blob_to_payload(spec, blob)
+            except (KeyError, TypeError, ValueError) as e:
+                global_metrics.inc("engine_page_refusals_total")
+                raise PagePinError(f"malformed KV page: {e}") from e
+            # Chain depth x the live per-token prefill estimate, as a
+            # local insert prices the page.
+            cost = (len(order) + 1) * pi.block * (
+                self._prefill_ms_per_token or 1.0
+            )
+            offered[key] = _SpillPage(payload, checksum, dict(meta), cost=cost)
+            order.append(key)
+        if not offered:
+            return 0
+        items = pi.page_in_alloc(order, protect=frozenset(order),
+                                 offered=offered)
+        if not items:
+            return 0
+        loop = asyncio.get_running_loop()
+        self._xfer_inflight(1)
+        try:
+            results = await loop.run_in_executor(
+                self._executor, self._spill_copy_in, items
+            )
+        finally:
+            self._xfer_inflight(-1)
+        ok_n = 0
+        for key, idx, ok in results:
+            if ok:
+                pi.commit_page_in(key, idx, page=offered[key])
+                ok_n += 1
+            else:
+                pi.abort_page_in(key, idx)
+        refused = len(items) - ok_n
+        if refused:
+            global_metrics.inc("engine_page_refusals_total", refused)
+        if ok_n:
+            self._pages_spliced_pending += ok_n
+            global_metrics.inc("engine_pages_spliced_total", ok_n)
+        self._publish_prefix_gauges()
+        return ok_n
 
     async def generate(
         self,
@@ -1688,6 +1931,7 @@ class InferenceEngine:
         if not admitted:
             return
         self._note_admission(admitted)
+        await self._drain_page_ins(loop, admitted)
         await self._dispatch_plain_waves(loop, admitted)
 
     def _note_admission(self, admitted: List[RunningSlot]) -> None:
@@ -1830,6 +2074,7 @@ class InferenceEngine:
         if not admitted:
             return
         self._note_admission(admitted)
+        await self._drain_page_ins(loop, admitted)
         echo = [r for r in admitted if r.request.echo_logprobs]
         if echo:
             await self._dispatch_plain_waves(loop, echo)
@@ -2290,6 +2535,209 @@ class InferenceEngine:
         self._flight_conv = len(pending)
         await loop.run_in_executor(self._executor, self._conv_insert, pending)
 
+    # -- pool snapshots and the host-RAM spill tier ----------------------------
+
+    def _prefix_snapshot_meta(self) -> dict:
+        """Compatibility pins of a pool snapshot, a spill page and a
+        KV_PAGES transfer: any mismatch means the KV bytes are meaningless
+        here.  The reference's nine keys, with ``seed`` as ``"torch:<n>"``
+        (this package's seeded init is another function of the seed than
+        the reference's, and no reference engine writes that value, so a
+        reference receiver refuses these pages on its own ``seed`` pin),
+        plus ``backend``, which a reference page lacks."""
+        return {
+            "model": self.mcfg.name,
+            "dtype": self.ecfg.dtype,
+            "quant": self.ecfg.quant,
+            # int4 weight groups change the dequantized weights and so the
+            # KV bytes.
+            "group_size": self.ecfg.quant_group_size,
+            "kv_quant": self.ecfg.kv_quant,
+            "seed": f"torch:{self.ecfg.seed}",
+            "ckpt_path": self.ecfg.ckpt_path,
+            "block": self._prefix_block,
+            "capacity": self.ecfg.prefix_pool_blocks,
+            "backend": "torch",
+        }
+
+    def save_prefix_snapshot(self) -> None:
+        """Save the pool and its index under ``prefix_cache_dir`` (stop()
+        calls this once the loop has ended)."""
+        if self._prefix is None or not self.ecfg.prefix_cache_dir:
+            return
+        try:
+            save_pool_snapshot(
+                self.ecfg.prefix_cache_dir, self._pool, self._prefix,
+                self._prefix_snapshot_meta(),
+            )
+        except OSError as e:
+            log.warning("prefix snapshot save failed: %s", e)
+
+    def _memory_exhausted(self) -> bool:
+        """Both KV tiers exhausted: the pool fully reserved by in-flight
+        admissions AND the spill tier at capacity.  Without a tier, pool
+        pressure is eviction's alone."""
+        pi = self._prefix
+        if pi is None or pi.spill_pages <= 0:
+            return False
+        return (pi.reserved_pages >= pi.capacity - 1
+                and pi.spill_resident >= pi.spill_pages)
+
+    async def _drain_spill_outs(self, loop) -> None:
+        """End-of-iteration spill drain: when the pool's free blocks sink
+        below half of it (or the low-water mark), page the coldest
+        unshadowed pages out to host RAM — a batch scaled with the pool,
+        planned on the loop, copied on the executor, committed on the
+        loop — so later evictions MIGRATE them instead of destroying
+        them."""
+        pi = self._prefix
+        if pi is None or pi.spill_pages <= 0:
+            return
+        if pi.free_blocks >= max(self.ecfg.spill_low_water, pi.capacity // 2):
+            return
+        batch = max(_SPILL_BATCH, (pi.capacity - 1) // 8)
+        plan = pi.spill_plan(batch)
+        if not plan:
+            return
+        self._spill_inflight += len(plan)
+        try:
+            results = await loop.run_in_executor(
+                self._executor, self._spill_copy_out, plan
+            )
+        finally:
+            self._spill_inflight -= len(plan)
+        committed = 0
+        for key, payload, checksum in results:
+            if payload is None:
+                global_metrics.inc("engine_spill_pageout_failures_total")
+                continue
+            if pi.note_spilled(key, payload, checksum, dict(self._spill_meta)):
+                committed += 1
+        if committed:
+            global_metrics.inc("engine_spill_pageouts_total", committed)
+        self._flight_pageouts = committed
+
+    def _spill_copy_out(self, plan) -> List[Tuple[bytes, Optional[Dict], bytes]]:
+        """Executor thread: copy each planned page to host RAM (after every
+        write the stream queued before it) and checksum the TRUE bytes.
+        Chaos faults draw one schedule entry per page: ``fail`` drops the
+        page-out, ``stall`` sleeps this thread, ``corrupt`` flips one
+        stored byte AFTER the checksum so the page-in must catch it."""
+        t0 = time.monotonic()
+        out: List[Tuple[bytes, Optional[Dict], bytes]] = []
+        for key, idx in plan:
+            fault, stall_s, pos = None, 0.0, 0
+            if self._spill_chaos is not None:
+                fault, stall_s, pos = self._spill_chaos.draw("pageout")
+            if fault == "stall":
+                time.sleep(stall_s)
+            elif fault == "fail":
+                out.append((key, None, b""))
+                continue
+            payload = page_out(self._pool, idx)
+            checksum = page_checksum(payload)
+            if fault == "corrupt":
+                flat = payload[sorted(payload)[0]].reshape(-1).view(np.uint8)
+                flat[pos % flat.size] ^= 0xFF
+            out.append((key, payload, checksum))
+        global_metrics.observe("engine_spill_pageout_ms",
+                               (time.monotonic() - t0) * 1000.0)
+        return out
+
+    async def _drain_page_ins(self, loop, admitted) -> None:
+        """Page-in splice for an ADMITTED wave, between
+        ``scheduler.admit()`` and the wave's pool matches: host-tier pages
+        continuing an admitted prompt's chain land in the pool just before
+        its match.  Every admitted prompt's whole chain is protected from
+        the claims' evictions and MRU-touched; the batch is capped at the
+        wave's own demand.  A failed or corrupt page-in aborts its claim
+        and the request re-prefills that tail."""
+        pi = self._prefix
+        if pi is None or pi.spill_pages <= 0 or pi.spill_resident == 0:
+            return
+        wave = [run for run in admitted if not run.request.echo_logprobs]
+        if not wave:
+            return
+        wanted: List[bytes] = []
+        seen: set = set()
+        protect: set = set()
+        cap = len(wave) * self._prefix_max_blocks
+        for run in wave:
+            protect.update(pi.chain_keys(run.request.prompt_ids))
+        pi.touch_resident(protect)
+        for run in wave:
+            for _, key in pi.spill_extension(run.request.prompt_ids):
+                if key not in seen:
+                    seen.add(key)
+                    wanted.append(key)
+            if len(wanted) >= cap:
+                break
+        if not wanted:
+            return
+        items = pi.page_in_alloc(wanted[:cap], protect=frozenset(protect))
+        if not items:
+            return
+        self._spill_inflight += len(items)
+        try:
+            results = await loop.run_in_executor(
+                self._executor, self._spill_copy_in, items
+            )
+        finally:
+            self._spill_inflight -= len(items)
+        ok_n = 0
+        for key, idx, ok in results:
+            if ok:
+                pi.commit_page_in(key, idx)
+                ok_n += 1
+            else:
+                pi.abort_page_in(key, idx)
+                global_metrics.inc("engine_spill_pagein_failures_total")
+        if ok_n:
+            global_metrics.inc("engine_spill_pageins_total", ok_n)
+        self._flight_pageins = ok_n
+
+    def _spill_copy_in(self, items) -> List[Tuple[bytes, int, bool]]:
+        """Executor thread: verify + splice pages into their claimed pool
+        slots.  Every page passes :func:`verify_page_pin` AND its checksum
+        before any device write; chaos faults draw one entry per page
+        (``fail`` aborts, ``corrupt`` flips a byte of a COPY so the
+        checksum must refuse it, ``stall`` sleeps this thread).  The
+        splice is enqueued on the stream every later copy-in reads
+        from."""
+        t0 = time.monotonic()
+        out: List[Tuple[bytes, int, bool]] = []
+        for key, idx, page in items:
+            payload = page.payload
+            fault, pos = None, 0
+            if self._spill_chaos is not None:
+                fault, stall_s, pos = self._spill_chaos.draw("pagein")
+                if fault == "stall":
+                    time.sleep(stall_s)
+                elif fault == "fail":
+                    out.append((key, idx, False))
+                    continue
+                elif fault == "corrupt":
+                    leaf = sorted(page.payload)[0]
+                    payload = dict(page.payload)
+                    payload[leaf] = np.array(payload[leaf], copy=True)
+                    flat = payload[leaf].reshape(-1).view(np.uint8)
+                    flat[pos % flat.size] ^= 0xFF
+            try:
+                payload = verify_page_pin(payload, page.meta, self._spill_meta)
+                if page_checksum(payload) != page.checksum:
+                    raise PagePinError("spill page checksum mismatch")
+            except PagePinError as e:
+                log.warning("page-in dropped (%s); falling back to tail "
+                            "re-prefill", e)
+                out.append((key, idx, False))
+                continue
+            with torch.inference_mode():
+                page_in(self._pool, idx, payload)
+            out.append((key, idx, True))
+        global_metrics.observe("engine_spill_pagein_ms",
+                               (time.monotonic() - t0) * 1000.0)
+        return out
+
     def _publish_prefix_gauges(self) -> None:
         """Prefix-pool memory accounting: pages used/free/reserved,
         resident KV bytes, and the eviction + conversation-cache counters
@@ -2317,6 +2765,14 @@ class InferenceEngine:
             if delta > 0:
                 global_metrics.inc(metric, delta)
                 self._prefix_published[attr] = now
+        if self._prefix.spill_pages > 0:
+            resident = self._prefix.spill_resident
+            global_metrics.set_gauge("engine_spill_pages", resident)
+            global_metrics.set_gauge(
+                "engine_spill_bytes", resident * self._prefix_block_bytes
+            )
+            global_metrics.set_gauge("engine_spill_inflight",
+                                     self._spill_inflight)
         self._thrash_tick()
 
     def _thrash_tick(self) -> None:
@@ -2396,6 +2852,10 @@ class InferenceEngine:
         now = time.monotonic()
         slots = self.scheduler.slots
         mux = self._last_mux
+        # KV_PAGES transfers run off the iteration rhythm: drain their
+        # tallies into THIS row, so each page lands in exactly one row.
+        shipped, self._pages_shipped_pending = self._pages_shipped_pending, 0
+        spliced, self._pages_spliced_pending = self._pages_spliced_pending, 0
         backlog = mux.get("backlog_rows")
         if backlog is None:
             # Non-mux iterations: the row-count proxy (no controller ran).
@@ -2419,6 +2879,11 @@ class InferenceEngine:
             prefix_blocks_used=pi.used_blocks if pi is not None else 0,
             prefix_pages_reserved=pi.reserved_pages if pi is not None else 0,
             conv_inserted=self._flight_conv,
+            spill_pages=pi.spill_resident if pi is not None else 0,
+            spill_pageouts=self._flight_pageouts,
+            spill_pageins=self._flight_pageins,
+            pages_shipped=shipped,
+            pages_spliced=spliced,
             spec_proposed=self._flight_spec[0],
             spec_accepted=self._flight_spec[1],
             spec_k=self._flight_spec[2],
@@ -2492,6 +2957,8 @@ class InferenceEngine:
                 it_t0 = time.monotonic()
                 self._flight_admitted = 0
                 self._flight_conv = 0
+                self._flight_pageouts = 0
+                self._flight_pageins = 0
                 self._last_burst = (0, 0)
                 self._last_mux = {}
                 self._flight_spec = (0, 0, 0)
@@ -2542,6 +3009,7 @@ class InferenceEngine:
                     for seg in segs:
                         await self._finish_segments(loop, seg)
                     await self._drain_conv_inserts(loop)
+                    await self._drain_spill_outs(loop)
                     self._flight_record(it_t0, t_admit, t_prefill, t_spec,
                                         t_spec, plain_rows, seg_rows)
                     continue
@@ -2579,6 +3047,9 @@ class InferenceEngine:
                 # Conversation-cache inserts for slots that finished this
                 # iteration — BEFORE the next admission can re-prefill them.
                 await self._drain_conv_inserts(loop)
+                # Spill page-outs LAST: after every serving dispatch of
+                # the iteration is queued.
+                await self._drain_spill_outs(loop)
                 in_flight = current
                 self._flight_record(it_t0, t_admit, t_prefill, t_dispatch,
                                     t_fetch, plain_rows, seg_rows)

@@ -9,29 +9,46 @@ pool is a dense ``[L, P, B, K, D]`` tensor per cache leaf and matched
 blocks are copied into the slot's contiguous cache region once at
 admission, so decode stays unaware of the cache.
 
-The host half (``PrefixIndex``, ``plan_group_admission``,
-``plan_inserts``, ``pad_rows``, ``pad_ids``) is the reference's code with
-numpy in place of ``jnp``; its operation sequences, evictions and plans
-are identical (tests/test_torch_prefix_cache.py drives both with the same
-random sequences).  The device half is plain tensor indexing: one batched
-in-place indexed copy per ``prefill_rows``-wide sub-batch, pad rows going
-to pool block 0 (never matched) or repeating a real row.  Quantized
-caches pool every leaf, scale planes included; the packed int4 value
-planes move in half-size byte pages.
+The host half (``PrefixIndex`` with its host-RAM spill tier,
+``plan_group_admission``, ``plan_inserts``, ``pad_rows``, ``pad_ids``, the
+page pin check and checksum) is the reference's code with numpy in place
+of ``jnp``; its operation sequences, evictions and plans are identical
+(tests/test_torch_prefix_cache.py and tests/test_torch_spill_tier.py drive
+both with the same random sequences).  The device half is plain tensor
+indexing: one batched in-place indexed copy per ``prefill_rows``-wide
+sub-batch, pad rows going to pool block 0 (never matched) or repeating a
+real row; ``page_out`` / ``page_in`` move one pool page between the card
+and host RAM.  Quantized caches pool every leaf, scale planes included;
+the packed int4 value planes move in half-size byte pages.
 
-Not ported yet (ROADMAP.md, port queue: spill tier, snapshots and
-KV_PAGES): the host-RAM spill tier, pool snapshots and page pins.  The
-engine refuses the knobs that would need them.
+Tiered spill: cold pool pages are copied out to host RAM as byte payloads
+with an integrity checksum and the pool's compatibility pins; an evicted
+page with a host shadow MIGRATES to the tier instead of dying, and a
+returning prompt whose chain continues into the tier is spliced back by a
+two-phase page-in (claim a slot on the event loop, copy and verify on the
+executor).  Correctness never depends on the tier: a failed or corrupt
+page-in drops the page and the request re-prefills its tail.  Every page
+that crosses a tier or tunnel boundary, and every snapshot, passes
+:func:`verify_page_pin`.  Host copies of bf16 leaves are their 2-byte
+``int16`` views (numpy has no bfloat16 of its own): the raw bytes, and so
+:func:`page_checksum` and the snapshot files, are the reference's.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
+import os
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 class _Entry:
@@ -44,6 +61,60 @@ class _Entry:
     def __init__(self, idx: int, cost: float = 0.0, conv: bool = False,
                  prio: float = 0.0):
         self.idx = idx
+        self.cost = cost
+        self.conv = conv
+        self.prio = prio
+
+
+class PagePinError(ValueError):
+    """A KV page's compatibility pins don't match the engine's (backend,
+    seed, quant mode, group size, kv_quant, dtype, block geometry):
+    splicing its bytes would silently serve KV computed under different
+    numerics.  Callers treat the page as lost and fall back to tail
+    re-prefill.  ``tunnel_code`` lets the serve layer mint the TYPED
+    refusal when the mismatch crosses the tunnel (a KV_PAGES transfer)."""
+
+    tunnel_code = "page_pin"
+
+
+def verify_page_pin(page, meta: Dict, want: Dict):
+    """THE registered tier-boundary check (tunnelcheck TC18/TC20): every
+    KV page crossing a tier or tunnel boundary flows through here before
+    its bytes are spliced into a pool or sent.  Returns ``page`` only when
+    every pin in ``want`` matches the page's recorded ``meta``."""
+    for key, val in want.items():
+        if meta.get(key) != val:
+            raise PagePinError(
+                f"KV page pin mismatch on {key!r}: page carries "
+                f"{meta.get(key)!r}, engine wants {val!r}"
+            )
+    return page
+
+
+def page_checksum(payload: Dict[str, np.ndarray]) -> bytes:
+    """Integrity digest over a host-tier page's raw bytes, leaf-name keyed
+    so a leaf swap can't cancel out.  Verified on every page-in."""
+    h = hashlib.blake2b(digest_size=16)
+    for key in sorted(payload):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(payload[key]).tobytes())
+    return h.digest()
+
+
+class _SpillPage:
+    """One host-RAM tier page: the paged-out pool bytes (a dict of
+    per-leaf numpy arrays), their checksum, the compatibility pins that
+    ride every page across a tier boundary, and the GreedyDual accounting
+    carried over from the pool entry."""
+
+    __slots__ = ("payload", "checksum", "meta", "cost", "conv", "prio")
+
+    def __init__(self, payload: Dict[str, np.ndarray], checksum: bytes,
+                 meta: Dict, cost: float = 0.0, conv: bool = False,
+                 prio: float = 0.0):
+        self.payload = payload
+        self.checksum = checksum
+        self.meta = meta
         self.cost = cost
         self.conv = conv
         self.prio = prio
@@ -67,7 +138,8 @@ class PrefixIndex:
     #: sites (reserve, match, missing) and herd prompts repeat.
     KEYS_MEMO_CAP = 128
 
-    def __init__(self, block: int, capacity: int, evict: str = "lru"):
+    def __init__(self, block: int, capacity: int, evict: str = "lru",
+                 spill_pages: int = 0):
         assert capacity >= 2, "need at least scratch + one real block"
         if evict not in ("lru", "cost"):
             raise ValueError(f"unknown evict mode {evict!r}")
@@ -88,6 +160,19 @@ class PrefixIndex:
         self.conv_hits = 0
         self.conv_hit_tokens = 0
         self.reserved_pages = 0
+        # Host-RAM spill tier: shadows of pool pages by chain key.  While
+        # the key is also pool-resident the shadow is a pre-paid copy
+        # (eviction then migrates instead of destroying); once evicted it
+        # is the page's only body.  Event-loop thread only: the executor
+        # copies bytes, the loop commits them.
+        self.spill_pages = max(0, int(spill_pages))
+        self._spill: "OrderedDict[bytes, _SpillPage]" = OrderedDict()
+        self.spill_pageouts = 0
+        self.spill_pageins = 0
+        self.spill_drops = 0
+        # Pages spliced from the WIRE (a prefill peer's KV_PAGES transfer):
+        # the same two-phase path, counted apart from the spill tier.
+        self.wire_spliced = 0
         # Keys evicted recently enough that re-allocating them means a
         # reuse distance past the pool's capacity (the thrash detector).
         self._recent_evicted: "OrderedDict[bytes, float]" = OrderedDict()
@@ -102,6 +187,57 @@ class PrefixIndex:
     def free_blocks(self) -> int:
         """Pool blocks available for insertion without an eviction."""
         return len(self._free)
+
+    @property
+    def spill_resident(self) -> int:
+        """Host-tier pages currently held (shadows + host-only)."""
+        return len(self._spill)
+
+    def export_state(self) -> List[List]:
+        """Snapshot rows: a leading ``["clock", value]`` row (the
+        GreedyDual value floor), then LRU-ordered ``[hex key, pool idx,
+        cost, conv, prio]`` for pool-resident pages, then ``[hex key, -1,
+        ...]`` markers for host-only spilled pages — their bytes live in
+        process RAM, which the snapshot file does not carry."""
+        rows: List[List] = [["clock", round(self._clock, 3)]]
+        rows += [
+            [k.hex(), e.idx, round(e.cost, 3), int(e.conv), round(e.prio, 3)]
+            for k, e in self._lru.items()
+        ]
+        rows += [
+            [k.hex(), -1, round(p.cost, 3), int(p.conv), round(p.prio, 3)]
+            for k, p in self._spill.items()
+            if k not in self._lru
+        ]
+        return rows
+
+    def import_state(self, entries: List[List]) -> None:
+        """Restore a snapshot's index; unreferenced pool slots become free.
+        Malformed entries are skipped (a damaged manifest degrades to a
+        partly cold pool, never a crash); the 2-, 4- and 5-field row
+        shapes are accepted.  Spilled-page markers (idx -1), out-of-range
+        and duplicate indices are skipped: admitting them would alias two
+        prefix keys to one KV block."""
+        self._lru.clear()
+        self._clock = 0.0
+        used = set()
+        for entry in entries:
+            try:
+                if entry[0] == "clock":
+                    self._clock = float(entry[1])
+                    continue
+                khex, idx = entry[0], int(entry[1])
+                key = bytes.fromhex(khex)
+                cost = float(entry[2]) if len(entry) > 2 else 0.0
+                conv = bool(entry[3]) if len(entry) > 3 else False
+                prio = float(entry[4]) if len(entry) > 4 else cost
+            except (TypeError, ValueError, IndexError):
+                continue
+            if not 1 <= idx < self.capacity or idx in used:
+                continue
+            self._lru[key] = _Entry(idx, cost, conv, prio=prio)
+            used.add(idx)
+        self._free = [i for i in range(1, self.capacity) if i not in used]
 
     def _keys_of(self, prompt_ids) -> List[bytes]:
         memo_key = tuple(prompt_ids)
@@ -165,17 +301,27 @@ class PrefixIndex:
         """The next eviction victim, or None when every page is protected
         (allocated in the in-progress call).  "lru": the least-recently
         touched page; "cost": the minimum-priority page, LRU order breaking
-        ties."""
+        ties.  With the spill tier both are CLEAN-FIRST: a page with a host
+        shadow is recoverable, so dirty pages go only when no clean one
+        is left."""
+        clean_tier = self.spill_pages > 0
         if self.evict == "lru":
+            dirty_fallback = None
             for key in self._lru:
-                if key not in protect:
-                    return key
-            return None
+                if key in protect:
+                    continue
+                if clean_tier and key not in self._spill:
+                    if dirty_fallback is None:
+                        dirty_fallback = key
+                    continue
+                return key
+            return dirty_fallback
         best_key, best_rank = None, None
         for pos, (key, entry) in enumerate(self._lru.items()):
             if key in protect:
                 continue
-            rank = (entry.prio, pos)
+            dirty = 1 if (clean_tier and key not in self._spill) else 0
+            rank = (dirty, entry.prio, pos)
             if best_rank is None or rank < best_rank:
                 best_key, best_rank = key, rank
         return best_key
@@ -190,6 +336,11 @@ class PrefixIndex:
         # priority, so untouched expensive pages eventually age out.
         self._clock = max(self._clock, entry.prio)
         self.evictions += 1
+        page = self._spill.get(victim)
+        if page is not None:
+            # Tier migration, not loss: the host shadow becomes the page's
+            # only body and keeps the entry's accounting.
+            page.cost, page.conv, page.prio = entry.cost, entry.conv, entry.prio
         self._recent_evicted[victim] = self._clock
         while len(self._recent_evicted) > 4 * self.capacity:
             self._recent_evicted.popitem(last=False)
@@ -234,10 +385,147 @@ class PrefixIndex:
             if key in self._recent_evicted:
                 del self._recent_evicted[key]
                 self.thrash_reallocs += 1
+            if key in self._spill:
+                # Fresh bytes under a spilled key supersede the shadow:
+                # splicing the stale shadow later would break identity.
+                self._spill.pop(key)
+                self.spill_drops += 1
             self._lru[key] = _Entry(idx, cost, conv, prio=self._clock + cost)
             newly.add(key)
             out.append(idx)
         return out
+
+    # -- host-RAM spill tier: event-loop bookkeeping; the engine plans here,
+    # copies bytes on its executor, and commits back here.
+
+    def spill_plan(self, n: int,
+                   exclude: frozenset = frozenset()) -> List[Tuple[bytes, int]]:
+        """The ``n`` lowest-priority pool-resident pages with no host
+        shadow yet, [(key, pool idx)], in (prio, LRU position) order;
+        ``exclude`` protects pages about to be matched."""
+        if n <= 0 or self.spill_pages <= 0:
+            return []
+        cands = [
+            (entry.prio, pos, key, entry.idx)
+            for pos, (key, entry) in enumerate(self._lru.items())
+            if key not in self._spill and key not in exclude
+        ]
+        cands.sort()
+        return [(key, idx) for _, _, key, idx in cands[:n]]
+
+    def note_spilled(self, key: bytes, payload: Dict[str, np.ndarray],
+                     checksum: bytes, meta: Dict) -> bool:
+        """Commit one completed page-out.  Rejected when the page was
+        evicted mid-copy (its slot may be recycled) or already shadowed;
+        makes room when the tier is full."""
+        entry = self._lru.get(key)
+        if entry is None or key in self._spill:
+            return False
+        self._spill_make_room()
+        self._spill[key] = _SpillPage(payload, checksum, meta,
+                                      entry.cost, entry.conv, entry.prio)
+        self.spill_pageouts += 1
+        return True
+
+    def _spill_make_room(self) -> None:
+        """Cap the tier at ``spill_pages``: drop shadows of still-resident
+        pages first (nothing is lost), then the lowest-priority host-only
+        page."""
+        while len(self._spill) >= max(1, self.spill_pages):
+            best_key, best_rank = None, None
+            for pos, (key, page) in enumerate(self._spill.items()):
+                rank = (0 if key in self._lru else 1, page.prio, pos)
+                if best_rank is None or rank < best_rank:
+                    best_key, best_rank = key, rank
+            self._spill.pop(best_key)
+            self.spill_drops += 1
+
+    def spill_extension(self, prompt_ids) -> List[Tuple[int, bytes]]:
+        """Host-tier pages that would EXTEND this prompt's pool match:
+        [(block_no, key)] of host-only chain keys past the resident
+        prefix, skipping resident keys, stopping at the first key in
+        neither tier; capped like :meth:`match`."""
+        if not self._spill:
+            return []
+        max_blocks = (len(prompt_ids) - 1) // self.block
+        keys = self._keys_of(prompt_ids)[:max_blocks]
+        i = 0
+        while i < len(keys) and keys[i] in self._lru:
+            i += 1
+        out: List[Tuple[int, bytes]] = []
+        for j in range(i, len(keys)):
+            key = keys[j]
+            if key in self._lru:
+                continue
+            if key in self._spill:
+                out.append((j, key))
+            else:
+                break
+        return out
+
+    def chain_keys(self, prompt_ids) -> List[bytes]:
+        """ALL of the prompt's matchable chain keys (no LRU touch): the
+        protection set a page-in claim must honor, mid-chain residents
+        past a gap included."""
+        max_blocks = (len(prompt_ids) - 1) // self.block
+        return list(self._keys_of(prompt_ids)[:max_blocks])
+
+    def touch_resident(self, keys) -> None:
+        """MRU-touch the resident members of a page-in wave's protection
+        set, so admission's own evictions later in the iteration take
+        genuinely cold pages first."""
+        for key in keys:
+            if key in self._lru:
+                self._lru.move_to_end(key)
+
+    def page_in_alloc(self, keys: List[bytes],
+                      protect: frozenset = frozenset(),
+                      offered: "Optional[Dict[bytes, _SpillPage]]" = None,
+                      ) -> List[Tuple[bytes, int, "_SpillPage"]]:
+        """Two-phase page-in, phase 1: claim one pool slot per host-tier
+        key (evicting under the policy, never a ``protect`` key) WITHOUT
+        touching the index; the caller finishes every claim with
+        :meth:`commit_page_in` or :meth:`abort_page_in`.  ``offered``
+        sources pages from a caller's map (a KV_PAGES transfer) instead
+        of the tier."""
+        out: List[Tuple[bytes, int, _SpillPage]] = []
+        prot = set(protect)
+        for key in keys:
+            page = (self._spill.get(key) if offered is None
+                    else offered.get(key))
+            if page is None or key in self._lru:
+                continue
+            if self._free:
+                idx = self._free.pop()
+            else:
+                idx = self._evict_one(prot)
+                if idx is None:
+                    break
+            out.append((key, idx, page))
+        return out
+
+    def commit_page_in(self, key: bytes, idx: int,
+                       page: "Optional[_SpillPage]" = None) -> None:
+        """Phase 2 success: the verified bytes are in pool slot ``idx``.
+        The shadow stays (it still matches the pool copy).  ``page``
+        carries a wire page's accounting; wire splices count apart."""
+        from_tier = page is None
+        if from_tier:
+            page = self._spill.get(key)
+        cost = page.cost if page is not None else 0.0
+        conv = page.conv if page is not None else False
+        self._lru[key] = _Entry(idx, cost, conv, prio=self._clock + cost)
+        if from_tier:
+            self.spill_pageins += 1
+        else:
+            self.wire_spliced += 1
+
+    def abort_page_in(self, key: bytes, idx: int) -> None:
+        """Phase 2 failure (chaos, checksum or pin mismatch): return the
+        slot and DROP the host page — the request re-prefills its tail."""
+        if self._spill.pop(key, None) is not None:
+            self.spill_drops += 1
+        self._free.append(idx)
 
 
 def plan_group_admission(
@@ -439,3 +727,155 @@ def make_batch_copy_ops(block: int, max_blocks: int, rows: int,
         return pool
 
     return blocks_to_cache, cache_to_pool
+
+
+def host_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype of ``t``'s host copy: bf16 travels as its 2-byte
+    ``int16`` view."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy COPY of ``t`` (never a view of a CPU pool), bf16 as
+    its ``int16`` view.  From the card the copy is synchronous, so it
+    reads after every write the stream queued before it."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def to_device(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` (a host copy from :func:`to_host` or the wire) as a tensor of
+    ``like``'s dtype on ``like``'s device."""
+    t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    if like.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def wire_dtype_name(t: torch.Tensor) -> str:
+    """A leaf's dtype string on the wire: the reference's numpy names
+    (``"bfloat16"``, ``"int8"``, ``"float32"``)."""
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(host_dtype(t))
+
+
+def page_out(pool: Dict[str, torch.Tensor], idx: int) -> Dict[str, np.ndarray]:
+    """One pool page's leaves, ``{leaf: pool[leaf][:, idx]}``, copied to
+    host RAM (packed int4 value leaves are ``block // 2`` bytes a page)."""
+    return {key: to_host(arr[:, idx]) for key, arr in pool.items()}
+
+
+def page_in(pool: Dict[str, torch.Tensor], idx: int,
+            page: Dict[str, np.ndarray]) -> None:
+    """Write a verified host page into pool slot ``idx`` in place: the
+    whole slot and nothing else."""
+    for key, arr in pool.items():
+        arr[:, idx].copy_(to_device(page[key], arr))
+
+
+def save_pool_snapshot(
+    dirpath: str, pool: Dict[str, torch.Tensor], index: PrefixIndex,
+    meta: Dict,
+) -> None:
+    """Persist the block pool + index so warm prompt KV survives a serve
+    restart: ``prefix_pool.npz`` (the pool leaves, bf16 as ``int16``
+    views, and the snapshot id) and ``prefix_index.json`` (version 3: the
+    pins in ``meta``, the index rows, the snapshot id and the pool's
+    :func:`page_checksum`).  Each file is written to a temporary name and
+    renamed; the shared snapshot id pairs the halves, so a crash between
+    the renames cannot pair new pool bytes with an old index."""
+    os.makedirs(dirpath, exist_ok=True)
+    snap_id = f"{time.time_ns():x}"
+    host_pool = {k: to_host(v) for k, v in pool.items()}
+    npz_tmp = os.path.join(dirpath, ".prefix_pool.npz.tmp")
+    with open(npz_tmp, "wb") as f:
+        np.savez(
+            f,
+            __snap_id__=np.frombuffer(snap_id.encode(), np.uint8),
+            **host_pool,
+        )
+    os.replace(npz_tmp, os.path.join(dirpath, "prefix_pool.npz"))
+    manifest = dict(meta, lru=index.export_state(), version=3,
+                    snap_id=snap_id,
+                    pool_checksum=page_checksum(host_pool).hex())
+    man_tmp = os.path.join(dirpath, ".prefix_index.json.tmp")
+    with open(man_tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(man_tmp, os.path.join(dirpath, "prefix_index.json"))
+    log.info("prefix pool snapshot saved: %d blocks -> %s",
+             len(index._lru), dirpath)
+
+
+def load_pool_snapshot(
+    dirpath: str, pool: Dict[str, torch.Tensor], index: PrefixIndex,
+    meta: Dict,
+) -> Optional[Dict[str, torch.Tensor]]:
+    """Restore a snapshot into new pool tensors shaped like ``pool`` (on
+    its device); None, with the index untouched, when the files are
+    absent or unreadable, the manifest is not version 3, a pin differs,
+    the halves come from different saves, the leaf set, a shape or a
+    dtype differs, or the pool bytes fail their checksum."""
+    man_path = os.path.join(dirpath, "prefix_index.json")
+    npz_path = os.path.join(dirpath, "prefix_pool.npz")
+    if not (os.path.exists(man_path) and os.path.exists(npz_path)):
+        return None
+    try:
+        with open(man_path) as f:
+            manifest = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        log.warning("prefix snapshot unreadable (%s); starting cold", e)
+        return None
+    if manifest.get("version") != 3:
+        log.warning("prefix snapshot version %r unsupported (current: 3); "
+                    "starting cold", manifest.get("version"))
+        return None
+    try:
+        verify_page_pin(None, manifest, meta)
+    except PagePinError as e:
+        log.warning("prefix snapshot incompatible (%s); starting cold", e)
+        return None
+    try:
+        npz = np.load(npz_path)
+    except Exception as e:  # BadZipFile/OSError/EOFError: a corrupt file
+        log.warning("prefix snapshot unreadable (%s); starting cold", e)
+        return None
+    with npz:
+        try:
+            files = set(npz.files)
+            snap_id = bytes(npz["__snap_id__"]).decode()
+        except Exception as e:  # a corrupt zip member surfaces on read
+            log.warning("prefix snapshot unreadable (%s); starting cold", e)
+            return None
+        if snap_id != manifest.get("snap_id"):
+            log.warning("prefix snapshot halves mismatch (%s != %s); "
+                        "starting cold", snap_id, manifest.get("snap_id"))
+            return None
+        if files - {"__snap_id__"} != set(pool):
+            log.warning("prefix snapshot leaves mismatch; starting cold")
+            return None
+        host = {}
+        for key, arr in pool.items():
+            try:
+                loaded = npz[key]
+            except Exception as e:
+                log.warning("prefix snapshot unreadable (%s); starting cold", e)
+                return None
+            if loaded.shape != tuple(arr.shape) or loaded.dtype != host_dtype(arr):
+                log.warning("prefix snapshot shape mismatch on %s; starting "
+                            "cold", key)
+                return None
+            host[key] = loaded
+    got = page_checksum(host).hex()
+    if got != manifest.get("pool_checksum"):
+        log.warning("prefix snapshot pool checksum mismatch (%s != %s); "
+                    "starting cold", got, manifest.get("pool_checksum"))
+        return None
+    out = {key: to_device(host[key], arr) for key, arr in pool.items()}
+    index.import_state(manifest.get("lru", []))
+    log.info("prefix pool snapshot restored: %d blocks from %s",
+             len(index._lru), dirpath)
+    return out

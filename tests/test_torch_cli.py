@@ -1,8 +1,8 @@
 """The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config
-with the JAX serve CLI's defaults, flags of features the port does not run
-yet are rejected with their ROADMAP.md port-queue item, and ``serve
---backend gpu --device cpu`` brings up a working engine backend (on the
-CPU, as the tests run)."""
+with the JAX serve CLI's defaults, flags of features the port does not
+run yet (``parallel/``) are rejected with their ROADMAP.md port-queue
+item, and ``serve --backend gpu --device cpu`` brings up a working engine
+backend (on the CPU, as the tests run)."""
 
 import argparse
 import asyncio
@@ -71,14 +71,40 @@ def test_env_names_match_the_jax_cli(monkeypatch):
             ecfg.ragged_prefill) == (False, True, False, True)
 
 
+@pytest.mark.parametrize("flag,env,field,value", [
+    ("--prefix-cache-dir", "TUNNEL_PREFIX_CACHE_DIR", "prefix_cache_dir", "/x"),
+    ("--spill-pages", "TUNNEL_SPILL_PAGES", "spill_pages", "4"),
+    ("--role", "TUNNEL_ROLE", "role", "prefill"),
+])
+def test_spill_snapshot_and_role_flags_reach_the_engine_config(
+        flag, env, field, value, monkeypatch):
+    """``--spill-pages``, ``--prefix-cache-dir`` and ``--role`` (once
+    refused) map onto the EngineConfig with the JAX serve CLI's default,
+    environment variable and value."""
+    monkeypatch.delenv(env, raising=False)
+    jserve = ["serve", "--backend", "tpu", "--room", "r"]
+
+    def both(extra):
+        ecfg = cli._engine_config(cli.build_parser().parse_args(SERVE + extra))
+        jargs = j_cli.build_parser().parse_args(jserve + extra)
+        return getattr(ecfg, field), getattr(jargs, field)
+
+    got, want = both([])
+    assert got == want == {"prefix_cache_dir": None, "spill_pages": 0,
+                           "role": "both"}[field]
+    got, want = both([flag, value])
+    assert got == want and str(got) == value
+    monkeypatch.setenv(env, value)
+    got, want = both([])
+    assert got == want and str(got) == value
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--prefix-cache-dir", "/x"], "spill tier, snapshots"),
-    (["--spill-pages", "4"], "spill tier, snapshots"),
-    (["--role", "prefill"], "spill tier, snapshots"),
     (["--ep", "2"], "parallel/"),
     (["--sp", "2"], "parallel/"),
     (["--tp", "2"], "parallel/"),
     (["--replicas", "2"], "parallel/"),
+    (["--coordinator", "localhost:1234"], "parallel/"),
 ])
 def test_unported_flags_exit_with_their_queue_item(extra, item):
     args = cli.build_parser().parse_args(SERVE + extra)

@@ -164,8 +164,7 @@ def test_generate_matches_jax_with_logprobs(weights):
 
 def test_construction_guards():
     with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, spill_pages=4),
-                        device="cpu")
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, tp=2), device="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, kv_quant="int2"),
                         device="cpu")
