@@ -1306,6 +1306,13 @@ def quant_phase() -> dict:
     for gs in NARROW_GROUPS:
         rows["quant_matmul_int4"].append(quant_case("int4", "wk/wv", 1024, 4096, 17,
                                                     gs=gs, seed=4))
+    # The tp 2 shard shapes phase 11 runs: a decode step (M 17) in every
+    # form, and a prefill dispatch (M 1024) in int4.
+    for form in QUANT_FORMS:
+        for name, n, k in TP2_QUANT_SHAPES:
+            rows[f"quant_matmul_{form}"].append(quant_case(form, name, n, k, 17, seed=5))
+    for name, n, k in TP2_QUANT_SHAPES:
+        rows["quant_matmul_int4"].append(quant_case("int4", name, n, k, 1024, seed=6))
     for form in QUANT_FORMS:
         if not any(c.startswith(f"{form} wk/wv M17 ") for c in SPLIT_BITWISE):
             raise AssertionError(f"kernel 7 {form}: wk/wv at M 17 was not split")
@@ -1350,6 +1357,14 @@ def kernel_phase(cfg) -> dict:
             spec_case(h, kh, d, form), spec_case(h, kh, d, form, t=9, seed=1)]
     for form in FORMS:
         rows[row_name("ragged_prefill_attention", form)] = [ragged_case(h, kh, d, form)]
+    # Kernels 1 and 2 at one tp 2 rank's head shard (H/2 query, K/2 kv
+    # heads), as phase 11 launches them; after the JSON rows' cases.
+    hs, khs = h // TP, kh // TP
+    rows["flash_causal_attention"].append(prefill_case(8, 256, hs, khs, d, [256] * 8,
+                                                       seed=3))
+    for form in FORMS:
+        rows[row_name("flash_decode_attention", form)].append(
+            decode_case(b, 512, hs, khs, d, decode_positions(b, 512), form=form, seed=3))
     rows.update(quant_phase())
     for name, cases in rows.items():
         print(f"[kernels] {name} (bf16 activations, fp32 math; tolerance "
@@ -1526,11 +1541,12 @@ def check_quant_launches(engine, launches: dict, calls: dict) -> None:
 
 class _Tunnel:
     """``run_serve`` + ``run_proxy`` over a loopback channel in front of an
-    engine (started by the caller); ``async with`` yields the proxy's base
-    URL."""
+    engine (started by the caller), or of another serve backend (phase
+    11d's router); ``async with`` yields the proxy's base URL."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, backend=None):
         self.engine = engine
+        self.backend = backend
 
     async def __aenter__(self):
         from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
@@ -1541,8 +1557,9 @@ class _Tunnel:
         self.serve_ch, proxy_ch = loopback_pair()
         ready = asyncio.get_running_loop().create_future()
         self.tasks = [
-            asyncio.create_task(run_serve(self.serve_ch,
-                                          backend=engine_backend(self.engine, MODEL))),
+            asyncio.create_task(run_serve(
+                self.serve_ch,
+                backend=self.backend or engine_backend(self.engine, MODEL))),
             asyncio.create_task(run_proxy(proxy_ch, "127.0.0.1", 0, ready=ready))]
         return f"http://127.0.0.1:{await asyncio.wait_for(ready, 30.0)}"
 
@@ -3073,6 +3090,356 @@ def spill_phases(params, cfg, name: str, ref: dict, ref_int4: dict,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving, SPMD ranks and the replica router
+# ---------------------------------------------------------------------------
+
+TP = 2
+#: Collective and control-plane timeout of phase 11's run: a rank that
+#: hears nothing from its peer for this long raises instead of hanging.
+TP_TIMEOUT_S = 300.0
+#: 11c's int4 group size (the serve default; a row-parallel shard holds
+#: whole groups: llama3-8b's wo K/2 2048 = 16 of them).
+TP_GROUP = 128
+#: llama3-8b's products at tp 2, each rank's shard: the row-parallel wo and
+#: w_down contract K/2, the column-parallel ones and the head output N/2
+#: (the head's 64128 columns are no multiple of a 256-column tile).
+TP2_QUANT_SHAPES = (("tp2 wq", 2048, 4096), ("tp2 wk/wv", 512, 4096),
+                    ("tp2 wo", 4096, 2048), ("tp2 w_gate/w_up", 7168, 4096),
+                    ("tp2 w_down", 4096, 7168), ("tp2 lm_head", 64128, 4096))
+
+
+def tp_logits(cfg, params, mesh, prompt, forced):
+    """One prompt's prefill and teacher-forced decode steps through the
+    kernel path, on a tp mesh's shard (or on the whole tree with no mesh);
+    the stacked last-position logits ``[1 + len(forced), V]``."""
+    import dataclasses
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    dev = params["final_norm"].device
+    kh = cfg.n_kv_heads // (mesh.tp if mesh is not None else 1)
+    cache = tr.init_kv_cache(dataclasses.replace(cfg, n_kv_heads=kh), 1, 512,
+                             torch.bfloat16, device=dev)
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    with torch.inference_mode():
+        last, _ = tr.prefill_into_cache(
+            cfg, params, toks, torch.tensor([len(prompt)], device=dev), cache,
+            torch.tensor([0], device=dev), mesh=mesh)
+        out = [last[0]]
+        for n, tok in enumerate(forced):
+            pos = torch.tensor([len(prompt) + n], dtype=torch.int32, device=dev)
+            logits, _ = tr.decode_step(cfg, params, cache,
+                                       torch.tensor([int(tok)], device=dev), pos,
+                                       kv_view=256, mesh=mesh)
+            out.append(logits[0])
+    return torch.stack(out)
+
+
+def follow_engine(params, cfg, flags) -> dict:
+    """Rank 1's half of one phase-11 engine: the engine rank 0 builds from
+    the same flags (on the same full tree, sharded by the engine), its
+    replay of rank 0's dispatches until rank 0 stops, and this rank's own
+    launch checks — kernel 1 once per layer per prefill wave, the decode
+    kernel once per layer per decode step, kernel 7 225 times per model
+    call under ``--quant`` (on the card)."""
+    engine = cli_engine(params, cfg, *flags, model=MODEL)
+    steps, waves = [0], [0]
+    decode_fn, prefill_fn = engine._decode_fn, engine._prefill_fn
+
+    def counted_decode(*a):
+        steps[0] += a[5]
+        return decode_fn(*a)
+
+    def counted_prefill(*a):
+        waves[0] += 1
+        return prefill_fn(*a)
+
+    engine._decode_fn, engine._prefill_fn = counted_decode, counted_prefill
+    reset_counters()
+    ops = engine.spmd_follower_loop()
+    launches, calls = read_counters(), dict(MODEL_CALLS)
+    n = engine.mcfg.n_layers
+    if engine.device.type == "cuda":
+        if launches["flash_causal_attention"] != n * waves[0]:
+            raise AssertionError(f"rank 1: kernel 1 launches "
+                                 f"{launches['flash_causal_attention']} != {n} x "
+                                 f"{waves[0]} prefill waves")
+        check_engine_launches(engine, launches, steps[0], 0, 0, calls)
+    free_engine(engine)
+    return dict(ops=ops, steps=steps[0], waves=waves[0], calls=calls,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def tp_follower(coordinator: str, results, settings: dict) -> None:
+    """Rank 1 of phase 11, a spawned process: takes rank 0's module
+    settings (``DEVICE``, ``MODEL``, ``NUM_SLOTS``, ``MAX_SEQ``,
+    ``TP_GROUP``), joins the
+    run, then obeys rank 0's commands on a control group of its own —
+    ``weights`` (draw or drop the full seed-0 tree rank 0 draws),
+    ``logits`` (the tp forward of 11b), ``engine`` (``follow_engine``; its
+    report goes to ``results``) and ``exit``.  A failure is reported to
+    rank 0, which fails the phase."""
+    import gc
+    import traceback
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import init_params
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh, shard_params
+    from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+
+    globals().update(settings)
+    try:
+        dev = pd.rank_device(DEVICE, 1)
+        pd.init_distributed(coordinator, TP, 1, device=dev, timeout_s=TP_TIMEOUT_S)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        count_model_calls()
+        mesh = make_mesh(tp=TP)
+        ctl = SpmdCoordinator(mesh)
+        cfg = get_config(MODEL)
+        full = None
+        while True:
+            op, args = ctl.recv()
+            if op == "exit":
+                break
+            if op == "weights":
+                full = init_params(cfg, 0, torch.bfloat16, dev) if args[0] else None
+                gc.collect()
+                torch.cuda.empty_cache()
+            elif op == "logits":
+                shard = shard_params(full, cfg, mesh)
+                tp_logits(cfg, shard, mesh, *args)
+                del shard
+            elif op == "engine":
+                results.put(("engine", follow_engine(full, cfg, args[0])))
+        results.put(("exit", None))
+    except BaseException:  # reported to rank 0, which fails the phase
+        results.put(("error", traceback.format_exc()))
+    finally:
+        pd.shutdown_distributed()
+
+
+def follower_report(results, want: str) -> dict:
+    """Rank 1's next report (``want``), or its failure, within the run's
+    timeout."""
+    import queue
+
+    try:
+        kind, value = results.get(timeout=TP_TIMEOUT_S)
+    except queue.Empty:
+        raise AssertionError(f"rank 1 sent no {want} report within "
+                             f"{TP_TIMEOUT_S:.0f} s") from None
+    if kind == "error":
+        raise AssertionError(f"rank 1 failed:\n{value}")
+    if kind != want:
+        raise AssertionError(f"rank 1 reported {kind}, not {want}")
+    return value
+
+
+def tp_engine_run(ctl, results, params, cfg, flags, phase, tag, name) -> dict:
+    """One tp 2 engine: rank 1 is told to build it from the same flags,
+    rank 0 builds it, serves ``phase`` through the tunnel and stops it;
+    both ranks' launch checks hold and rank 1 replayed every step."""
+    ctl.send("engine", (flags,))
+    engine = cli_engine(params, cfg, *flags, model=MODEL)
+    t_ready, run = run_engine(engine, phase)
+    peer = follower_report(results, "engine")
+    if run["steps"] > peer["steps"] or run["waves"] > peer["waves"]:
+        raise AssertionError(f"{tag} rank 1 replayed {peer['steps']} decode steps "
+                             f"and {peer['waves']} waves; rank 0 served "
+                             f"{run['steps']} and {run['waves']}")
+    kh = engine.kv_cache["k"].shape[3]
+    print(f"{tag} {' '.join(flags)}: ready in {t_ready:.1f} s; rank 0 serves "
+          f"(mesh {engine.mesh.shape}, {kh} of {cfg.n_kv_heads} kv heads and "
+          f"{cfg.n_heads // TP} of {cfg.n_heads} query heads a rank); rank 1 "
+          f"replayed {peer['ops']} ops")
+    print(f"{tag} rank 0 in the served window: {run['waves']} prefill waves, "
+          f"{run['steps']} decode steps, launch counts "
+          f"{ {k: v for k, v in run['launches'].items() if v} }")
+    print(f"{tag} rank 1 (warmup included): {peer['waves']} prefill waves, "
+          f"{peer['steps']} decode steps, model calls {peer['calls']}, launch "
+          f"counts {peer['launches']} (kernel 1 {cfg.n_layers} a wave, the "
+          f"decode kernel {cfg.n_layers} a step: checked on each rank)")
+    print(f"{tag} {run['tok_s']:.1f} tok/s, TTFT p50 {run['ttft_p50_ms']:.1f} ms "
+          f"({name}; client side through the tunnel; both ranks on one card: "
+          f"no interconnect measured)")
+    if engine.ecfg.quant not in ("none", ""):
+        print_quant_launches(tag, run, engine)
+    free_engine(engine)
+    return run
+
+
+def tp_phase(name: str, add_launches) -> None:
+    """Phase 11: ``--tp 2`` at llama3-8b's full width, ranks 0 and 1 (rank 1
+    a spawned process, as ``tunnel-gpu serve --tp 2`` starts it) on one
+    card: (b) tp 2 logits against a tp 1 forward on the same weights;
+    (a) the serve-CLI defaults on phase 5's conversations, and the plain
+    loop (kernel 1); (c) ``--quant int4 --kv-quant int8``."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import init_params
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh, shard_params
+    from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+
+    cfg = get_config(MODEL)
+    coordinator = pd.local_rendezvous()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    settings = dict(DEVICE=DEVICE, MODEL=MODEL, NUM_SLOTS=NUM_SLOTS,
+                    MAX_SEQ=MAX_SEQ, TP_GROUP=TP_GROUP)
+    follower = ctx.Process(target=tp_follower, args=(coordinator, results, settings),
+                           name="tp-rank-1", daemon=True)
+    follower.start()
+    try:
+        dev = pd.rank_device(DEVICE, 0)
+        backend = pd.init_distributed(coordinator, TP, 0, device=dev,
+                                      timeout_s=TP_TIMEOUT_S)
+        devices = [str(pd.rank_device(DEVICE, r)) for r in range(TP)]
+        print(f"[11] --tp {TP}: rank 0 here, rank 1 a spawned process, on "
+              f"{devices} of {torch.cuda.device_count()} card(s): backend "
+              f"{backend} ({'NCCL: a card a rank' if backend == 'nccl' else 'gloo: ranks share a card, NCCL refuses two ranks on one GPU'}); "
+              f"control plane gloo; tp on one card measures no interconnect")
+        mesh = make_mesh(tp=TP)
+        ctl = SpmdCoordinator(mesh)
+        full = init_params(cfg, 0, torch.bfloat16, DEVICE)
+        ctl.send("weights", (True,))
+        # 11b: tp 2 against tp 1, the same weights and tokens.
+        rng = np.random.default_rng(7)
+        prompt = rng.integers(0, 256, 200).astype(np.int64)
+        forced = rng.integers(0, 256, 4).astype(np.int64)
+        ref = tp_logits(cfg, full, None, prompt, forced)
+        ctl.send("logits", (prompt, forced))
+        shard = shard_params(full, cfg, mesh)
+        got = tp_logits(cfg, shard, mesh, prompt, forced)
+        del shard
+        diff = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        if not torch.isfinite(got).all() or diff > 0.05 * scale or agree < 0.8:
+            raise AssertionError(f"[11b] tp 2 logits drift {diff:.4g} (limit "
+                                 f"{0.05 * scale:.4g}), argmax agreement {agree:.2f}")
+        print(f"[11b] tp {TP} vs tp 1 on the same weights (prefill of "
+              f"{len(prompt)} tokens + {len(forced)} teacher-forced decode steps, "
+              f"kernels 1 and 2 on both): max |diff| {diff:.4g} (limit "
+              f"{0.05 * scale:.4g} = 5% of max |logit| {scale:.4g}), argmax "
+              f"agreement {agree:.2f}")
+        # 11a: the serve defaults (mux, prefix pool, conversation cache;
+        # chunked prefill, kernel 2 per head shard), then the plain loop.
+        m = tp_engine_run(ctl, results, full, cfg, ("--tp", str(TP)), mux_phase,
+                          "[11a]", name)
+        add_launches(m["launches"])
+        m = tp_engine_run(ctl, results, full, cfg, ("--tp", str(TP), "--no-mux"),
+                          lambda e: serve_phase(e, 4, 16), "[11a plain]", name)
+        add_launches(m["launches"])
+        ctl.send("weights", (False,))
+        del full
+        torch.cuda.empty_cache()
+        # 11c: weights drawn directly in packed int4 from seed 0 (by each
+        # rank's engine), sharded; kernel 7 at the shard shapes.
+        m = tp_engine_run(ctl, results, None, cfg,
+                          ("--tp", str(TP), "--quant", "int4", "--quant-group-size",
+                           str(TP_GROUP), "--kv-quant", "int8"),
+                          mux_phase, "[11c]", name)
+        add_launches(m["launches"])
+        ctl.send("exit", ())
+        follower_report(results, "exit")
+    finally:
+        follower.join(60.0)
+        if follower.is_alive():
+            follower.kill()
+            follower.join(10.0)
+        pd.shutdown_distributed()
+    if follower.exitcode != 0:
+        raise AssertionError(f"rank 1 exited {follower.exitcode}")
+
+
+def replica_phase(name: str, add_launches) -> None:
+    """Phase 11d: ``--replicas 2`` — two engines (seed 0 and seed 1, each on
+    ``cuda:(i % device_count)``) on the serve-CLI defaults behind one
+    router and one tunnel; both replicas take streams, and the decode
+    kernel launches once per layer per decode step summed over both."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.router import ReplicaRouter, router_backend
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.distributed import rank_device
+
+    cfg = get_config(MODEL)
+    args = cli.build_parser().parse_args([
+        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", MODEL,
+        "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ), "--replicas", "2"])
+    t0 = time.monotonic()
+    engines = [InferenceEngine(engine_cfg=cli._engine_config(args, seed=i),
+                               tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size),
+                               device=rank_device(DEVICE, i))
+               for i in range(args.replicas)]
+    router = ReplicaRouter(engines, MODEL)
+    steps, streams = [0] * len(engines), [0] * len(engines)
+    for i, e in enumerate(engines):
+        decode_fn, generate = e._decode_fn, e.generate
+
+        def counted_decode(*a, _i=i, _fn=decode_fn):
+            steps[_i] += a[5]
+            return _fn(*a)
+
+        def counted_generate(*a, _i=i, _fn=generate, **kw):
+            streams[_i] += 1
+            return _fn(*a, **kw)
+
+        e._decode_fn, e.generate = counted_decode, counted_generate
+    prompts = [(f"Replica request {i}: summarise the tunnel design. " * 4)[: 120 + 30 * i]
+               for i in range(N_REQUESTS)]
+
+    async def drive():
+        await router.start()
+        try:
+            for e in engines:
+                await e.warmup()
+            t_ready = time.monotonic() - t0
+            async with _Tunnel(None, router_backend(router)) as base:
+                reset_counters()
+                steps[:] = [0] * len(engines)
+                t1 = time.monotonic()
+                out = await asyncio.gather(*[_stream(base, i, 32, p)
+                                             for i, p in enumerate(prompts)])
+                return t_ready, out, time.monotonic() - t1, read_counters()
+        finally:
+            await router.stop()
+
+    t_ready, out, wall, launches = asyncio.run(drive())
+    for r in out:
+        if r["tokens"] != 32 or r["finish"] != "length":
+            raise AssertionError(f"[11d] stream ended early: {r}")
+    if min(streams) == 0:
+        raise AssertionError(f"[11d] a replica took no stream: {streams}")
+    check_engine_launches(engines[0], launches, sum(steps), 0)
+    print(f"[11d] --replicas 2: replica i seed i on "
+          f"{[str(e.device) for e in engines]} (seeds "
+          f"{[e.ecfg.seed for e in engines]}), ready in {t_ready:.1f} s; "
+          f"{len(out)} streams x 32 tokens, streams per replica {streams}, decode "
+          f"steps per replica {steps}; {sum(r['tokens'] for r in out) / wall:.1f} "
+          f"tok/s ({name}; client side through the tunnel, both replicas on "
+          f"one card)")
+    add_launches(launches)
+    for e in engines:
+        free_engine(e)
+    del engines, router
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3083,6 +3450,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks); "
                          "prints no result line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then phase 11 alone (tensor parallelism, "
+                         "SPMD ranks, replicas); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3118,6 +3488,12 @@ def main() -> int:
 
     cfg = get_config(MODEL)
     count_model_calls()
+    if args.tp_only:
+        t0 = time.monotonic()
+        tp_phase(name, lambda counts: None)
+        replica_phase(name, lambda counts: None)
+        print(f"[11] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
 
     # Phase 2: kernels against their plain versions.
     reset_counters()
@@ -3435,6 +3811,11 @@ def main() -> int:
     ckpt_phase(name, add_launches)
     print(f"[9c] phase {time.monotonic() - t0:.1f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({name})")
+    # Phase 11: --tp 2 (two SPMD ranks on the card), --replicas 2.
+    t0 = time.monotonic()
+    tp_phase(name, add_launches)
+    replica_phase(name, add_launches)
+    print(f"[11] phase {time.monotonic() - t0:.1f} s ({name})")
 
     source = {
         "flash_causal_attention": (

@@ -7,9 +7,16 @@ precedence, the same ``run_with_retry`` backoff and SIGTERM drain.
 (``--device cpu`` runs it on the CPU instead) in the JAX serve CLI's
 default engine configuration: mux, prefix cache and conversation cache ON
 (``TUNNEL_MUX``, ``TUNNEL_PREFIX_CACHE``, ``TUNNEL_CONV_CACHE``), bf16
-weights and KV, ``--ragged-prefill`` off.  Flags of engine features the
-port does not run yet are accepted only at their off value: anything else
-exits with a message naming the ROADMAP.md port-queue item.
+weights and KV, ``--ragged-prefill`` off.  ``--tp N`` serves one model
+from N ranks, one process each: with no ``--coordinator`` this process is
+rank 0 and starts ranks 1..N-1 on this host itself; with ``--coordinator
+host:port --num-processes N --process-id r`` every host runs the same
+command, rank 0 serves the tunnel and the other ranks replay its
+dispatches.  ``--replicas N`` serves N engines behind a least-loaded
+router, replica i on ``cuda:(i % device_count)`` with seed i.  Flags of
+engine features the port does not run yet (``--sp``, ``--ep``,
+``--dp-dcn`` above 1) exit with a message naming the ROADMAP.md
+port-queue item.
 """
 
 from __future__ import annotations
@@ -251,10 +258,54 @@ def build_parser() -> argparse.ArgumentParser:
                             "each dispatch picks K from a power-of-two "
                             "ladder up to this cap, steered by the per-slot "
                             "acceptance EMA (0 = fixed K)")
-    # The JAX serve CLI's engine knobs that the port does not run yet:
-    # accepted at their off value only (see _engine_config).
-    for flag, kw in _UNPORTED_FLAGS.items():
-        serve.add_argument(flag, **kw)
+    serve.add_argument("--flash-decode",
+                       action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_FLASH_DECODE", "") == "1",
+                       help="accepted for the JAX serve CLI's command lines; "
+                            "chooses nothing on the card, where decode always "
+                            "runs the hand-written attention kernels")
+    serve.add_argument("--flash-sgrid",
+                       action=argparse.BooleanOptionalAction,
+                       default=_env("TUNNEL_FLASH_SGRID", "") == "1",
+                       help="accepted for the JAX serve CLI's command lines; "
+                            "chooses nothing on the card")
+    # Parallelism: the JAX serve CLI's flags, env names and defaults.
+    serve.add_argument("--tp", type=int, default=int(_env("TUNNEL_TP", "1")),
+                       help="tensor-parallel degree: ranks (processes) that "
+                            "serve one model, each holding 1/tp of its heads "
+                            "and FFN")
+    serve.add_argument("--sp", type=int, default=int(_env("TUNNEL_SP", "1")),
+                       help="sequence-parallel degree (not ported yet: "
+                            "only 1)")
+    serve.add_argument("--sp-mode", choices=("ring", "ulysses"),
+                       default=_env("TUNNEL_SP_MODE", "ring"),
+                       help="SP strategy (with --sp, not ported yet)")
+    serve.add_argument("--ep", type=int, default=int(_env("TUNNEL_EP", "1")),
+                       help="expert-parallel degree (not ported yet: only 1)")
+    serve.add_argument("--replicas", type=int,
+                       default=int(_env("TUNNEL_REPLICAS", "1")),
+                       help="data-parallel engine replicas behind a router, "
+                            "one per card round-robin")
+    serve.add_argument("--coordinator",
+                       default=_env("TUNNEL_COORDINATOR")
+                       or _env("MEGASCALE_COORDINATOR_ADDRESS"),
+                       help="multi-process: torch.distributed rendezvous "
+                            "host:port; run the same serve command for "
+                            "every rank (env TUNNEL_COORDINATOR; a rank's "
+                            "card is cuda:(LOCAL_RANK % cards), NCCL when "
+                            "the LOCAL_WORLD_SIZE ranks of a host each have "
+                            "one — torchrun's names, defaults --process-id "
+                            "and --num-processes)")
+    serve.add_argument("--num-processes", type=int,
+                       default=int(_env("TUNNEL_NUM_PROCESSES", "0")),
+                       help="multi-process: total rank count")
+    serve.add_argument("--process-id", type=int,
+                       default=int(_env("TUNNEL_PROCESS_ID", "-1")),
+                       help="multi-process: this process's rank")
+    serve.add_argument("--dp-dcn", type=int,
+                       default=int(_env("TUNNEL_DP_DCN", "1")),
+                       help="data-parallel degree across hosts (not ported "
+                            "yet: only 1)")
 
     proxy = sub.add_parser("proxy", help="consumer peer: local HTTP port")
     common(proxy)
@@ -281,42 +332,74 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-#: flag -> argparse kwargs; every default is the off value.
-_UNPORTED_FLAGS = {
-    "--tp": dict(type=int, default=1),
-    "--sp": dict(type=int, default=1),
-    "--ep": dict(type=int, default=1),
-    "--replicas": dict(type=int, default=1),
-    "--coordinator": dict(default=None),
-}
+def _check_parallel_flags(args) -> None:
+    """The JAX serve CLI's refusals of parallel flag sets, and the port's
+    of what it does not run yet; raises SystemExit."""
+    from p2p_llm_tunnel_tpu_torch.parallel.distributed import make_hybrid_mesh
+    from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
+
+    if args.coordinator and (args.num_processes <= 0 or args.process_id < 0):
+        # A partial flag set must error loudly, not silently start an
+        # independent single-host server for every rank.
+        raise SystemExit(
+            "--coordinator requires --num-processes > 0 and "
+            "--process-id >= 0 (or TUNNEL_NUM_PROCESSES / "
+            "TUNNEL_PROCESS_ID)"
+        )
+    if args.coordinator and args.num_processes != args.tp:
+        raise SystemExit(
+            f"--coordinator runs one process per tensor-parallel rank: "
+            f"--num-processes {args.num_processes} must equal --tp {args.tp}"
+        )
+    if args.dp_dcn != 1:
+        try:
+            make_hybrid_mesh(tp=args.tp, dp_dcn=args.dp_dcn)
+        except NotPorted as e:
+            raise SystemExit(str(e)) from None
+    if args.replicas > 1:
+        if args.coordinator and args.num_processes > 1:
+            raise SystemExit(
+                "--replicas > 1 is a single-host data-parallel mode; "
+                "multi-host runs shard ONE engine over the global mesh"
+            )
+        if args.tp > 1:
+            raise SystemExit(
+                "--replicas > 1 with --tp > 1 is not supported by the "
+                "PyTorch engine: each replica would need a rank group of "
+                "its own"
+            )
 
 
-def _engine_config(args):
-    """The EngineConfig of ``serve --backend gpu``; raises SystemExit with
-    the port-queue item for a knob the port does not run yet."""
+def _engine_config(args, seed: int = 0):
+    """The EngineConfig of ``serve --backend gpu`` (replica ``seed`` of a
+    ``--replicas`` run snapshots into ``replica-<seed>/``); raises
+    SystemExit with the port-queue item for a knob the port does not run
+    yet."""
     from p2p_llm_tunnel_tpu_torch.engine.engine import (
         EngineConfig,
         NotPorted,
         check_ported,
     )
 
-    if args.replicas != 1:
-        raise SystemExit("--replicas is not ported to the PyTorch engine yet "
-                         "(ROADMAP.md, port queue: parallel/)")
-    if args.coordinator:
-        raise SystemExit("--coordinator is not ported to the PyTorch engine "
-                         "yet (ROADMAP.md, port queue: parallel/)")
+    _check_parallel_flags(args)
+    pfx_dir = args.prefix_cache_dir
+    if pfx_dir and args.replicas > 1:
+        # One shared directory would have every save clobber the previous
+        # replica's pool.
+        pfx_dir = os.path.join(pfx_dir, f"replica-{seed}")
     ecfg = EngineConfig(
         model=args.model, num_slots=args.slots, max_seq=args.max_seq,
         dtype=args.dtype, decode_steps=args.decode_steps,
         decode_steps_eager=args.decode_steps_eager,
-        prefill_rows=args.prefill_rows, tp=args.tp, sp=args.sp, ep=args.ep,
+        prefill_rows=args.prefill_rows, tp=args.tp, sp=args.sp,
+        sp_mode=args.sp_mode, ep=args.ep,
         ckpt_path=args.ckpt, quant=args.quant,
         quant_group_size=args.quant_group_size, kv_quant=args.kv_quant,
         prefill_act_quant=args.prefill_act_quant,
+        flash_decode=args.flash_decode, flash_sgrid=args.flash_sgrid,
         fused_decode_layer=args.fused_decode_layer,
         prefix_cache=args.prefix_cache,
-        prefix_cache_dir=args.prefix_cache_dir,
+        prefix_cache_dir=pfx_dir,
         prefix_pool_blocks=args.prefix_pool_blocks,
         conv_cache=args.conv_cache and args.prefix_cache,
         prefix_evict=args.prefix_evict, spill_pages=args.spill_pages,
@@ -326,7 +409,7 @@ def _engine_config(args):
         mux_budget_tokens=args.mux_budget_tokens,
         max_waiting=args.max_waiting, fair_admission=args.fair_admission,
         tenant_weights=args.tenant_weights,
-        watchdog_budget_s=args.watchdog_budget, role=args.role,
+        watchdog_budget_s=args.watchdog_budget, role=args.role, seed=seed,
     )
     try:
         check_ported(ecfg)
@@ -374,27 +457,99 @@ async def run_with_retry(name: str, attempt_fn, *, max_attempts: int = 0,
 
 
 _BACKEND = None
+#: Ranks 1..N-1 of a one-host ``--tp N`` run (parallel.distributed
+#: LocalFollowers), started by this process.
+_FOLLOWERS = None
+
+
+def _tokenizer(spec):
+    """A tokenizer from ``--tokenizer`` (a path) or None (byte-level)."""
+    if not spec:
+        return None
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import HFTokenizer
+
+    return HFTokenizer(spec)
+
+
+def _join_ranks(args, tokenizer):
+    """Join this process to the run ``--tp``/``--coordinator`` ask for and
+    return (mesh, this rank's device), or (None, ``--device``) for a
+    one-process run.  Without ``--coordinator`` a ``--tp N`` run is ranks
+    0..N-1 of this host: this process is rank 0 and starts the others,
+    after building every kernel (the card) so no two ranks run nvcc into
+    one build directory."""
+    global _FOLLOWERS
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+    if args.coordinator:
+        local = pd.env_local_world_size()
+        local_rank = int(os.environ.get("LOCAL_RANK", args.process_id))
+        dev = pd.rank_device(args.device, local_rank)
+        pd.init_distributed(args.coordinator, args.num_processes,
+                            args.process_id, device=dev,
+                            local_world_size=local)
+        return pd.make_hybrid_mesh(tp=args.tp, dp_dcn=args.dp_dcn,
+                                   sp=args.sp, ep=args.ep), dev
+    if args.tp <= 1:
+        return None, args.device
+    ecfg = _engine_config(args)
+    coordinator = pd.local_rendezvous()
+    pd.build_before_launch(args.device)
+    log.info("starting %d local follower ranks for --tp %d", args.tp - 1,
+             args.tp)
+    _FOLLOWERS = pd.launch_local_followers(args.tp, lambda r: pd.FollowerSpec(
+        coordinator=coordinator, world=args.tp, rank=r, device=args.device,
+        engine_cfg=ecfg, tokenizer=args.tokenizer or tokenizer))
+    dev = pd.rank_device(args.device, 0)
+    pd.init_distributed(coordinator, args.tp, 0, device=dev)
+    return pd.make_mesh(tp=args.tp), dev
 
 
 async def _engine_backend(args):
-    """Start (once) the in-process engine and return the request handler;
-    reconnects re-use the warm engine."""
+    """Start (once) the in-process engine(s) and return the request
+    handler; reconnects re-use the warm engine.  A follower rank replays
+    rank 0's dispatches here until rank 0 stops, and returns None: it
+    opens no tunnel."""
     global _BACKEND
     if _BACKEND is not None:
         return _BACKEND
     from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
     from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
 
-    ecfg = _engine_config(args)
-    tokenizer = None
-    if args.tokenizer:
-        from p2p_llm_tunnel_tpu_torch.engine.tokenizer import HFTokenizer
+    _engine_config(args)  # refuse a bad flag set before joining anything
+    tokenizer = _tokenizer(args.tokenizer)
+    if args.replicas > 1:
+        from p2p_llm_tunnel_tpu_torch.engine.router import (
+            ReplicaRouter,
+            router_backend,
+        )
+        from p2p_llm_tunnel_tpu_torch.parallel.distributed import rank_device
 
-        tokenizer = HFTokenizer(args.tokenizer)
-    log.info("starting PyTorch engine: model=%s slots=%d device=%s",
-             args.model, args.slots, args.device)
-    engine = InferenceEngine(engine_cfg=ecfg, tokenizer=tokenizer,
-                             device=args.device)
+        log.info("starting %d engine replicas: model=%s slots=%d",
+                 args.replicas, args.model, args.slots)
+        router = ReplicaRouter([
+            InferenceEngine(engine_cfg=_engine_config(args, seed=i),
+                            tokenizer=tokenizer,
+                            device=rank_device(args.device, i))
+            for i in range(args.replicas)
+        ], args.model)
+        await router.start()
+        for eng in router.engines:
+            await eng.warmup()
+        _BACKEND = router_backend(router)
+        return _BACKEND
+    mesh, device = _join_ranks(args, tokenizer)
+    log.info("starting PyTorch engine: model=%s slots=%d device=%s tp=%d",
+             args.model, args.slots, device, args.tp)
+    engine = InferenceEngine(engine_cfg=_engine_config(args),
+                             tokenizer=tokenizer, device=device, mesh=mesh)
+    spmd = engine._spmd
+    if spmd is not None and spmd.rank != 0:
+        # Follower rank: no tunnel endpoint here — rank 0 owns the tunnel
+        # and broadcasts every dispatch's host inputs.
+        log.info("follower rank %d: replaying rank 0's dispatches", spmd.rank)
+        await asyncio.to_thread(engine.spmd_follower_loop)
+        return None
     await engine.start()
     # Builds the CUDA kernels and runs one burst and one wave before
     # traffic, so no request pays for either.
@@ -410,6 +565,8 @@ async def _serve_once(args, drain: "Optional[asyncio.Event]" = None) -> None:
     backend = None
     if args.backend == "gpu":
         backend = await _engine_backend(args)
+        if backend is None:
+            return  # a follower rank: rank 0 has stopped
     channel, signaling = await connect(
         args.signal, args.room, args.transport,
         stun_server=args.stun, relay=args.relay,
@@ -558,6 +715,11 @@ def main(argv: Optional[list] = None) -> None:
     except KeyboardInterrupt:
         log.info("interrupted, shutting down")
         sys.exit(130)
+    finally:
+        if _FOLLOWERS is not None:
+            # Rank 0 is gone: its followers wait on its next op; kill them
+            # after a short grace instead of their collective timeout.
+            _FOLLOWERS.close(timeout_s=5.0)
 
 
 if __name__ == "__main__":

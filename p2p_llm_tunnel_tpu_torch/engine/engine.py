@@ -37,8 +37,14 @@ Burst n is dispatched before burst n-1's tokens are fetched: the fetch
 waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
-What this port does not run yet (``tp``, ``sp``, ``ep``) raises at
-construction; ROADMAP.md lists it in the port queue.
+Tensor parallelism (``tp``) runs one process per rank
+(``parallel/``): the engine shards its params, KV cache and prefix pool
+to this rank's heads, and in a multi-process run every device dispatch
+goes through ``_dispatch``, which on rank 0 first broadcasts the op and
+its host inputs (``parallel/spmd_serve``); the other ranks run
+``spmd_follower_loop`` and replay them.  What this port does not run yet
+(``sp``, ``ep``) raises at construction; ROADMAP.md lists it in the port
+queue.
 """
 
 from __future__ import annotations
@@ -145,7 +151,9 @@ class EngineConfig:
     in the serve CLI, as in the reference.
 
     Knobs the port does not run yet must stay at their off value
-    (``_UNPORTED``); construction raises otherwise.  ``flash_decode`` and
+    (``_UNPORTED``); construction raises otherwise.  ``tp`` > 1 needs
+    this process to be one rank of a joined run of ``tp`` ranks
+    (``parallel/distributed``).  ``flash_decode`` and
     ``flash_sgrid`` choose between XLA and Pallas on a TPU and choose
     nothing here: on the card the model layer always runs the Hopper
     attention kernels, on the CPU their plain versions.
@@ -219,9 +227,21 @@ class EngineConfig:
 
 #: knob -> (values that mean "off", ROADMAP.md port-queue item)
 _UNPORTED = {
-    "tp": ((1,), "parallel/"),
-    "sp": ((1,), "parallel/"),
-    "ep": ((1,), "parallel/"),
+    "sp": ((1,), "18b, sequence parallelism (--sp, --sp-mode)"),
+    "ep": ((1,), "18c, expert parallelism (--ep)"),
+}
+
+#: SPMD op name -> the engine method every rank runs for it with the op's
+#: host inputs (numpy arrays, Python scalars, SamplingParams); the pool
+#: copies (``copy_in``/``copy_out``) are wrapped closures instead.
+_SPMD_OPS = {
+    "decode": "_decode_fn",
+    "prefill": "_prefill_fn",
+    "chunk": "_chunk_prefill_fn",
+    "ragged": "_ragged_prefill_fn",
+    "spec": "_spec_verify_fn",
+    "embed": "_encode",
+    "set_bias": "_set_bias",
 }
 
 
@@ -306,6 +326,7 @@ class InferenceEngine:
         params=None,
         tokenizer: Optional[Tokenizer] = None,
         device=None,
+        mesh=None,
     ):
         self.ecfg = engine_cfg or EngineConfig()
         check_ported(self.ecfg)
@@ -324,14 +345,36 @@ class InferenceEngine:
         if self.ecfg.fused_decode_layer and not self.mcfg.fused_decode_layer:
             self.mcfg = dc_replace(self.mcfg, fused_decode_layer=True)
         dtype = _DTYPES[self.ecfg.dtype]
-        self.params = self._init_weights(params, dtype)
+        # Tensor parallelism: this process is one rank of a joined
+        # torch.distributed run (parallel/distributed.init_distributed).
+        if mesh is None and self.ecfg.tp > 1:
+            from p2p_llm_tunnel_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(tp=self.ecfg.tp)
+        self.mesh = mesh
+        # Multi-process SPMD serving: rank 0 broadcasts every dispatch's
+        # host inputs, the other ranks replay them (spmd_follower_loop).
+        # None in single-process runs — zero overhead.
+        from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+
+        self._spmd = SpmdCoordinator.maybe(mesh)
+        self._spmd_stop_sent = False
+        self.params = self._init_weights(params, dtype, mesh)
 
         b, s = self.ecfg.num_slots, self.ecfg.max_seq
         # One extra cache row: the scratch slot that padded prefill rows
         # write into, so batched prefill never corrupts a live slot.
         rows = b + 1
         self._scratch_slot = b
-        self.kv_cache = init_kv_cache(self.mcfg, rows, s, dtype,
+        # Under tp the cache holds this rank's kv heads: allocated at the
+        # shard's shape (the slot axis stays whole), never whole first.
+        cache_cfg = self.mcfg
+        if mesh is not None:
+            from p2p_llm_tunnel_tpu_torch.parallel.sharding import local_kv_heads
+
+            cache_cfg = dc_replace(self.mcfg,
+                                   n_kv_heads=local_kv_heads(self.mcfg, mesh))
+        self.kv_cache = init_kv_cache(cache_cfg, rows, s, dtype,
                                       quant=self.ecfg.kv_quant,
                                       device=self.device)
         self.scheduler = Scheduler(
@@ -405,6 +448,13 @@ class InferenceEngine:
                 "disaggregated prefill/decode ships prefix-pool pages, "
                 "which prefix_cache=False leaves uninitialised",
             )
+        if self.ecfg.role != "both" and self.mesh is not None:
+            self._fence(
+                "role", "both",
+                "pool leaves are mesh-sharded (tp/sp>1); exporting or "
+                "splicing per-page host copies would gather the mesh — "
+                "same scope limit as the spill tier",
+            )
         # Spill tier and KV_PAGES: the pins every page carries across a
         # tier or tunnel boundary (empty: no page I/O on this engine), the
         # seeded fault schedule (TUNNEL_SPILL_CHAOS), and the in-flight op
@@ -428,13 +478,28 @@ class InferenceEngine:
                 for i in range(max(1, self.ecfg.prefix_tail_buckets))
                 if blk * (2 ** i) <= s
             ]
+            if self.ecfg.spill_pages > 0 and self.mesh is not None:
+                self._fence(
+                    "spill_pages", 0,
+                    "pool leaves are mesh-sharded (tp/sp>1); per-page "
+                    "host copies would gather the mesh on the serving "
+                    "path — same scope limit as pool snapshots",
+                )
             self._prefix = PrefixIndex(
                 blk, self.ecfg.prefix_pool_blocks, evict=self.ecfg.prefix_evict,
                 spill_pages=self.ecfg.spill_pages,
             )
+            # Pool leaves follow the cache's (sharded) leaves: this rank's
+            # kv heads, as the reference's shard_kv_cache(pool).
             self._pool = init_pool(self.kv_cache, blk,
                                    self.ecfg.prefix_pool_blocks)
-            if self.ecfg.prefix_cache_dir:
+            if self.ecfg.prefix_cache_dir and self._spmd is not None:
+                # Every rank would need a coordinated load and save of its
+                # shard: skipped, as the reference skips multi-host saves.
+                log.info("prefix snapshots are skipped under multi-process "
+                         "SPMD serving (prefix_cache_dir %s unused)",
+                         self.ecfg.prefix_cache_dir)
+            elif self.ecfg.prefix_cache_dir:
                 loaded = load_pool_snapshot(
                     self.ecfg.prefix_cache_dir, self._pool, self._prefix,
                     self._prefix_snapshot_meta(),
@@ -451,6 +516,11 @@ class InferenceEngine:
                 blk, self._prefix_max_blocks, self.ecfg.prefill_rows,
                 packed_keys=pool_packed_keys(self.kv_cache),
             )
+            if self._spmd is not None:
+                # Carries (cache, pool) are each rank's own; the index
+                # arrays are broadcast by rank 0.
+                self._copy_in = self._spmd.wrap("copy_in", self._copy_in, 2)
+                self._copy_out = self._spmd.wrap("copy_out", self._copy_out, 2)
             # The split roles reuse the spill tier's page I/O and pins for
             # wire transfers, so both are set up for either consumer.
             if self.ecfg.spill_pages > 0 or self.ecfg.role != "both":
@@ -548,6 +618,16 @@ class InferenceEngine:
         dispatch, so the device must never alias them."""
         return torch.tensor(arr, dtype=dtype).to(self.device, non_blocking=True)
 
+    def _dispatch(self, op: str, *host):
+        """Run device program ``op`` (``_SPMD_OPS``) on the host inputs
+        ``host`` (executor thread).  Every dispatch goes through here: in a
+        multi-process run rank 0 broadcasts ``(op, host)`` first, so the
+        followers replay the same program in the same order."""
+        fn = getattr(self, _SPMD_OPS[op])
+        if self._spmd is not None:
+            fn = self._spmd.wrap(op, fn, 0)
+        return fn(*host)
+
     def _decode_fn(self, ov_mask, ov_tok, ov_pos, samp: sampling.SamplingParams,
                    kv_view: int, steps: int):
         """``steps`` chained decode steps; sampled tokens feed back
@@ -559,8 +639,11 @@ class InferenceEngine:
 
         The cache is updated IN PLACE by decode_step (the reference
         carried it through the scan functionally); rows parked at
-        positions >= max_seq write nothing."""
+        positions >= max_seq write nothing.  Host inputs are numpy arrays
+        (``_dispatch``)."""
         self._ensure_decode_carry()
+        ov_mask, ov_tok, ov_pos = (self._host(ov_mask), self._host(ov_tok),
+                                   self._host(ov_pos))
         b = ov_tok.shape[0]
         tokens = torch.where(ov_mask, ov_tok, self._dev_tokens)
         positions = torch.where(ov_mask, ov_pos, self._dev_positions)
@@ -577,7 +660,7 @@ class InferenceEngine:
         for _ in range(steps):
             logits, _ = decode_step(
                 self.mcfg, self.params, self.kv_cache, tokens, positions,
-                kv_view=kv_view,
+                kv_view=kv_view, mesh=self.mesh,
             )
             sampled = sampling.sample(logits, samp, self._gen, counts=counts,
                                       pos=positions + 1, bias=self._bias)
@@ -599,16 +682,19 @@ class InferenceEngine:
     def _prefill_fn(self, tokens, lengths, slots, samp, echo=False):
         """Plain prefill of one wave into its slots (cache written IN
         PLACE) and the first sampled token per row."""
+        tokens, lengths, slots = (self._host(tokens), self._host(lengths),
+                                  self._host(slots))
         prompt_lps = None
         if echo:
             last_logits, _, prompt_lps = prefill_into_cache(
                 self._prefill_mcfg, self.params, tokens, lengths,
-                self.kv_cache, slots, return_prompt_logprobs=True,
+                self.kv_cache, slots, mesh=self.mesh,
+                return_prompt_logprobs=True,
             )
         else:
             last_logits, _ = prefill_into_cache(
                 self._prefill_mcfg, self.params, tokens, lengths,
-                self.kv_cache, slots,
+                self.kv_cache, slots, mesh=self.mesh,
             )
         first, lp = self._sample_rows(last_logits, samp, lengths, slots)
         return first, lp, prompt_lps
@@ -628,9 +714,11 @@ class InferenceEngine:
         """Tail-only prefill against reused history KV (prefix-cache tails
         and chunked-prefill segments), cache written IN PLACE; attention
         reads ``cache[:kv_view]``."""
+        tokens, lengths, starts, slots = (
+            self._host(x) for x in (tokens, lengths, starts, slots))
         last_logits, _ = chunk_prefill_into_cache(
             self._prefill_mcfg, self.params, tokens, lengths, starts,
-            self.kv_cache, slots, kv_view=kv_view,
+            self.kv_cache, slots, kv_view=kv_view, mesh=self.mesh,
         )
         return self._sample_rows(last_logits, samp, starts + lengths, slots)
 
@@ -640,6 +728,9 @@ class InferenceEngine:
         segments in one ``ragged_prefill_attention`` launch per layer.
         ``sample_idx``/``samp_pos``/``slots`` are per ROW: each row's
         last-real-token logits sample exactly like the chunk path's."""
+        tokens, sample_idx, samp_pos, slots = (
+            self._host(x) for x in (tokens, sample_idx, samp_pos, slots))
+        descs = [self._host(x) for x in descs]
         last_logits, _ = ragged_prefill_into_cache(
             self._prefill_mcfg, self.params, tokens, *descs, sample_idx,
             self.kv_cache, block_q=self._ragged_bq,
@@ -656,11 +747,12 @@ class InferenceEngine:
         stochastic rows accept nothing and sample position ``pos + 1`` from
         their own (seed, position) stream — a plain decode step.  Returns
         (emitted ``[B, k+1]``, counts ``[B]``)."""
+        tokens, positions = self._host(tokens), self._host(positions)
         b, t = tokens.shape
         k = t - 1
         logits, _ = spec_verify_into_cache(
             self.mcfg, self.params, tokens, positions, self.kv_cache,
-            kv_view=kv_view,
+            kv_view=kv_view, mesh=self.mesh,
         )  # [B, t, V]
         if samp.bias_on is not None and samp.bias_on.any():
             logits = logits + self._bias[:, None, :]
@@ -683,6 +775,43 @@ class InferenceEngine:
                         torch.zeros_like(prop_pad)),
         )
         return emitted, n_acc + 1
+
+    # -- multi-process SPMD followers ---------------------------------------
+
+    def spmd_follower_step(self) -> bool:
+        """Replay ONE broadcast dispatch; False when rank 0 said stop.  The
+        follower's own device state (params shard, cache, pool, decode
+        carry, bias plane) takes the place of rank 0's, exactly as the
+        rank-0 call sites pass theirs."""
+        if self._spmd is None or self._spmd.rank == 0:
+            raise RuntimeError("spmd_follower_step runs on follower ranks only")
+        op, args = self._spmd.recv()
+        if op == "stop":
+            return False
+        if op == "ping":
+            return True
+        if op == "copy_in":
+            self._copy_in(self.kv_cache, self._pool, *args)
+        elif op == "copy_out":
+            self._copy_out(self._pool, self.kv_cache, *args)
+        elif op in _SPMD_OPS:
+            getattr(self, _SPMD_OPS[op])(*args)
+        else:
+            raise RuntimeError(f"unknown SPMD op {op!r}")
+        return True
+
+    @torch.inference_mode()
+    def spmd_follower_loop(self) -> int:
+        """Ranks != 0: replay rank 0's dispatch stream until it stops
+        (blocking; run instead of start()/serving).  Returns the number of
+        ops replayed.  A wait longer than the control group's timeout
+        raises."""
+        log.info("SPMD follower loop: rank %d", self._spmd.rank)
+        n = 0
+        while self.spmd_follower_step():
+            n += 1
+        log.info("SPMD follower loop done after %d ops", n)
+        return n
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -751,6 +880,14 @@ class InferenceEngine:
                 self._task = None
             # Persist warm prompt KV while the pool is still alive.
             self.save_prefix_snapshot()
+            if (self._spmd is not None and self._spmd.rank == 0
+                    and not self._spmd_stop_sent):
+                # Release the followers blocked in spmd_follower_loop.
+                # Once only: stop() stays idempotent, and a second stop
+                # broadcast would hang rank 0 (the followers have left).
+                self._spmd_stop_sent = True
+                loop = asyncio.get_running_loop()
+                await loop.run_in_executor(self._executor, self._spmd.send_stop)
             for state in list(self._requests.values()):
                 state.queue.put_nowait(None)
             self._executor.shutdown(wait=False)
@@ -824,10 +961,11 @@ class InferenceEngine:
         """One prefill wave of pad rows into the scratch slot."""
         nb = self.ecfg.prefill_rows
         rows = np.zeros((nb,), np.int32)
-        self._prefill_fn(
-            self._host(np.zeros((nb, self._bucket(1)), np.int32)),
-            self._host(np.ones((nb,), np.int32)),
-            self._host(np.full((nb,), self._scratch_slot, np.int64)),
+        self._dispatch(
+            "prefill",
+            np.zeros((nb, self._bucket(1)), np.int32),
+            np.ones((nb,), np.int32),
+            np.full((nb,), self._scratch_slot, np.int64),
             sampling.SamplingParams(
                 rows.astype(np.float32), rows, np.ones((nb,), np.float32),
                 rows.astype(np.float32), rows.astype(np.float32), rows,
@@ -922,8 +1060,8 @@ class InferenceEngine:
             for i, p in enumerate(chunk):
                 tokens[i, : len(p)] = p
                 valid[i, : len(p)] = True
-            out = await loop.run_in_executor(self._executor, self._encode,
-                                             tokens, valid)
+            out = await loop.run_in_executor(self._executor, self._dispatch,
+                                             "embed", tokens, valid)
             outs.append(out[: len(chunk)])
         return np.concatenate(outs, axis=0)
 
@@ -931,7 +1069,8 @@ class InferenceEngine:
     def _encode(self, tokens: np.ndarray, valid: np.ndarray) -> np.ndarray:
         out = encode_pooled(self.mcfg, self.params,
                             torch.from_numpy(tokens).to(self.device),
-                            torch.from_numpy(valid).to(self.device))
+                            torch.from_numpy(valid).to(self.device),
+                            mesh=self.mesh)
         return out.cpu().numpy()
 
     # -- disaggregated prefill/decode (KV_PAGES) ----------------------------
@@ -1375,10 +1514,8 @@ class InferenceEngine:
         zeros = np.zeros((nb,), np.float32)
         samp = sampling.SamplingParams(temp, top_k, top_p, zeros, zeros,
                                        lps, seeds, bias_on)
-        first, lp, plp = self._prefill_fn(
-            self._host(tokens), self._host(lengths), self._host(slots),
-            samp, echo,
-        )
+        first, lp, plp = self._dispatch("prefill", tokens, lengths, slots,
+                                        samp, echo)
         global_metrics.inc("engine_prefill_tokens_total", total)
         return _HostCopy((first, lp, plp))
 
@@ -1433,10 +1570,8 @@ class InferenceEngine:
         samp = self._row_controls(rows, nb)
         # Smallest view covering every row's history + padded tail.
         view = self._chunk_view_bucket(int(starts.max()) + t)
-        first, lp = self._chunk_prefill_fn(
-            self._host(tokens), self._host(lengths), self._host(starts),
-            self._host(slots), samp, view,
-        )
+        first, lp = self._dispatch("chunk", tokens, lengths, starts, slots,
+                                   samp, view)
         global_metrics.inc("engine_prefill_tokens_total", total)
         return _HostCopy((first, lp, None))
 
@@ -1472,11 +1607,9 @@ class InferenceEngine:
             slots[i] = run.slot
             total += len(seg)
         samp = self._row_controls(rows, nb)
-        first, lp = self._ragged_prefill_fn(
-            self._host(tokens),
-            [self._host(x) for x in (slot_of, start_of, qoff_of, base_of)],
-            self._host(sample_idx), self._host(samp_pos), self._host(slots),
-            samp,
+        first, lp = self._dispatch(
+            "ragged", tokens, [slot_of, start_of, qoff_of, base_of],
+            sample_idx, samp_pos, slots, samp,
         )
         global_metrics.inc("engine_prefill_tokens_total", total)
         return _HostCopy((first, lp, None))
@@ -1566,9 +1699,9 @@ class InferenceEngine:
         ov_pos = np.where(inactive, self.ecfg.max_seq, self._positions)
         view = self._kv_view_bucket() if view is None else view
         steps = self._burst_steps() if steps is None else steps
-        sampled, lp_out = self._decode_fn(
-            self._host(ov_mask), self._host(self._last_token),
-            self._host(ov_pos.astype(np.int32)), samp, view, steps,
+        sampled, lp_out = self._dispatch(
+            "decode", ov_mask, self._last_token.copy(),
+            ov_pos.astype(np.int32), samp, view, steps,
         )
         self._last_burst = (
             steps, int(np.count_nonzero(active[: self.ecfg.num_slots]))
@@ -1599,12 +1732,18 @@ class InferenceEngine:
             lb = run.request.logit_bias
             if not lb and not self._slot_bias_on[i]:
                 continue
-            self._bias[i].zero_()
-            if lb:
-                ids = self._host(np.array([t for t, _ in lb[: self.BIAS_CAP]], np.int64))
-                vals = self._host(np.array([v for _, v in lb[: self.BIAS_CAP]], np.float32))
-                self._bias[i].index_add_(0, ids, vals)
+            self._dispatch(
+                "set_bias", i,
+                np.array([t for t, _ in lb[: self.BIAS_CAP]], np.int64),
+                np.array([v for _, v in lb[: self.BIAS_CAP]], np.float32),
+            )
             self._slot_bias_on[i] = bool(lb)
+
+    def _set_bias(self, row: int, ids: np.ndarray, vals: np.ndarray) -> None:
+        """Zero the slot's bias row, then add the request's entries."""
+        self._bias[row].zero_()
+        if len(ids):
+            self._bias[row].index_add_(0, self._host(ids), self._host(vals))
 
     def _admit_one(self, run: RunningSlot) -> None:
         """Set up host slot state after prefill admission."""
@@ -1774,9 +1913,8 @@ class InferenceEngine:
             bias_on=self._slot_bias_on & active,
         )
         view = self._kv_view_bucket() if view is None else view
-        emitted, counts = self._spec_verify_fn(
-            self._host(tokens), self._host(positions.astype(np.int32)), samp,
-            view,
+        emitted, counts = self._dispatch(
+            "spec", tokens, positions.astype(np.int32), samp, view,
         )
         assign = [
             run.request.request_id
@@ -2326,7 +2464,16 @@ class InferenceEngine:
         unit = self.ecfg.prefill_chunk or self.ecfg.min_prefill_bucket
         div = math.gcd(self.ecfg.min_prefill_bucket, unit)
         bq = next((c for c in (128, 64, 32, 16, 8) if div % c == 0), 0)
-        if bq == 0:
+        if self.ecfg.tp > 1:
+            # The reference's fence, kept so both packages route the same
+            # requests the same way under tp.
+            self._fence(
+                "ragged_prefill", False,
+                "pallas_call is not GSPMD-partitioned: under a tp mesh XLA "
+                "would all-gather the sharded cache (wrap in shard_map "
+                "before enabling, like prefill's flash_tp)",
+            )
+        elif bq == 0:
             self._fence(
                 "ragged_prefill", False,
                 f"no power-of-2 q-block width >= 8 divides both "
@@ -2386,7 +2533,7 @@ class InferenceEngine:
                     self.ecfg.prefill_chunk):
                 self._fence("prefix_cache", False, why)
 
-    def _init_weights(self, params, dtype):
+    def _init_weights(self, params, dtype, mesh=None):
         """The served weights, as the reference builds them: with no params
         the ``ckpt_path`` file (checked leaf by leaf against the config's
         tree) or a random init (directly int8 or packed int4 under
@@ -2397,7 +2544,10 @@ class InferenceEngine:
         reads it (``quant.kernel_layout``: rows padded to whole 16-byte
         pieces where they are not); on the card every contracted length
         and group size must pass ``model_fence``, which every even group
-        size does at real widths."""
+        size does at real widths.  With a tp ``mesh`` the full tree is
+        built (or loaded, or injected) first and this rank keeps its shard
+        (``parallel/sharding.shard_params``, laid out per shard), as the
+        reference shards its tree onto the mesh."""
         from p2p_llm_tunnel_tpu_torch.models import quant as q
         from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import model_fence
 
@@ -2444,9 +2594,16 @@ class InferenceEngine:
                     "injected int4 tree uses group_size=%d; overriding "
                     "configured quant_group_size=%d", wq.group_size, gs)
                 self.ecfg = dc_replace(self.ecfg, quant_group_size=wq.group_size)
-        why = model_fence(self.mcfg, mode, self.ecfg.quant_group_size)
+        tp = mesh.tp if mesh is not None else 1
+        why = model_fence(self.mcfg, mode, self.ecfg.quant_group_size, tp)
         if self.device.type == "cuda" and why is not None:
             raise ValueError(f"--quant {mode} on the card: {why}")
+        if mesh is not None:
+            from p2p_llm_tunnel_tpu_torch.parallel.sharding import shard_params
+
+            log.info("sharding params over mesh %s (rank %d)", mesh.shape,
+                     mesh.rank)
+            return shard_params(params, self.mcfg, mesh)
         return q.kernel_layout(params)
 
     def _gate_fused_decode(self) -> None:
@@ -2562,8 +2719,11 @@ class InferenceEngine:
 
     def save_prefix_snapshot(self) -> None:
         """Save the pool and its index under ``prefix_cache_dir`` (stop()
-        calls this once the loop has ended)."""
-        if self._prefix is None or not self.ecfg.prefix_cache_dir:
+        calls this once the loop has ended).  Skipped under multi-process
+        SPMD serving: every rank would need a coordinated save of its
+        shard."""
+        if (self._prefix is None or not self.ecfg.prefix_cache_dir
+                or self._spmd is not None):
             return
         try:
             save_pool_snapshot(
@@ -2951,6 +3111,12 @@ class InferenceEngine:
                     try:
                         await asyncio.wait_for(self._wake.wait(), timeout=0.5)
                     except asyncio.TimeoutError:
+                        if (self._spmd is not None and self._spmd.rank == 0
+                                and self._spmd.heartbeat_due()):
+                            # Followers wait for the next op with a
+                            # timeout: an idle leader says it is alive.
+                            await loop.run_in_executor(
+                                self._executor, self._spmd.send, "ping", ())
                         continue
                     continue
 

@@ -35,7 +35,16 @@ Idiom differences from the JAX reference, all deliberate:
   matmul weight and the embedding) go through ``quant.mm`` and
   ``quant.head_matmul`` — kernel 7 on the card, its plain version on the
   CPU — and a quantized embedding gathers into bf16 activations, as in
-  the reference; ``cfg.act_quant`` runs the W8A8 products.
+  the reference; ``cfg.act_quant`` runs the W8A8 products;
+- tensor parallelism (a ``parallel/mesh`` value as ``mesh``): the
+  collectives GSPMD inserts from the reference's shardings are written
+  out — each rank computes its H/tp query and K/tp kv heads (kernels 1
+  and 2 per head shard, as the reference's ``flash_tp``), an
+  ``all_reduce`` sums the row-parallel ``wo`` and ``w_down`` partials,
+  the embedding is a vocab-parallel lookup, and the vocab-sharded logits
+  are gathered to full width before sampling.  As the reference's
+  ``kernel_ok``, the fused decode layer and the fused verify burst run at
+  tp 1 only.
 
 Knobs of the reference the port does not run yet raise ``NotPorted`` (a
 NotImplementedError) naming their ROADMAP.md port-queue item.
@@ -117,8 +126,33 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
-    if mesh is not None:
-        raise NotPorted("device meshes (tp/sp/ep)", "parallel/")
+    """A mesh (``parallel/mesh``) may shard on tp only, and tp must divide
+    the query and kv heads."""
+    if mesh is None:
+        return
+    from p2p_llm_tunnel_tpu_torch.parallel.mesh import UNPORTED_AXES
+
+    for axis, item in UNPORTED_AXES.items():
+        if mesh.shape[axis] > 1:
+            raise NotPorted(f"a mesh with {axis}={mesh.shape[axis]}", item)
+    if cfg.n_heads % mesh.tp or cfg.n_kv_heads % mesh.tp:
+        raise ValueError(f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads do "
+                         f"not divide over tp={mesh.tp}")
+
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum ``x`` over the tp ranks IN PLACE (the psum GSPMD inserts after a
+    row-parallel product); every rank ends with the same tensor.  A failed
+    collective raises."""
+    if _tp(mesh) > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=mesh.tp_group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -353,9 +387,10 @@ def _qkv_proj(cfg: ModelConfig, blk, h):
         q = q + blk["bq"].to(q.dtype)
         k = k + blk["bk"].to(k.dtype)
         v = v + blk["bv"].to(v.dtype)
-    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    # Heads from the widths: under tp a rank holds H/tp and K/tp of them.
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -375,37 +410,62 @@ def _layer_window(cfg: ModelConfig, layer_idx: int, seq_len: int) -> Optional[in
     return cfg.sliding_window if layer_idx % 2 == 0 else seq_len + 1
 
 
-def _block_tail(cfg: ModelConfig, blk, x, attn):
-    """Output projection, residuals and the MLP half of one block."""
+def _block_tail(cfg: ModelConfig, blk, x, attn, mesh=None):
+    """Output projection, residuals and the MLP half of one block.  Under
+    tp the row-parallel ``wo`` and ``w_down`` products are partial sums
+    over this rank's heads / FFN slice, summed across ranks before the
+    residual; MoE experts are replicated, so their output is whole."""
     b, t = x.shape[:2]
-    attn = mm(attn.reshape(b, t, -1), blk["wo"], cfg.act_quant)
+    attn = _psum(mm(attn.reshape(b, t, -1), blk["wo"], cfg.act_quant), mesh)
     if cfg.post_norms:
         attn = _norm(cfg, attn, blk["post_attn_norm"])
     x = x + attn
     mlp = _mlp(cfg, blk, _norm(cfg, x, blk["mlp_norm"]))
+    if not cfg.n_experts:
+        mlp = _psum(mlp, mesh)
     if cfg.post_norms:
         mlp = _norm(cfg, mlp, blk["post_mlp_norm"])
     return x + mlp
 
 
-def _embed(cfg: ModelConfig, params, tokens):
+def _embed(cfg: ModelConfig, params, tokens, mesh=None):
     embed = params["embed"]
     # A quantized table dequantizes into bf16 activations; every product
     # downstream follows x's dtype (quant.mm).
     dtype = torch.bfloat16 if is_quantized(embed) else embed.dtype
-    x = embed_lookup(embed, tokens, dtype)
+    if _tp(mesh) > 1:
+        # Vocab-parallel lookup: this rank holds rows [lo, lo + rows); ids
+        # outside gather row 0 and are zeroed, and the sum over ranks
+        # leaves every id's row (x + 0 is exact at any width).
+        rows = embed.shape[0]
+        local = tokens.to(torch.long) - mesh.tp_rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = embed_lookup(embed, torch.where(inside, local, 0), dtype)
+        x = _psum(torch.where(inside[..., None], x, torch.zeros_like(x)), mesh)
+    else:
+        x = embed_lookup(embed, tokens, dtype)
     if cfg.embed_scale:
         x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
     return x
 
 
-def _logits(cfg: ModelConfig, params, x):
+def _logits(cfg: ModelConfig, params, x, mesh=None):
+    """f32 logits ``[..., V]``.  Under tp the head is vocab-sharded: each
+    rank computes its ``V/tp`` columns (softcapped, elementwise), writes
+    them into a zeroed full-width buffer, and an ``all_reduce`` of the
+    buffers gathers every rank's columns — one code path for NCCL and for
+    gloo, which has no all_gather on CUDA tensors; adding zeros is exact."""
     if cfg.tie_embeddings:
         logits = head_matmul(x, params["embed"], cfg.act_quant).to(torch.float32)
     else:
         logits = mm(x, params["lm_head"], cfg.act_quant).to(torch.float32)
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if _tp(mesh) > 1:
+        width = logits.shape[-1]
+        full = logits.new_zeros(logits.shape[:-1] + (width * mesh.tp,))
+        full[..., mesh.tp_rank * width:(mesh.tp_rank + 1) * width] = logits
+        logits = _psum(full, mesh)
     return logits
 
 
@@ -419,11 +479,14 @@ def apply_blocks(
     x: torch.Tensor,  # [B, T, Dm] embedded activations
     valid: torch.Tensor,  # [B, T] bool
     store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run every block over the prompt batch.  Each layer's (k, v) go to
     ``store_kv(layer, k, v)`` when given (prefill_into_cache writes them
     straight into the cache), else they are stacked and returned as
-    ``[L, B, T, K, D]``."""
+    ``[L, B, T, K, D]``.  Under tp kernel 1 runs on this rank's head shard
+    (H/tp query and K/tp kv heads: GQA grouping is shard-local), as the
+    reference's ``flash_tp`` runs the Pallas kernel per head shard."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device).expand(b, t)
     ks, vs = [], []
@@ -434,7 +497,7 @@ def apply_blocks(
             q, k, v, valid, scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, t),
         )
-        x = _block_tail(cfg, blk, x, attn)
+        x = _block_tail(cfg, blk, x, attn, mesh)
         if store_kv is not None:
             store_kv(idx, k, v)
         else:
@@ -454,10 +517,10 @@ def prefill(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (logits [B,T,V] fp32, k, v [L,B,T,K,D])."""
     _check_model(cfg, mesh)
-    x = _embed(cfg, params, tokens)
-    x, ks, vs = apply_blocks(cfg, params["blocks"], x, valid)
+    x = _embed(cfg, params, tokens, mesh)
+    x, ks, vs = apply_blocks(cfg, params["blocks"], x, valid, mesh=mesh)
     x = _norm(cfg, x, params["final_norm"])
-    return _logits(cfg, params, x), ks, vs
+    return _logits(cfg, params, x, mesh), ks, vs
 
 
 def encode_pooled(
@@ -465,6 +528,7 @@ def encode_pooled(
     params: Params,
     tokens: torch.Tensor,  # [B, T] right-padded
     valid: torch.Tensor,  # [B, T] bool
+    mesh=None,
 ) -> torch.Tensor:
     """Mean-pooled, L2-normalized final hidden states — the embeddings
     surface (/v1/embeddings, Ollama /api/embed), as the reference's
@@ -474,10 +538,10 @@ def encode_pooled(
     A row with no real token (a pad row) pools to zero; its attention
     differs between kernel 1 (zero) and its plain version (the mean of V),
     and the engine drops such rows."""
-    _check_model(cfg)
-    x = _embed(cfg, params, tokens)
+    _check_model(cfg, mesh)
+    x = _embed(cfg, params, tokens, mesh)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid,
-                           store_kv=lambda idx, k, v: None)
+                           store_kv=lambda idx, k, v: None, mesh=mesh)
     x = _norm(cfg, x, params["final_norm"]).to(torch.float32)
     m = valid[..., None].to(torch.float32)
     pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
@@ -536,14 +600,15 @@ def prefill_into_cache(
                 vals = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
             write_packed_prefix(kv_cache[name][idx:idx + 1], slot_idx, vals[None])
 
-    x = _embed(cfg, params, tokens)
-    x, _, _ = apply_blocks(cfg, params["blocks"], x, valid, store_kv=store)
+    x = _embed(cfg, params, tokens, mesh)
+    x, _, _ = apply_blocks(cfg, params["blocks"], x, valid, store_kv=store,
+                           mesh=mesh)
     rows = torch.arange(b, device=tokens.device)
     last_idx = (lengths - 1).to(torch.long)
     if not return_prompt_logprobs:
         h_last = _norm(cfg, x[rows, last_idx][:, None], params["final_norm"])
-        return _logits(cfg, params, h_last)[:, 0], kv_cache
-    logits = _logits(cfg, params, _norm(cfg, x, params["final_norm"]))
+        return _logits(cfg, params, h_last, mesh)[:, 0], kv_cache
+    logits = _logits(cfg, params, _norm(cfg, x, params["final_norm"]), mesh)
     last = logits[rows, last_idx]
     lsm = torch.log_softmax(logits[:, :-1], dim=-1)
     scored = torch.gather(lsm, -1, tokens[:, 1:, None].to(torch.long))[..., 0]
@@ -565,6 +630,7 @@ def chunk_prefill_into_cache(
     kv_view: Optional[int] = None,  # attend only to cache[:kv_view]
     return_all_logits: bool = False,  # [Bp, T, V] instead of the last
     unaligned_int4: bool = False,  # arbitrary-parity int4 starts and widths
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill only the TAIL of each prompt against reused history KV (the
     prefix-cache and chunked-prefill path, and the speculative verify
@@ -595,7 +661,7 @@ def chunk_prefill_into_cache(
     are arbitrary token positions), then the view is read back dequantized
     through f32 into the activation dtype before attention, exactly as the
     reference reads it."""
-    _check_model(cfg)
+    _check_model(cfg, mesh)
     b, t = tokens.shape
     mode = kv_cache_quant_mode(kv_cache)
     if mode == "int4" and t % 2 and not unaligned_int4:
@@ -606,7 +672,7 @@ def chunk_prefill_into_cache(
     s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, mesh)
     pos = starts.to(torch.long)[:, None] + torch.arange(t, device=tokens.device)[None, :]
     in_cache = pos < s
     write_pos = torch.where(pos < s, pos, pos - t)
@@ -646,12 +712,13 @@ def chunk_prefill_into_cache(
             scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, kv_view),
         )
-        x = _block_tail(cfg, blk, x, attn)
+        x = _block_tail(cfg, blk, x, attn, mesh)
     if return_all_logits:
-        return _logits(cfg, params, _norm(cfg, x, params["final_norm"])), kv_cache
+        return (_logits(cfg, params, _norm(cfg, x, params["final_norm"]), mesh),
+                kv_cache)
     last = x[torch.arange(b, device=tokens.device), (lengths - 1).to(torch.long)]
     h_last = _norm(cfg, last[:, None], params["final_norm"])
-    return _logits(cfg, params, h_last)[:, 0], kv_cache
+    return _logits(cfg, params, h_last, mesh)[:, 0], kv_cache
 
 
 def spec_verify_into_cache(
@@ -689,12 +756,14 @@ def spec_verify_into_cache(
     s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
-    if not cfg.fused_decode_layer:
+    if not cfg.fused_decode_layer or _tp(mesh) > 1:
+        # The reference's kernel_ok needs tp == 1: under tp the verify
+        # burst runs the chunk path, as there.
         lengths = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
         return chunk_prefill_into_cache(
             cfg, params, tokens, lengths, positions, kv_cache,
             torch.arange(b, device=tokens.device), kv_view=kv_view,
-            return_all_logits=True, unaligned_int4=True,
+            return_all_logits=True, unaligned_int4=True, mesh=mesh,
         )
     x = _embed(cfg, params, tokens)  # [B, T, Dm]
     rope = burst_rope_rows(positions, t, cfg.head_dim, cfg.rope_theta)
@@ -735,7 +804,8 @@ def ragged_prefill_into_cache(
     Returns the logits of each row's ``sample_idx`` token ``[R, V]`` (or
     ``[TOT, V]`` with ``return_all_logits``) and the updated cache.  A
     quantized cache's scale planes ride along: the kernel quantizes each
-    appended row and writes its scale beside it."""
+    appended row and writes its scale beside it.  It does not run under tp
+    (the engine fences ``ragged_prefill`` there, as the reference)."""
     _check_model(cfg)
     descs = (slot_of, start_of, qoff_of, base_of)
     s = _seq_len(kv_cache)
@@ -794,8 +864,10 @@ def decode_step(
     s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
-    x = _embed(cfg, params, tokens[:, None])  # [B,1,Dm]
-    if cfg.fused_decode_layer:
+    x = _embed(cfg, params, tokens[:, None], mesh)  # [B,1,Dm]
+    # The reference's kernel_ok needs tp == 1 for the fused layer: under tp
+    # decode runs unfused (kernel 2 per head shard).
+    if cfg.fused_decode_layer and _tp(mesh) == 1:
         rope = rope_rows(positions, cfg.head_dim, cfg.rope_theta)  # one per step
         for idx in range(cfg.n_layers):
             blk = _layer(params["blocks"], idx)
@@ -840,6 +912,6 @@ def decode_step(
             positions, scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, s), **scales,
         )
-        x = _block_tail(cfg, blk, x, attn)
+        x = _block_tail(cfg, blk, x, attn, mesh)
     x = _norm(cfg, x, params["final_norm"])
-    return _logits(cfg, params, x)[:, 0], kv_cache
+    return _logits(cfg, params, x, mesh)[:, 0], kv_cache

@@ -105,15 +105,18 @@ def shape_fence(k: int, form: str, group_size: Optional[int] = None) -> Optional
     return None
 
 
-def model_fence(cfg, quant: str, group_size: int) -> Optional[str]:
+def model_fence(cfg, quant: str, group_size: int, tp: int = 1) -> Optional[str]:
     """Why the card cannot serve ``cfg`` under ``--quant quant`` (None when
     it can): every contracted length kernel 7 runs — the block projections'
-    and the head's — must pass ``shape_fence``."""
+    and the head's, at the shard shapes of a ``tp``-rank run (the
+    row-parallel ``wo`` and ``w_down`` contract K/tp positions) — must pass
+    ``shape_fence``."""
     if quant not in ("int8", "w8a8", "int4"):
         return None
     form = "int4" if quant == "int4" else "int8"
     for name, k in (("wq/wk/wv/w_gate/w_up/head", cfg.dim),
-                    ("wo", cfg.n_heads * cfg.head_dim), ("w_down", cfg.ffn_dim)):
+                    ("wo", cfg.n_heads * cfg.head_dim // tp),
+                    ("w_down", cfg.ffn_dim // tp)):
         why = shape_fence(k, form, group_size)
         if why is not None:
             return f"kernel 7 cannot take {name} (K {k}): {why}"

@@ -1,8 +1,11 @@
 """The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config
 with the JAX serve CLI's defaults, flags of features the port does not
-run yet (``parallel/``) are rejected with their ROADMAP.md port-queue
-item, and ``serve --backend gpu --device cpu`` brings up a working engine
-backend (on the CPU, as the tests run)."""
+run yet (``--sp``, ``--ep``, ``--dp-dcn`` above 1) are rejected with their
+ROADMAP.md port-queue item, and ``serve --backend gpu --device cpu``
+brings up a working engine backend (on the CPU, as the tests run) — also
+at ``--tp 2``, where this process is rank 0 and starts rank 1 itself, and
+with ``--coordinator``, where every rank runs the CLI (two spawned gloo
+ranks, ``torch_tp_ranks``)."""
 
 import argparse
 import asyncio
@@ -100,11 +103,10 @@ def test_spill_snapshot_and_role_flags_reach_the_engine_config(
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--ep", "2"], "parallel/"),
-    (["--sp", "2"], "parallel/"),
-    (["--tp", "2"], "parallel/"),
-    (["--replicas", "2"], "parallel/"),
-    (["--coordinator", "localhost:1234"], "parallel/"),
+    (["--ep", "2"], "18c"),
+    (["--sp", "2"], "18b"),
+    (["--sp", "2", "--sp-mode", "ulysses"], "18b"),
+    (["--dp-dcn", "2"], "18d"),
 ])
 def test_unported_flags_exit_with_their_queue_item(extra, item):
     args = cli.build_parser().parse_args(SERVE + extra)
@@ -219,3 +221,153 @@ def test_engine_backend_on_cpu_serves_a_request():
             cli._BACKEND = None
 
     assert len(asyncio.run(run())) == 3
+
+
+# ---------------------------------------------------------------------------
+# parallel flags: --tp, --replicas, --coordinator, --num-processes,
+# --process-id, --dp-dcn (and the JAX command line's --flash-* flags)
+# ---------------------------------------------------------------------------
+
+PARALLEL_ENV = [
+    ("TUNNEL_TP", "tp", "2"),
+    ("TUNNEL_SP", "sp", "2"),
+    ("TUNNEL_SP_MODE", "sp_mode", "ulysses"),
+    ("TUNNEL_EP", "ep", "2"),
+    ("TUNNEL_REPLICAS", "replicas", "3"),
+    ("TUNNEL_COORDINATOR", "coordinator", "host0:8476"),
+    ("MEGASCALE_COORDINATOR_ADDRESS", "coordinator", "host1:8476"),
+    ("TUNNEL_NUM_PROCESSES", "num_processes", "4"),
+    ("TUNNEL_PROCESS_ID", "process_id", "1"),
+    ("TUNNEL_DP_DCN", "dp_dcn", "2"),
+    ("TUNNEL_FLASH_DECODE", "flash_decode", "1"),
+    ("TUNNEL_FLASH_SGRID", "flash_sgrid", "1"),
+]
+
+
+@pytest.mark.parametrize("env,field,value", PARALLEL_ENV)
+def test_parallel_flags_and_env_names_match_the_jax_cli(env, field, value,
+                                                       monkeypatch):
+    """Each flag's default and env name are the JAX serve CLI's."""
+    for var, _, _ in PARALLEL_ENV:
+        monkeypatch.delenv(var, raising=False)
+
+    def both():
+        got = getattr(cli.build_parser().parse_args(SERVE), field)
+        want = getattr(j_cli.build_parser().parse_args(
+            ["serve", "--backend", "tpu", "--room", "r"]), field)
+        return got, want
+
+    default, want = both()
+    assert default == want
+    monkeypatch.setenv(env, value)
+    got, want = both()
+    assert got == want != default
+
+
+def test_jax_command_line_with_flash_flags_parses():
+    """``--flash-decode`` / ``--flash-sgrid`` (and their negations) parse as
+    in the JAX CLI and reach the engine config, where they choose nothing
+    on the card."""
+    for extra, want in ((["--flash-decode", "--flash-sgrid"], (True, True)),
+                        (["--no-flash-decode", "--no-flash-sgrid"], (False, False))):
+        args = cli.build_parser().parse_args(SERVE + extra)
+        jargs = j_cli.build_parser().parse_args(
+            ["serve", "--backend", "tpu", "--room", "r"] + extra)
+        ecfg = cli._engine_config(args)
+        assert (ecfg.flash_decode, ecfg.flash_sgrid) == want == (
+            jargs.flash_decode, jargs.flash_sgrid)
+
+
+def test_tp_reaches_the_engine_config():
+    args = cli.build_parser().parse_args(SERVE + ["--tp", "2"])
+    assert cli._engine_config(args).tp == 2
+
+
+def test_cli_rejects_partial_multihost_flags():
+    """--coordinator without rank info fails loudly (the JAX CLI's error),
+    not an independent single-host server for every rank."""
+    args = cli.build_parser().parse_args(SERVE + ["--coordinator", "host0:8476"])
+    with pytest.raises(SystemExit, match="num-processes"):
+        asyncio.run(cli._engine_backend(args))
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--replicas", "2", "--coordinator", "host0:8476", "--num-processes", "2",
+      "--process-id", "0", "--tp", "2"], "single-host data-parallel mode"),
+    (["--replicas", "2", "--tp", "2"], "rank group of its own"),
+    (["--coordinator", "host0:8476", "--num-processes", "4", "--process-id", "0",
+      "--tp", "2"], "must equal --tp 2"),
+])
+def test_parallel_flag_sets_the_port_refuses(extra, match):
+    args = cli.build_parser().parse_args(SERVE + extra)
+    with pytest.raises(SystemExit, match=match):
+        cli._engine_config(args)
+
+
+def test_serve_tp2_starts_its_follower_rank(tmp_path, monkeypatch):
+    """``serve --tp 2`` with no --coordinator (the JAX single-host command
+    line): this process becomes rank 0, starts rank 1 as a local process,
+    serves a request whose greedy ids equal a one-process engine's on the
+    same seed-0 weights, and releases rank 1 at stop."""
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    monkeypatch.setattr(pd, "local_rendezvous",
+                        lambda: f"file://{tmp_path}/rendezvous")
+    # The spawned rank inherits the environment: one compute thread, as
+    # the test workers share the machine.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    # The byte tokenizer's 259 ids do not divide over tp 2 (the vocab axis
+    # is sharded; JAX's device_put refuses it too): widen it to 260.
+    monkeypatch.setattr(cli, "_tokenizer", lambda spec: ByteTokenizer(260))
+    tiny = ["--model", "tiny", "--slots", "2", "--max-seq", "128", "--dtype",
+            "float32", "--device", "cpu"]
+
+    async def ids(args):
+        backend = await cli._engine_backend(args)
+        engine = backend.kv_import.__self__
+        try:
+            out = [ev.token_id async for ev in engine.generate(
+                list(b"hello tensor parallel"), max_new_tokens=6, stop_ids=())]
+            return out, engine
+        finally:
+            await engine.stop()
+            cli._BACKEND = None
+
+    try:
+        got, engine = asyncio.run(asyncio.wait_for(ids(cli.build_parser().parse_args(
+            ["serve", "--backend", "gpu", "--room", "r", "--tp", "2"] + tiny)), 120))
+        followers = cli._FOLLOWERS
+        assert engine.mesh.tp == 2 and engine._spmd.rank == 0
+        assert len(followers.procs) == 1
+        followers.close(timeout_s=30.0)
+        assert not followers.alive() and followers.failed() == []
+    finally:
+        pd.shutdown_distributed()
+        if cli._FOLLOWERS is not None:
+            cli._FOLLOWERS.close(timeout_s=5.0)
+            cli._FOLLOWERS = None
+    want, _ = asyncio.run(ids(cli.build_parser().parse_args(
+        ["serve", "--backend", "gpu", "--room", "r"] + tiny)))
+    assert got == want and len(got) == 6
+
+
+def test_coordinator_ranks_build_the_engine_the_jax_cli_builds(tmp_path):
+    """``serve --coordinator ... --num-processes 2 --process-id r --tp 2``
+    on two ranks: each builds the engine config the JAX CLI builds from
+    the same flags; rank 1 replays and opens no tunnel, rank 0 serves."""
+    from torch_tp_ranks import run_ranks
+
+    flags = ["--model", "tiny-gemma", "--slots", "2", "--max-seq", "128",
+             "--dtype", "float32", "--tp", "2", "--num-processes", "2"]
+    lead, follower = run_ranks("cli_ranks", 2, flags, tmp_path)
+    jargs = j_cli.build_parser().parse_args(
+        ["serve", "--backend", "tpu", "--room", "r", "--coordinator", "h:1",
+         "--process-id", "0"] + flags)
+    for rank in (lead, follower):
+        assert rank["ecfg"]["tp"] == jargs.tp == 2
+        assert (rank["ecfg"]["mux"], rank["ecfg"]["prefix_cache"]) == (
+            jargs.mux, jargs.prefix_cache)
+    assert lead["backend"] and not follower["backend"]
+    assert len(lead["ids"]) == 5 and follower["ops"] is None

@@ -202,12 +202,15 @@ def test_init_params_matches_reference_layout():
 
 
 def test_unported_knobs_and_missing_card_raise():
+    from p2p_llm_tunnel_tpu_torch.parallel.mesh import Mesh
+
     cfg = get_config("tiny", vocab_size=VOCAB)
+    # tp meshes are ported; a mesh sharding on sp is not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.decode_step(cfg, {},
                        tt.init_kv_cache(cfg, 2, 16, quant="int8", device="cpu"),
                        torch.zeros(2, dtype=torch.long),
-                       torch.zeros(2, dtype=torch.int32), mesh=object())
+                       torch.zeros(2, dtype=torch.int32), mesh=Mesh(sp=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tt.init_params(cfg)

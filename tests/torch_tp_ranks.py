@@ -1,0 +1,353 @@
+"""Rank bodies of the port's multi-process CPU tests (tensor parallelism,
+SPMD serving), and the tunnel traffic both packages' engines are driven
+with.
+
+``run_ranks`` spawns one process per rank (a fresh interpreter each, the
+``spawn`` start method), joins them into one gloo world through a file
+under the test's ``tmp_path`` (so xdist workers never share a port), runs
+one of this module's rank functions in each and returns their results.
+Every wait has a timeout: a rank that fails or hangs fails the test, the
+other ranks are killed, and no process outlives the call.
+
+This module imports no JAX: the ranks import only the port.  The tests
+hand it numpy trees (quantized leaves as ``SimpleNamespace``s with the
+reference's attribute names).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import json
+import multiprocessing
+import queue
+import time
+import traceback
+import uuid
+
+import numpy as np
+
+#: Seconds a collective may block inside a rank before it raises.
+RANK_TIMEOUT_S = 60.0
+#: The rendezvous URL of the run this spawned rank joined (set by _entry).
+RENDEZVOUS = None
+
+
+def run_ranks(fn_name: str, world: int, payload, tmp_path,
+              timeout_s: float = 240.0) -> list:
+    """``fn_name(rank, world, payload)`` in ``world`` spawned ranks; the
+    per-rank results in rank order.  Raises with the failing rank's
+    traceback, or on a timeout."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{tmp_path}/rendezvous-{fn_name}-{uuid.uuid4().hex}"
+    procs = [ctx.Process(target=_entry, daemon=True,
+                         args=(r, world, init, fn_name, payload, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, ok, value = results.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                raise AssertionError(
+                    f"{fn_name}: ranks {sorted(set(range(world)) - set(out))} "
+                    f"gave no result within {timeout_s:.0f} s") from None
+            if not ok:
+                raise AssertionError(f"{fn_name}: rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(10.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10.0)
+    return [out[r] for r in range(world)]
+
+
+def _entry(rank, world, init, fn_name, payload, results) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+    global RENDEZVOUS
+    RENDEZVOUS = init
+    try:
+        pd.init_distributed(init, world, rank, device="cpu",
+                            timeout_s=RANK_TIMEOUT_S)
+        value = globals()[fn_name](rank, world, payload)
+        results.put((rank, True, value))
+    except BaseException:  # reported to the parent, which fails the test
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        pd.shutdown_distributed()
+
+
+# ---------------------------------------------------------------------------
+# model level
+# ---------------------------------------------------------------------------
+
+def model_logits(rank, world, payload):
+    """Each case: prefill two prompts into slots 0 and 1, then one decode
+    step, under a ``tp = world`` mesh on this rank's shard; returns
+    ``(prefill last logits, decode logits)`` per case."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tt
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import (
+        params_from_numpy_sharded,
+        shard_kv_cache,
+    )
+
+    mesh = make_mesh(tp=world)
+    out = {}
+    with torch.inference_mode():
+        for name, case in payload.items():
+            cfg = get_config(case["preset"], **case["overrides"])
+            dtype = getattr(torch, case["dtype"])
+            params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
+                                               dtype)
+            cache = shard_kv_cache(
+                tt.init_kv_cache(cfg, case["slots"], case["seq"], dtype,
+                                 quant=case.get("kv_quant"), device="cpu"),
+                mesh)
+            last, cache = tt.prefill_into_cache(
+                cfg, params, torch.from_numpy(case["tokens"]),
+                torch.from_numpy(case["lengths"]), cache,
+                torch.from_numpy(case["slot_idx"]), mesh=mesh)
+            logits, _ = tt.decode_step(
+                cfg, params, cache, torch.from_numpy(case["dec_tokens"]),
+                torch.from_numpy(case["dec_pos"]), mesh=mesh)
+            out[name] = (last.float().numpy(), logits.float().numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# engines through the tunnel
+# ---------------------------------------------------------------------------
+
+SYSTEM = b"You are the tunnel's terse assistant; reply in numbers only. "
+N_CONV = 3
+
+
+def first_turns():
+    return [list(SYSTEM) + list(f"question {i}: ".encode() * (2 + i))
+            for i in range(N_CONV)]
+
+
+@contextlib.asynccontextmanager
+async def tunnel_stack(engine, backend, serve, proxy, pair, model="tiny"):
+    """``run_serve`` + ``run_proxy`` over a loopback pair in front of a
+    started engine (either package's pieces); yields the proxy's URL."""
+    await engine.start()
+    serve_ch, proxy_ch = pair()
+    ready = asyncio.get_running_loop().create_future()
+    tasks = [asyncio.create_task(serve(serve_ch, backend=backend(engine, model))),
+             asyncio.create_task(proxy(proxy_ch, "127.0.0.1", 0, ready=ready))]
+    try:
+        yield f"http://127.0.0.1:{await asyncio.wait_for(ready, 10.0)}"
+    finally:
+        for t in tasks:
+            t.cancel()
+        serve_ch.close()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await engine.stop()
+
+
+async def turn(base: str, prompt_ids, max_tokens: int, ndjson: bool):
+    """One streamed request through the proxy; (generated ids, finish)."""
+    from p2p_llm_tunnel_tpu_torch.endpoints import http11
+
+    if ndjson:
+        path, sep = "/api/generate", b"\n"
+        body = {"prompt": bytes(prompt_ids).decode("ascii"),
+                "max_new_tokens": max_tokens, "ignore_eos": True}
+    else:
+        path, sep = "/v1/completions", b"\n\n"
+        body = {"prompt": list(prompt_ids), "max_tokens": max_tokens,
+                "stream": True, "ignore_eos": True}
+    resp = await http11.http_request(
+        "POST", base + path, {"content-type": "application/json"},
+        json.dumps(body).encode(), timeout=120.0)
+    if resp.status != 200:
+        raise AssertionError(f"{path}: HTTP {resp.status}")
+    raw = await resp.read_all()
+    text, last = "", None
+    for line in raw.split(sep):
+        line = line.strip()
+        if not line or line == b"data: [DONE]":
+            continue
+        if line.startswith(b"data: "):
+            choice = json.loads(line[len(b"data: "):])["choices"][0]
+            text += choice.get("text") or ""
+            last = choice.get("finish_reason") or last
+        else:
+            obj = json.loads(line)
+            text += obj.get("response", "")
+            last = obj.get("done_reason") or last
+    return [int(t) for t in text.split()], last
+
+
+async def conversations(base: str, max_tokens: int = 8):
+    """``N_CONV`` concurrent first turns sharing a system prompt (SSE and
+    NDJSON alternating), then their second turns (turn 1 + answer + a new
+    tail)."""
+    firsts = first_turns()
+    one = await asyncio.gather(*[
+        turn(base, p, max_tokens + i, ndjson=i % 2 == 1)
+        for i, p in enumerate(firsts)])
+    seconds = [p + ids + list(b" and then?") for p, (ids, _) in zip(firsts, one)]
+    two = await asyncio.gather(*[turn(base, p, 4, ndjson=False) for p in seconds])
+    return one + two
+
+
+def _record(engine, log):
+    """Wrap the engine's dispatch methods so every call's sampled ids land
+    in ``log`` (rank 0's dispatches and a follower's replays alike: both
+    look the methods up on the engine)."""
+    for name in ("_decode_fn", "_prefill_fn", "_chunk_prefill_fn",
+                 "_spec_verify_fn"):
+        fn = getattr(engine, name)
+
+        def call(*a, _fn=fn, _name=name):
+            out = _fn(*a)
+            log.append((_name, np.asarray(out[0]).tolist()))
+            return out
+
+        setattr(engine, name, call)
+
+
+def engine_streams(rank, world, payload):
+    """Each job builds a ``tp = world`` engine on the given weights (the
+    engine shards them) and serves the conversations through the port's
+    tunnel on rank 0 while the other ranks replay; returns, per job, rank
+    0's streams and config fences, and every rank's sampled ids."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
+    from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
+    from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import params_from_numpy
+    from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
+
+    out = {}
+    for name, job in payload["jobs"].items():
+        cfg = get_config(job.get("preset", "tiny"),
+                         vocab_size=payload["vocab"])
+        ecfg = EngineConfig(**job["engine"], tp=world)
+        dtype = torch.float32 if ecfg.dtype == "float32" else torch.bfloat16
+        params = params_from_numpy(payload["weights"][job["weights"]], "cpu",
+                                   dtype)
+        engine = InferenceEngine(model_cfg=cfg, engine_cfg=ecfg, params=params,
+                                 tokenizer=NumericTokenizer(payload["vocab"]),
+                                 device="cpu")
+        log = []
+        _record(engine, log)
+        res = {"ids": log}
+        if rank == 0:
+            async def drive():
+                async with tunnel_stack(engine, engine_backend, run_serve,
+                                        run_proxy, loopback_pair) as base:
+                    return await conversations(base, job.get("max_tokens", 8))
+
+            res["streams"] = asyncio.run(drive())
+            res["fences"] = list(engine.config_fences)
+            res["mesh"] = (engine.mesh.shape, engine.mesh.rank)
+            res["kv_shape"] = tuple(engine.kv_cache["k"].shape)
+        else:
+            res["ops"] = engine.spmd_follower_loop()
+        out[name] = res
+    return out
+
+
+def engine_fences(rank, world, payload):
+    """Construct a ``tp = world`` engine per config on every rank (their
+    control groups are created in the same order) and return rank 0's
+    config fences; nothing is served."""
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    cfg = get_config("tiny", vocab_size=payload["vocab"])
+    out = {}
+    for name, kw in payload["configs"].items():
+        engine = InferenceEngine(model_cfg=cfg,
+                                 engine_cfg=EngineConfig(**kw, tp=world),
+                                 device="cpu")
+        out[name] = (list(engine.config_fences),
+                     {k: getattr(engine.ecfg, k) for k in kw})
+    return out
+
+
+def coordinator_wire(rank, world, payload):
+    """The control plane alone: rank 0 sends each payload op through a
+    wrapped function; every rank records what the wrapped function was
+    called with, and followers what ``recv`` returned."""
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+    from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+
+    spmd = SpmdCoordinator.maybe(make_mesh(tp=world))
+    seen = []
+
+    def fn(carry, *host):
+        seen.append((carry, host))
+        return len(host)
+
+    wrapped = spmd.wrap("op", fn, 1)
+    got = []
+    for args in payload:
+        if rank == 0:
+            wrapped(f"carry-{rank}", *args)
+        else:
+            op, host = spmd.recv()
+            got.append((op, host))
+            wrapped(f"carry-{rank}", *host)
+    if rank == 0:
+        spmd.send_stop()
+    else:
+        got.append(spmd.recv())
+    return {"seen": seen, "got": got, "sent": spmd.ops_sent,
+            "wrapped": (wrapped.op_name, wrapped.inner is fn)}
+
+
+def cli_ranks(rank, world, flags):
+    """``tunnel-gpu serve --backend gpu --device cpu --coordinator <this
+    run's rendezvous> --process-id <rank> <flags>`` up to the engine
+    backend: rank 0 generates a few tokens and stops; a follower's
+    ``_engine_backend`` replays until then and returns None.  The run is
+    already joined (``_entry``), so the CLI's join is the idempotent
+    second call of ``init_distributed``."""
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    # 260 ids divide over tp 2 (the byte tokenizer's 259 do not).
+    cli._tokenizer = lambda spec: ByteTokenizer(260)
+    args = cli.build_parser().parse_args(
+        ["serve", "--backend", "gpu", "--device", "cpu", "--room", "r",
+         "--coordinator", RENDEZVOUS, "--process-id", str(rank)] + flags)
+
+    async def run():
+        backend = await cli._engine_backend(args)
+        if backend is None:
+            return False, None
+        engine = backend.kv_import.__self__
+        try:
+            out = [ev.token_id async for ev in engine.generate(
+                list(b"coordinated"), max_new_tokens=5, stop_ids=())]
+        finally:
+            await engine.stop()
+            cli._BACKEND = None
+        return True, out
+
+    ok, ids = asyncio.run(run())
+    return {"backend": ok, "ids": ids, "ops": None,
+            "ecfg": vars(cli._engine_config(args))}
