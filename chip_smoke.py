@@ -98,6 +98,23 @@ Phases (any failure exits non-zero before the result line):
    spliced or already resident there, no fallback and no refusal, every
    spliced page re-exported with the sender's checksum, no transfer in
    flight after; transfer bytes, ms a page and TTFT against phase 5.
+11. ``--tp 2`` as two ranks on the one card (rank 1 a spawned process,
+   gloo): (b) tp 2 against tp 1 logits on the same weights; (a) the serve
+   defaults' conversations and the plain loop; (c) ``--quant int4
+   --kv-quant int8``, each rank checking its own launches; (d)
+   ``--replicas 2`` behind one router.
+12. sequence parallelism at llama3-8b's full width, ranks on the one card
+   (spawned processes, gloo: every exchange in its zero-padded all-reduce
+   form, printed): (a) sp 2 prefill logits of a 4096-token prompt, ring
+   and Ulysses, against one rank's forward on the same weights (11b's
+   bound, argmax agreement, K/V printed); (b) ``--sp 2 --sp-mode ring``
+   on the serve defaults (fenced to mux with whole-prompt waves), bf16
+   KV, prompts of 1500-3800 tokens in 4096-position slots; (c) ``--sp 2
+   --sp-mode ulysses --kv-quant int4 --fused-decode-layer``; (d) tp 2 x
+   sp 2 logits over four ranks, depth cut to 8 layers.  Each rank checks
+   its own launches (kernel 1 32 a Ulysses wave and none on ring, the
+   decode kernel 32 a step); tok/s, TTFT p50, each rank's peak memory and
+   the exchanges run are printed.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -123,7 +140,8 @@ busy share, device time by kernel), and the CUDA launches of one decode
 step on the mux engines of phases 5, 6a and 8a (8a: with kernel 7's
 device ms per step beside the weight-stream bound) and of one verify
 burst on phase 7's.
-``--kernels-only`` stops after phase 2.
+``--kernels-only`` stops after phase 2; ``--tp-only`` and ``--sp-only``
+build and run phase 11 or phase 12 alone.
 """
 
 from __future__ import annotations
@@ -1365,6 +1383,11 @@ def kernel_phase(cfg) -> dict:
     for form in FORMS:
         rows[row_name("flash_decode_attention", form)].append(
             decode_case(b, 512, hs, khs, d, decode_positions(b, 512), form=form, seed=3))
+    # Kernel 1 at Ulysses' shapes: an sp 2 rank's H/2 query and K/2 kv
+    # heads over the whole sequence, in phase 12c's waves (2 rows).
+    for t in (2048, 4096):
+        rows["flash_causal_attention"].append(prefill_case(
+            SP_PREFILL_ROWS, t, h // SP, kh // SP, d, [t] * SP_PREFILL_ROWS, seed=4))
     rows.update(quant_phase())
     for name, cases in rows.items():
         print(f"[kernels] {name} (bf16 activations, fp32 math; tolerance "
@@ -1437,8 +1460,11 @@ def count_model_calls() -> None:
 
 
 def reset_counters() -> None:
-    """Zero every wrapper's launch counters (total and per form) and the
-    model-call counts."""
+    """Zero every wrapper's launch counters (total and per form), the
+    model-call counts and the sp exchange counts."""
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives
+
+    collectives.exchanges.clear()
     for fn in _kernels().values():
         fn.launches = 0
         for key in getattr(fn, "form_launches", {}):
@@ -1619,12 +1645,21 @@ async def _stream(base: str, i: int, max_tokens: int, prompt: str):
                 finish=finish, seconds=time.monotonic() - t0)
 
 
-async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
+def k1_per_wave(cfg, mesh) -> int:
+    """Kernel 1's launches a whole-prompt prefill (wave) of model ``cfg``
+    under ``mesh``: one a layer, none under ring sequence parallelism (its
+    block products are einsums)."""
+    ring = mesh is not None and mesh.sp > 1 and cfg.sp_mode == "ring"
+    return 0 if ring else cfg.n_layers
+
+
+async def serve_phase(engine, n_requests: int, max_tokens: int,
+                      prompts: Optional[list] = None) -> dict:
     """Concurrent streams through the tunnel (SSE chat and NDJSON generate
-    alternating, prompts of 120-400 bytes) on one engine (phases 3 and
-    6c); checks every stream finished and each kernel of the engine's path
-    launched once per layer per prefill wave, decode step or ragged
-    dispatch."""
+    alternating; prompts of 120-400 bytes unless ``prompts`` are given) on
+    one engine (phases 3, 6c and 12); checks every stream finished and each
+    kernel of the engine's path launched once per layer per prefill wave
+    (``k1_per_wave``), decode step or ragged dispatch."""
     waves, steps, dispatches, spec = [0], [0], [0], [0]
     dispatch_prefill, decode_fn, ragged_rows, dispatch_spec = (
         engine._dispatch_prefill_batch, engine._decode_fn,
@@ -1651,7 +1686,7 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
     engine._dispatch_ragged_rows = counted_ragged
     engine._dispatch_spec = counted_spec
 
-    prompts = [
+    prompts = prompts or [
         (f"Request {i}: summarise the tunnel design. " * (4 + 3 * i))[: 120 + 40 * i]
         for i in range(n_requests)
     ]
@@ -1673,14 +1708,15 @@ async def serve_phase(engine, n_requests: int, max_tokens: int) -> dict:
     for r in results:
         if r["tokens"] != max_tokens or r["finish"] != "length":
             raise AssertionError(f"stream ended early: {r}")
-    n_layers = engine.mcfg.n_layers
     if engine.device.type == "cuda":
-        # Under mux whole-prompt waves are only the echo route: none here.
-        if (launches["flash_causal_attention"] != n_layers * waves[0]
-                or (waves[0] == 0 and not engine.ecfg.mux)):
+        # Under mux with chunked prefill whole-prompt waves are only the
+        # echo route: none here.  Under sp mux admits whole-prompt waves.
+        per_wave = k1_per_wave(engine.mcfg, engine.mesh)
+        if (launches["flash_causal_attention"] != per_wave * waves[0]
+                or (waves[0] == 0 and engine.ecfg.prefill_chunk == 0)):
             raise AssertionError(
                 f"prefill kernel launches {launches['flash_causal_attention']}"
-                f" != {n_layers} x {waves[0]} prefill waves")
+                f" != {per_wave} x {waves[0]} prefill waves")
         check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
                               calls)
     ttfts = [r["ttft"] for r in results]
@@ -2167,12 +2203,14 @@ def k7_call_ms(engine, steps: int = 4) -> dict:
     return out
 
 
-def cli_engine(params, cfg, *flags, model: str = MODEL, depth_cut: bool = False):
+def cli_engine(params, cfg, *flags, model: str = MODEL, depth_cut: bool = False,
+               fences=()):
     """The engine ``tunnel-gpu serve --backend gpu`` builds from ``flags``
     (16 slots, 1024 positions), on the given weights (None: the engine's
     own random init from seed 0 — directly quantized under ``--quant`` —
     or the ``--ckpt`` file); ``depth_cut`` serves ``cfg`` itself, the
-    preset at fewer layers."""
+    preset at fewer layers.  The engine must fence exactly the knobs
+    ``fences`` names, in order (none by default)."""
     from p2p_llm_tunnel_tpu_torch import cli
     from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
     from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
@@ -2184,8 +2222,9 @@ def cli_engine(params, cfg, *flags, model: str = MODEL, depth_cut: bool = False)
                              params=params,
                              tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size),
                              device=DEVICE)
-    if engine.config_fences:
-        raise AssertionError(f"engine {flags} fenced: {engine.config_fences}")
+    if [f["knob"] for f in engine.config_fences] != list(fences):
+        raise AssertionError(f"engine {flags} fenced {engine.config_fences}, "
+                             f"not {list(fences)}")
     return engine
 
 
@@ -2230,13 +2269,18 @@ def print_quant_launches(tag: str, run: dict, engine) -> None:
 
 
 def free_engine(engine) -> None:
-    """Drop an engine's device state (cache, pool) before the next is built."""
+    """Drop an engine's device state (cache, pool) before the next is built,
+    and the flight recorder's hold on the engine (it keeps the last engine
+    built registered, and with it that engine's weights)."""
     import gc
 
     import torch
 
+    from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox
+
     engine.kv_cache = None
     engine._pool = None
+    global_blackbox.set_engine_provider(None)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3138,14 +3182,18 @@ def tp_logits(cfg, params, mesh, prompt, forced):
     return torch.stack(out)
 
 
-def follow_engine(params, cfg, flags) -> dict:
-    """Rank 1's half of one phase-11 engine: the engine rank 0 builds from
-    the same flags (on the same full tree, sharded by the engine), its
-    replay of rank 0's dispatches until rank 0 stops, and this rank's own
-    launch checks — kernel 1 once per layer per prefill wave, the decode
-    kernel once per layer per decode step, kernel 7 225 times per model
-    call under ``--quant`` (on the card)."""
-    engine = cli_engine(params, cfg, *flags, model=MODEL)
+def follow_engine(params, cfg, flags, fences=()) -> dict:
+    """A follower rank's half of one phase-11 or phase-12 engine: the
+    engine rank 0 builds from the same flags (on the same full tree,
+    sharded by the engine), its replay of rank 0's dispatches until rank 0
+    stops, and this rank's own launch checks — kernel 1 once per layer per
+    prefill wave (none under ring sp), the decode kernel once per layer per
+    decode step, kernel 7 225 times per model call under ``--quant`` (on
+    the card); with its peak memory and the exchanges it ran."""
+    import torch
+
+    engine = cli_engine(params, cfg, *flags, model=MODEL, fences=fences)
+    recorded = record_waves(engine) if engine.mesh.sp > 1 else None
     steps, waves = [0], [0]
     decode_fn, prefill_fn = engine._decode_fn, engine._prefill_fn
 
@@ -3159,29 +3207,138 @@ def follow_engine(params, cfg, flags) -> dict:
 
     engine._decode_fn, engine._prefill_fn = counted_decode, counted_prefill
     reset_counters()
+    if engine.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     ops = engine.spmd_follower_loop()
     launches, calls = read_counters(), dict(MODEL_CALLS)
-    n = engine.mcfg.n_layers
+    per_wave = k1_per_wave(engine.mcfg, engine.mesh)
     if engine.device.type == "cuda":
-        if launches["flash_causal_attention"] != n * waves[0]:
-            raise AssertionError(f"rank 1: kernel 1 launches "
-                                 f"{launches['flash_causal_attention']} != {n} x "
-                                 f"{waves[0]} prefill waves")
+        if launches["flash_causal_attention"] != per_wave * waves[0]:
+            raise AssertionError(f"rank {engine.mesh.rank}: kernel 1 launches "
+                                 f"{launches['flash_causal_attention']} != "
+                                 f"{per_wave} x {waves[0]} prefill waves")
         check_engine_launches(engine, launches, steps[0], 0, 0, calls)
+    peak, forms = peak_gb(engine.device), exchange_counts()
+    cache = None if recorded is None else check_sp_cache(engine, recorded)
     free_engine(engine)
-    return dict(ops=ops, steps=steps[0], waves=waves[0], calls=calls,
-                launches={k: v for k, v in launches.items() if v})
+    return dict(rank=engine.mesh.rank, ops=ops, steps=steps[0], waves=waves[0],
+                calls=calls, launches={k: v for k, v in launches.items() if v},
+                peak_gb=peak, exchanges=forms, cache=cache)
 
 
-def tp_follower(coordinator: str, results, settings: dict) -> None:
-    """Rank 1 of phase 11, a spawned process: takes rank 0's module
-    settings (``DEVICE``, ``MODEL``, ``NUM_SLOTS``, ``MAX_SEQ``,
-    ``TP_GROUP``), joins the
-    run, then obeys rank 0's commands on a control group of its own —
-    ``weights`` (draw or drop the full seed-0 tree rank 0 draws),
-    ``logits`` (the tp forward of 11b), ``engine`` (``follow_engine``; its
-    report goes to ``results``) and ``exit``.  A failure is reported to
-    rank 0, which fails the phase."""
+def record_waves(engine) -> list:
+    """Keep a host copy of every whole-prompt wave's (tokens, lengths,
+    slots) the engine prefills from now on; returns the list it fills."""
+    import numpy as np
+
+    waves, prefill_fn = [], engine._prefill_fn
+
+    def recorded(tokens, lengths, slots, *a, **kw):
+        waves.append(tuple(np.array(x, copy=True) for x in (tokens, lengths, slots)))
+        return prefill_fn(tokens, lengths, slots, *a, **kw)
+
+    engine._prefill_fn = recorded
+    return waves
+
+
+#: Phase 12's bounds on an sp engine's cache rows against one rank's: per
+#: layer, raw K/V within 5% of the layer's max |K| / |V| (11b's bound on
+#: logits), quantized codes with at least 90% of their bytes equal and
+#: scales within 5% of the layer's max scale (a misplaced block or row
+#: changes most bytes; rounding noise flips a few codes).
+SP_CACHE_REL, SP_CACHE_EQUAL = 0.05, 0.9
+
+
+def check_sp_cache(engine, waves) -> str:
+    """The sp engine's cache rows against one rank's: each prompt row of
+    the recorded ``waves`` whose slot no later wave rewrote (warmup's pad
+    rows go to the scratch slot) is compared with the same wave prefilled
+    by this rank alone (``prefill_into_cache``, no mesh) into a fresh
+    cache of the engine's layout, over the prompt's positions, within
+    ``SP_CACHE_REL`` / ``SP_CACHE_EQUAL``.  Raises past them; returns the
+    worst figures."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    cache = engine.kv_cache
+    mode = tr.kv_cache_quant_mode(cache)
+    dev = cache["k"].device
+    seen, rows, rel, equal, bitwise = set(), 0, 0.0, 1.0, True
+
+    def layer_max(x):
+        return x.float().abs().flatten(1).amax(1)
+
+    for tokens, lengths, slots in reversed(waves):
+        check = [(i, int(s)) for i, s in enumerate(slots.tolist())
+                 if s != engine._scratch_slot and s not in seen]
+        seen.update(s for _, s in check)
+        if not check:
+            continue
+        fresh = tr.init_kv_cache(engine.mcfg, len(slots), tr._seq_len(cache),
+                                 cache["k"].dtype, quant=mode or False, device=dev)
+        with torch.inference_mode():
+            tr.prefill_into_cache(engine._prefill_mcfg, engine.params,
+                                  torch.as_tensor(tokens, device=dev),
+                                  torch.as_tensor(lengths, device=dev), fresh,
+                                  torch.arange(len(slots), device=dev))
+        for i, s in check:
+            n = int(lengths[i])
+            rows += 1
+            for name in ("k", "v"):
+                nb = n // 2 if mode == "int4" else n
+                got, ref = cache[name][:, s, :nb], fresh[name][:, i, :nb]
+                bitwise &= torch.equal(got, ref)
+                if mode is None:
+                    rel = max(rel, (layer_max(got.float() - ref.float())
+                                    / layer_max(ref).clamp(min=1e-30)).max().item())
+                    continue
+                equal = min(equal, (got == ref).flatten(1).float().mean(1).min().item())
+                gs, rs = cache[name + "_scale"][:, s, :n], fresh[name + "_scale"][:, i, :n]
+                bitwise &= torch.equal(gs, rs)
+                rel = max(rel, (layer_max(gs - rs) / layer_max(rs).clamp(min=1e-30))
+                          .max().item())
+        del fresh
+    if not rows:
+        raise AssertionError("no served prompt row to check in the sp engine's cache")
+    what = ("K/V, max |diff| / the layer's max" if mode is None else
+            f"{mode} codes: least share of equal bytes in a layer {equal:.4f} "
+            f"(limit {SP_CACHE_EQUAL}); scales, max |diff| / the layer's max")
+    out = (f"cache rows of {rows} prompts vs one rank's prefill_into_cache: {what} "
+           f"{rel:.4g} (limit {SP_CACHE_REL}); bitwise equal {bitwise}")
+    if rel > SP_CACHE_REL or equal < SP_CACHE_EQUAL:
+        raise AssertionError(f"rank {engine.mesh.rank}: {out}")
+    return out
+
+
+def peak_gb(device) -> float:
+    """This process's peak device memory since the last reset, in GB."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated(device) / 1e9
+            if torch.device(device).type == "cuda" else 0.0)
+
+
+def exchange_counts() -> dict:
+    """The sp exchanges this process ran since the last reset, by
+    exchange."""
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives
+
+    return dict(sorted(collectives.exchanges.items()))
+
+
+def mesh_follower(coordinator: str, rank: int, results, settings: dict) -> None:
+    """A follower rank of phase 11 or 12, a spawned process: takes rank 0's
+    module settings (``DEVICE``, ``MODEL``, ``NUM_SLOTS``, ``MAX_SEQ``,
+    ``TP_GROUP`` and the run's ``MESH`` = (tp, sp)), joins the run, then
+    obeys rank 0's commands on a control group of its own — ``weights``
+    (draw, at an optional depth, or drop the full seed-0 tree rank 0
+    draws), ``logits`` (the tp forward of 11b), ``sp_logits`` (a prefill
+    of 12a / 12d / 12e, its report to ``results``), ``sp_bench`` (12e's
+    exchanges, its report to ``results``), ``engine``
+    (``follow_engine``; its report to ``results``) and ``exit``.  A
+    failure is reported to rank 0, which fails the phase."""
+    import dataclasses
     import gc
     import traceback
 
@@ -3194,12 +3351,14 @@ def tp_follower(coordinator: str, results, settings: dict) -> None:
     from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
 
     globals().update(settings)
+    tp, sp = MESH
     try:
-        dev = pd.rank_device(DEVICE, 1)
-        pd.init_distributed(coordinator, TP, 1, device=dev, timeout_s=TP_TIMEOUT_S)
+        dev = pd.rank_device(DEVICE, rank)
+        pd.init_distributed(coordinator, tp * sp, rank, device=dev,
+                            timeout_s=TP_TIMEOUT_S)
         torch.backends.cuda.matmul.allow_tf32 = False
         count_model_calls()
-        mesh = make_mesh(tp=TP)
+        mesh = make_mesh(tp=tp, sp=sp)
         ctl = SpmdCoordinator(mesh)
         cfg = get_config(MODEL)
         full = None
@@ -3208,70 +3367,145 @@ def tp_follower(coordinator: str, results, settings: dict) -> None:
             if op == "exit":
                 break
             if op == "weights":
-                full = init_params(cfg, 0, torch.bfloat16, dev) if args[0] else None
+                draw, layers = args
+                if layers:
+                    cfg = dataclasses.replace(get_config(MODEL), n_layers=layers)
+                full = init_params(cfg, 0, torch.bfloat16, dev) if draw else None
                 gc.collect()
                 torch.cuda.empty_cache()
             elif op == "logits":
                 shard = shard_params(full, cfg, mesh)
                 tp_logits(cfg, shard, mesh, *args)
                 del shard
+            elif op == "sp_logits":
+                results.put(("sp_logits", follow_sp_prefill(full, cfg, mesh, *args)))
+            elif op == "sp_bench":
+                results.put(("sp_bench", exchange_bench(cfg, mesh, *args)))
             elif op == "engine":
-                results.put(("engine", follow_engine(full, cfg, args[0])))
-        results.put(("exit", None))
+                results.put(("engine", follow_engine(full, cfg, *args)))
+        results.put(("exit", rank))
     except BaseException:  # reported to rank 0, which fails the phase
-        results.put(("error", traceback.format_exc()))
+        results.put(("error", f"rank {rank}:\n{traceback.format_exc()}"))
     finally:
         pd.shutdown_distributed()
 
 
-def follower_report(results, want: str) -> dict:
-    """Rank 1's next report (``want``), or its failure, within the run's
-    timeout."""
+def follower_report(results, want: str):
+    """A follower's next report (``want``), or its failure, within the
+    run's timeout."""
     import queue
 
     try:
         kind, value = results.get(timeout=TP_TIMEOUT_S)
     except queue.Empty:
-        raise AssertionError(f"rank 1 sent no {want} report within "
+        raise AssertionError(f"no follower sent a {want} report within "
                              f"{TP_TIMEOUT_S:.0f} s") from None
     if kind == "error":
-        raise AssertionError(f"rank 1 failed:\n{value}")
+        raise AssertionError(f"a follower failed: {value}")
     if kind != want:
-        raise AssertionError(f"rank 1 reported {kind}, not {want}")
+        raise AssertionError(f"a follower reported {kind}, not {want}")
     return value
 
 
-def tp_engine_run(ctl, results, params, cfg, flags, phase, tag, name) -> dict:
+class MeshRun:
+    """Rank 0 of a run of ``tp x sp`` ranks on this host (phases 11 and
+    12): the other ranks are spawned processes running ``mesh_follower``,
+    joined by the backend rule (gloo where they share the card), driven on
+    a control group of their own.  ``close`` makes them exit and joins
+    them (killing what is left)."""
+
+    def __init__(self, tp: int, sp: int):
+        import multiprocessing
+
+        from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+        from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+        from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+
+        self.world = tp * sp
+        coordinator = pd.local_rendezvous()
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        settings = dict(DEVICE=DEVICE, MODEL=MODEL, NUM_SLOTS=NUM_SLOTS,
+                        MAX_SEQ=MAX_SEQ, TP_GROUP=TP_GROUP, MESH=(tp, sp))
+        self.procs = [ctx.Process(target=mesh_follower,
+                                  args=(coordinator, r, self.results, settings),
+                                  name=f"mesh-rank-{r}", daemon=True)
+                      for r in range(1, self.world)]
+        for p in self.procs:
+            p.start()
+        self.closed = False
+        try:
+            dev = pd.rank_device(DEVICE, 0)
+            self.backend = pd.init_distributed(coordinator, self.world, 0, device=dev,
+                                               timeout_s=TP_TIMEOUT_S)
+            self.mesh = make_mesh(tp=tp, sp=sp)
+            self.ctl = SpmdCoordinator(self.mesh)
+        except BaseException:
+            self.close(clean=False)
+            raise
+
+    def reports(self, want: str) -> list:
+        """One ``want`` report from every follower, by rank."""
+        got = [follower_report(self.results, want) for _ in self.procs]
+        return sorted(got, key=lambda r: r["rank"] if isinstance(r, dict) else r)
+
+    def close(self, clean: bool = True) -> None:
+        from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+        if self.closed:
+            return
+        self.closed = True
+        try:
+            if clean:
+                self.ctl.send("exit", ())
+                self.reports("exit")
+                # Leave the world with the followers, then join them:
+                # NCCL's teardown waits for every rank.
+                pd.shutdown_distributed()
+        finally:
+            for p in self.procs:
+                p.join(60.0)
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10.0)
+            pd.shutdown_distributed()
+        bad = [p.exitcode for p in self.procs if p.exitcode != 0]
+        if clean and bad:
+            raise AssertionError(f"follower ranks exited {bad}")
+
+
+def tp_engine_run(run: MeshRun, params, cfg, flags, phase, tag, name) -> dict:
     """One tp 2 engine: rank 1 is told to build it from the same flags,
     rank 0 builds it, serves ``phase`` through the tunnel and stops it;
     both ranks' launch checks hold and rank 1 replayed every step."""
-    ctl.send("engine", (flags,))
+    run.ctl.send("engine", (flags,))
     engine = cli_engine(params, cfg, *flags, model=MODEL)
-    t_ready, run = run_engine(engine, phase)
-    peer = follower_report(results, "engine")
-    if run["steps"] > peer["steps"] or run["waves"] > peer["waves"]:
+    t_ready, out = run_engine(engine, phase)
+    peer, = run.reports("engine")
+    if out["steps"] > peer["steps"] or out["waves"] > peer["waves"]:
         raise AssertionError(f"{tag} rank 1 replayed {peer['steps']} decode steps "
                              f"and {peer['waves']} waves; rank 0 served "
-                             f"{run['steps']} and {run['waves']}")
+                             f"{out['steps']} and {out['waves']}")
     kh = engine.kv_cache["k"].shape[3]
     print(f"{tag} {' '.join(flags)}: ready in {t_ready:.1f} s; rank 0 serves "
           f"(mesh {engine.mesh.shape}, {kh} of {cfg.n_kv_heads} kv heads and "
           f"{cfg.n_heads // TP} of {cfg.n_heads} query heads a rank); rank 1 "
           f"replayed {peer['ops']} ops")
-    print(f"{tag} rank 0 in the served window: {run['waves']} prefill waves, "
-          f"{run['steps']} decode steps, launch counts "
-          f"{ {k: v for k, v in run['launches'].items() if v} }")
+    print(f"{tag} rank 0 in the served window: {out['waves']} prefill waves, "
+          f"{out['steps']} decode steps, launch counts "
+          f"{ {k: v for k, v in out['launches'].items() if v} }")
     print(f"{tag} rank 1 (warmup included): {peer['waves']} prefill waves, "
           f"{peer['steps']} decode steps, model calls {peer['calls']}, launch "
           f"counts {peer['launches']} (kernel 1 {cfg.n_layers} a wave, the "
           f"decode kernel {cfg.n_layers} a step: checked on each rank)")
-    print(f"{tag} {run['tok_s']:.1f} tok/s, TTFT p50 {run['ttft_p50_ms']:.1f} ms "
+    print(f"{tag} {out['tok_s']:.1f} tok/s, TTFT p50 {out['ttft_p50_ms']:.1f} ms "
           f"({name}; client side through the tunnel; both ranks on one card: "
           f"no interconnect measured)")
     if engine.ecfg.quant not in ("none", ""):
-        print_quant_launches(tag, run, engine)
+        print_quant_launches(tag, out, engine)
     free_engine(engine)
-    return run
+    return out
 
 
 def tp_phase(name: str, add_launches) -> None:
@@ -3280,47 +3514,32 @@ def tp_phase(name: str, add_launches) -> None:
     card: (b) tp 2 logits against a tp 1 forward on the same weights;
     (a) the serve-CLI defaults on phase 5's conversations, and the plain
     loop (kernel 1); (c) ``--quant int4 --kv-quant int8``."""
-    import multiprocessing
-
     import numpy as np
     import torch
 
     from p2p_llm_tunnel_tpu_torch.models.config import get_config
     from p2p_llm_tunnel_tpu_torch.models.transformer import init_params
     from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
-    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh, shard_params
-    from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
+    from p2p_llm_tunnel_tpu_torch.parallel import shard_params
 
     cfg = get_config(MODEL)
-    coordinator = pd.local_rendezvous()
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    settings = dict(DEVICE=DEVICE, MODEL=MODEL, NUM_SLOTS=NUM_SLOTS,
-                    MAX_SEQ=MAX_SEQ, TP_GROUP=TP_GROUP)
-    follower = ctx.Process(target=tp_follower, args=(coordinator, results, settings),
-                           name="tp-rank-1", daemon=True)
-    follower.start()
+    run = MeshRun(TP, 1)
     try:
-        dev = pd.rank_device(DEVICE, 0)
-        backend = pd.init_distributed(coordinator, TP, 0, device=dev,
-                                      timeout_s=TP_TIMEOUT_S)
         devices = [str(pd.rank_device(DEVICE, r)) for r in range(TP)]
         print(f"[11] --tp {TP}: rank 0 here, rank 1 a spawned process, on "
               f"{devices} of {torch.cuda.device_count()} card(s): backend "
-              f"{backend} ({'NCCL: a card a rank' if backend == 'nccl' else 'gloo: ranks share a card, NCCL refuses two ranks on one GPU'}); "
+              f"{run.backend} ({'NCCL: a card a rank' if run.backend == 'nccl' else 'gloo: ranks share a card, NCCL refuses two ranks on one GPU'}); "
               f"control plane gloo; tp on one card measures no interconnect")
-        mesh = make_mesh(tp=TP)
-        ctl = SpmdCoordinator(mesh)
         full = init_params(cfg, 0, torch.bfloat16, DEVICE)
-        ctl.send("weights", (True,))
+        run.ctl.send("weights", (True, None))
         # 11b: tp 2 against tp 1, the same weights and tokens.
         rng = np.random.default_rng(7)
         prompt = rng.integers(0, 256, 200).astype(np.int64)
         forced = rng.integers(0, 256, 4).astype(np.int64)
         ref = tp_logits(cfg, full, None, prompt, forced)
-        ctl.send("logits", (prompt, forced))
-        shard = shard_params(full, cfg, mesh)
-        got = tp_logits(cfg, shard, mesh, prompt, forced)
+        run.ctl.send("logits", (prompt, forced))
+        shard = shard_params(full, cfg, run.mesh)
+        got = tp_logits(cfg, shard, run.mesh, prompt, forced)
         del shard
         diff = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
@@ -3335,32 +3554,24 @@ def tp_phase(name: str, add_launches) -> None:
               f"agreement {agree:.2f}")
         # 11a: the serve defaults (mux, prefix pool, conversation cache;
         # chunked prefill, kernel 2 per head shard), then the plain loop.
-        m = tp_engine_run(ctl, results, full, cfg, ("--tp", str(TP)), mux_phase,
-                          "[11a]", name)
+        m = tp_engine_run(run, full, cfg, ("--tp", str(TP)), mux_phase, "[11a]", name)
         add_launches(m["launches"])
-        m = tp_engine_run(ctl, results, full, cfg, ("--tp", str(TP), "--no-mux"),
+        m = tp_engine_run(run, full, cfg, ("--tp", str(TP), "--no-mux"),
                           lambda e: serve_phase(e, 4, 16), "[11a plain]", name)
         add_launches(m["launches"])
-        ctl.send("weights", (False,))
+        run.ctl.send("weights", (False, None))
         del full
         torch.cuda.empty_cache()
         # 11c: weights drawn directly in packed int4 from seed 0 (by each
         # rank's engine), sharded; kernel 7 at the shard shapes.
-        m = tp_engine_run(ctl, results, None, cfg,
+        m = tp_engine_run(run, None, cfg,
                           ("--tp", str(TP), "--quant", "int4", "--quant-group-size",
                            str(TP_GROUP), "--kv-quant", "int8"),
                           mux_phase, "[11c]", name)
         add_launches(m["launches"])
-        ctl.send("exit", ())
-        follower_report(results, "exit")
+        run.close()
     finally:
-        follower.join(60.0)
-        if follower.is_alive():
-            follower.kill()
-            follower.join(10.0)
-        pd.shutdown_distributed()
-    if follower.exitcode != 0:
-        raise AssertionError(f"rank 1 exited {follower.exitcode}")
+        run.close(clean=False)
 
 
 def replica_phase(name: str, add_launches) -> None:
@@ -3440,6 +3651,425 @@ def replica_phase(name: str, add_launches) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: sequence parallelism (--sp 2, ring and Ulysses)
+# ---------------------------------------------------------------------------
+
+SP = 2
+#: Long context is what sp is for: 12a prefills one prompt of SP_T
+#: tokens; 12b/12c serve prompts of SP_PROMPT_LENS bytes (= tokens) with
+#: 4096 positions a slot, in waves of SP_PREFILL_ROWS rows (a ring step's
+#: f32 scores are [B, K, G, T/sp, T/sp]: 1.07 GB at B 2, T 4096 — each
+#: rank also holds the whole bf16 tree, ~16 GB, on the one card).
+SP_T = 4096
+SP_PROMPT_LENS = (1500, 2300, 3100, 3800)
+SP_MAX_TOKENS = 32
+SP_PREFILL_ROWS = 2
+SP_FLAGS = ("--sp", str(SP), "--max-seq", "4096", "--slots", "4",
+            "--prefill-rows", str(SP_PREFILL_ROWS))
+#: What the serve defaults fence under sp (the reference's fences).
+SP_FENCES = ("prefix_cache", "conv_cache")
+#: 12d: four ranks on the one card each hold a tree of llama3-8b's full
+#: width cut to this depth (4 x 5.6 GB at bf16; 32 layers would be 4 x 16 GB).
+SP_TP_LAYERS = 8
+
+
+def sp_prefill(cfg, params, mesh, tokens, timed: bool = True) -> dict:
+    """One prompt's ``prefill`` through the kernel path under ``mesh``
+    (None: this rank alone): the logits at every 64th position and the
+    last (f32) and the K/V of the first and last layers there (this rank's
+    tp heads), with kernel 1's launches, the exchanges run, the peak
+    memory, and the prefill's wall ms.  ``timed``: also the part of it
+    spent in the exchanges' all-reduces (host clock, the card synchronized
+    around each)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives
+
+    dev = params["final_norm"].device
+    reset_counters()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    toks = torch.as_tensor(tokens, device=dev)[None]
+    pick = torch.tensor(list(range(0, len(tokens), 64)) + [len(tokens) - 1],
+                        device=dev)
+    spent, slot_sum = [0.0], collectives._slot_sum
+
+    def timed_sum(buf, group):
+        sync(dev)
+        t = time.monotonic()
+        out = slot_sum(buf, group)
+        sync(dev)
+        spent[0] += time.monotonic() - t
+        return out
+
+    if timed:
+        collectives._slot_sum = timed_sum
+    try:
+        sync(dev)
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            logits, ks, vs = tr.prefill(cfg, params, toks,
+                                        torch.ones_like(toks, dtype=torch.bool),
+                                        mesh=mesh)
+            out = dict(logits=logits[0, pick], k=ks[[0, -1], 0][:, pick],
+                       v=vs[[0, -1], 0][:, pick])
+        sync(dev)
+        out.update(wall_ms=(time.monotonic() - t0) * 1e3, exchange_ms=spent[0] * 1e3)
+    finally:
+        collectives._slot_sum = slot_sum
+    del logits, ks, vs
+    want = k1_per_wave(cfg, mesh)
+    got = read_counters()["flash_causal_attention"]
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"rank {0 if mesh is None else mesh.rank}: kernel 1 "
+                             f"launches {got} != {want} in one {cfg.sp_mode} prefill")
+    out.update(k1=got, exchanges=exchange_counts(), peak_gb=peak_gb(dev))
+    return out
+
+
+def follow_sp_prefill(full, cfg, mesh, mode: str, tokens, timed=True) -> dict:
+    """A follower's half of 12a / 12d / 12e: the same prefill on this
+    rank's tp shard of the tree, in ``mode``; its report (launch check
+    included)."""
+    import dataclasses
+
+    from p2p_llm_tunnel_tpu_torch.parallel import shard_params
+
+    params = shard_params(full, cfg, mesh) if mesh.tp > 1 else full
+    out = sp_prefill(dataclasses.replace(cfg, sp_mode=mode), params, mesh, tokens,
+                     timed)
+    report = {k: out[k] for k in ("k1", "exchanges", "peak_gb", "wall_ms", "exchange_ms")}
+    report["rank"] = mesh.rank
+    return report
+
+
+def compare_logits(tag: str, got: dict, ref: dict, heads=None) -> str:
+    """11b's bound on bf16 logits: max |diff| within 5% of max |logit| and
+    argmax agreement >= 0.8; the K/V difference printed (``heads``: the
+    reference's heads this rank holds)."""
+    import torch
+
+    diff = (got["logits"] - ref["logits"]).abs().max().item()
+    scale = ref["logits"].abs().max().item()
+    agree = (got["logits"].argmax(-1) == ref["logits"].argmax(-1)).float().mean().item()
+    if not torch.isfinite(got["logits"]).all() or diff > 0.05 * scale or agree < 0.8:
+        raise AssertionError(f"{tag} logits drift {diff:.4g} (limit {0.05 * scale:.4g}), "
+                             f"argmax agreement {agree:.2f}")
+    sl = slice(None) if heads is None else heads
+    kv = max((got[n].float() - ref[n][..., sl, :].float()).abs().max().item()
+             for n in ("k", "v"))
+    return (f"max |diff| {diff:.4g} (limit {0.05 * scale:.4g} = 5% of max |logit| "
+            f"{scale:.4g}) over {ref['logits'].shape[0]} positions, argmax agreement "
+            f"{agree:.2f}; K/V of the first and last layers there, max |diff| {kv:.4g}")
+
+
+def sp_engine_run(run: MeshRun, params, cfg, flags, tag: str, name: str) -> dict:
+    """One sp engine: every follower builds it from the same flags, rank 0
+    builds it and serves the long prompts through the tunnel; each rank's
+    launch checks hold and each replayed every wave and step."""
+    flags = SP_FLAGS + tuple(flags)
+    run.ctl.send("engine", (flags, SP_FENCES))
+    engine = cli_engine(params, cfg, *flags, model=MODEL, fences=SP_FENCES)
+    waves = record_waves(engine)
+    prompts = [(f"Long request {i}: summarise the tunnel design, every layer. " * 80)[:n]
+               for i, n in enumerate(SP_PROMPT_LENS)]
+    if engine.device.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    t_ready, out = run_engine(engine, lambda e: serve_phase(
+        e, len(prompts), SP_MAX_TOKENS, prompts=prompts))
+    peak, forms = peak_gb(engine.device), exchange_counts()
+    cache = check_sp_cache(engine, waves)
+    peers = run.reports("engine")
+    for peer in peers:
+        if out["steps"] > peer["steps"] or out["waves"] > peer["waves"]:
+            raise AssertionError(f"{tag} rank {peer['rank']} replayed {peer['steps']} "
+                                 f"decode steps and {peer['waves']} waves; rank 0 "
+                                 f"served {out['steps']} and {out['waves']}")
+    ec = engine.ecfg
+    print(f"{tag} {' '.join(flags)}: ready in {t_ready:.1f} s; fences "
+          f"{[f['knob'] for f in engine.config_fences]} (mux {ec.mux}, whole-prompt "
+          f"waves: prefill_chunk {ec.prefill_chunk}); sp_mode {engine.mcfg.sp_mode}, "
+          f"kv_quant {ec.kv_quant}, fused decode layer {engine.mcfg.fused_decode_layer}; "
+          f"{len(prompts)} prompts of {list(SP_PROMPT_LENS)} bytes x {SP_MAX_TOKENS} tokens")
+    print(f"{tag} rank 0: {out['waves']} prefill waves, {out['steps']} decode steps, "
+          f"launch counts { {k: v for k, v in out['launches'].items() if v} } (kernel 1 "
+          f"{k1_per_wave(engine.mcfg, engine.mesh)} a wave, the decode kernel {engine.mcfg.n_layers} a "
+          f"step), peak memory {peak:.3f} GB, exchanges in the served window {forms}")
+    print(f"{tag} rank 0 {cache}")
+    for peer in peers:
+        print(f"{tag} rank {peer['rank']} (warmup included): {peer['waves']} waves, "
+              f"{peer['steps']} decode steps, replayed {peer['ops']} ops, launch counts "
+              f"{peer['launches']}, peak memory {peer['peak_gb']:.3f} GB, exchanges "
+              f"{peer['exchanges']}")
+        print(f"{tag} rank {peer['rank']} {peer['cache']}")
+    print(f"{tag} {out['tok_s']:.1f} tok/s, TTFT p50 {out['ttft_p50_ms']:.1f} ms, max "
+          f"{out['ttft_max_ms']:.1f} ms ({name}; client side through the tunnel; "
+          f"both ranks on one card over gloo: no interconnect measured)")
+    free_engine(engine)
+    return out
+
+
+def sp_logits_run(run: MeshRun, cfg, params, ref: dict, tokens, tag: str) -> None:
+    """12a / 12d: the prefill under ``run``'s mesh in each mode against the
+    one-rank reference ``ref`` on the same weights; each rank's kernel-1
+    check holds."""
+    import dataclasses
+
+    mesh = run.mesh
+    heads = None
+    if mesh.tp > 1:
+        kh = cfg.n_kv_heads // mesh.tp
+        heads = slice(mesh.tp_rank * kh, (mesh.tp_rank + 1) * kh)
+    for mode in ("ring", "ulysses"):
+        run.ctl.send("sp_logits", (mode, tokens))
+        got = sp_prefill(dataclasses.replace(cfg, sp_mode=mode), params, mesh, tokens)
+        peers = run.reports("sp_logits")
+        print(f"{tag} {mode} tp {mesh.tp} x sp {mesh.sp} vs one rank ({cfg.n_layers} "
+              f"layers, T {SP_T}, the same weights): {compare_logits(tag, got, ref, heads)}")
+        ranks = [got] + peers
+        print(f"{tag} {mode}: kernel 1 launches per rank "
+              f"{[r['k1'] for r in ranks]} (each rank checked: "
+              f"{cfg.n_layers if mode == 'ulysses' else 0}); peak memory per rank "
+              f"{[round(r['peak_gb'], 3) for r in ranks]} GB; exchanges rank 0 "
+              f"{got['exchanges']}; prefill wall ms per rank "
+              f"{[round(r['wall_ms'], 1) for r in ranks]}, of it in the exchanges' "
+              f"all-reduces {[round(r['exchange_ms'], 1) for r in ranks]} (one rank "
+              f"alone: {ref['wall_ms']:.1f} ms; host clock, synchronized)")
+
+
+def sp_phase(name: str, add_launches) -> None:
+    """Phase 12: sequence parallelism at llama3-8b's full width, ranks on
+    the one card (spawned processes, as ``tunnel-gpu serve --sp 2`` starts
+    them; gloo, every exchange a zero-padded all-reduce through the host):
+    (a) sp 2 prefill logits, ring and Ulysses, against one rank's forward
+    on the same weights at T 4096; (b) ``--sp 2 --sp-mode ring`` on the
+    serve defaults (fenced to mux with whole-prompt waves), bf16 KV; (c)
+    ``--sp 2 --sp-mode ulysses --kv-quant int4 --fused-decode-layer``; (d)
+    tp 2 x sp 2 logits over four ranks (depth cut to ``SP_TP_LAYERS``)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import init_params
+    from p2p_llm_tunnel_tpu_torch.parallel import shard_params
+
+    # Earlier phases' engines can outlive their names in reference cycles
+    # (11d's counting wrappers close over the replicas' own methods, 2 x
+    # 16 GB of weights): collect them before more ranks share the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MODEL)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, SP_T).astype(np.int64)
+    run = MeshRun(1, SP)
+    try:
+        print(f"[12] --sp {SP}: rank 0 here, rank 1 a spawned process, on "
+              f"{torch.cuda.device_count()} card(s): backend {run.backend} (ranks "
+              f"share a card), every exchange a zero-padded all-reduce; sp on one "
+              f"card measures no interconnect")
+        full = init_params(cfg, 0, torch.bfloat16, DEVICE)
+        run.ctl.send("weights", (True, None))
+        ref = sp_prefill(cfg, full, None, tokens)
+        sp_logits_run(run, cfg, full, ref, tokens, "[12a]")
+        del ref
+        m = sp_engine_run(run, full, cfg, ("--sp-mode", "ring"), "[12b]", name)
+        add_launches(m["launches"])
+        m = sp_engine_run(run, full, cfg, ("--sp-mode", "ulysses", "--kv-quant", "int4",
+                                           "--fused-decode-layer"), "[12c]", name)
+        add_launches(m["launches"])
+        run.ctl.send("weights", (False, None))
+        del full
+        torch.cuda.empty_cache()
+        run.close()
+    finally:
+        run.close(clean=False)
+    # 12d: tp 2 x sp 2 over four ranks, at a cut depth.
+    cfg_d = dataclasses.replace(cfg, n_layers=SP_TP_LAYERS)
+    run = MeshRun(2, SP)
+    try:
+        full = init_params(cfg_d, 0, torch.bfloat16, DEVICE)
+        run.ctl.send("weights", (True, SP_TP_LAYERS))
+        ref = sp_prefill(cfg_d, full, None, tokens)
+        shard = shard_params(full, cfg_d, run.mesh)
+        del full
+        sp_logits_run(run, cfg_d, shard, ref, tokens, "[12d]")
+        del shard, ref
+        run.ctl.send("weights", (False, None))
+        torch.cuda.empty_cache()
+        run.close()
+    finally:
+        run.close(clean=False)
+
+
+#: 12e (``--sp-nccl``): sp over this many cards, a rank a card (NCCL).
+SP_NCCL = 4
+#: Calls a timed pass of one exchange in 12e (after 3 untimed).
+SP_BENCH_REPS = 20
+
+
+def exchange_cases(cfg, sp: int, t: int) -> list:
+    """Each exchange at the shapes one ``t``-token prefill of ``cfg`` gives
+    it over ``sp`` ranks (one call's input), and the tp logits gather of a
+    decode step of ``NUM_SLOTS`` rows over as many ranks: ``(label,
+    exchange, its axes, shape, dtype)``."""
+    import torch
+
+    tl, h, kh, d = t // sp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    return [
+        ("ring_shift, a K or V block", "ring_shift", (), (1, tl, kh, d), bf16),
+        ("all_to_all seq->heads, q", "all_to_all", (2, 1), (1, tl, h, d), bf16),
+        ("all_to_all seq->heads, K or V", "all_to_all", (2, 1), (1, tl, kh, d), bf16),
+        ("all_to_all heads->seq, the output", "all_to_all", (1, 2),
+         (1, t, h // sp, d), bf16),
+        ("all_gather, a layer's K or V", "all_gather", (1,), (1, tl, kh, d), bf16),
+        ("all_gather, the last hidden states", "all_gather", (1,), (1, tl, cfg.dim),
+         bf16),
+        (f"all_gather, tp {sp}'s logits of a decode step", "all_gather", (-1,),
+         (NUM_SLOTS, 1, cfg.vocab_size // sp), torch.float32),
+    ]
+
+
+def library_exchange(op: str, x, group, *axes):
+    """The library's own collective for the function the port's exchange
+    ``op`` computes (12e's comparison; used nowhere in the port):
+    ``batch_isend_irecv`` for the ring shift, ``all_to_all_single`` for the
+    tiled all-to-all, ``all_gather_into_tensor`` for the gather."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if op == "ring_shift":
+        send, recv = x.contiguous(), torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (r + 1) % n), group),
+               dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (r - 1) % n), group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv
+    if op == "all_to_all":
+        split, concat = axes
+        send = torch.stack(x.tensor_split(n, dim=split))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return torch.cat(recv.unbind(0), dim=concat)
+    out = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather_into_tensor(out.flatten(0, 1), x.contiguous(), group=group)
+    return torch.cat(out.unbind(0), dim=axes[0])
+
+
+def exchange_bench(cfg, mesh, t: int) -> dict:
+    """Every rank's half of 12e's exchange timing: each case of
+    ``exchange_cases`` over the sp group, the port's exchange against the
+    library's collective, in passes port, library, library, port of
+    ``SP_BENCH_REPS`` calls each (3 untimed first; host clock, the card
+    synchronized around each pass): ms a call per pass, and whether the
+    two give the same bytes on this rank."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives
+    from p2p_llm_tunnel_tpu_torch.parallel.distributed import rank_device
+
+    dev = rank_device(DEVICE, mesh.rank)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    gen = torch.Generator().manual_seed(1000 + mesh.rank)
+    rows = []
+    for label, op, axes, shape, dtype in exchange_cases(cfg, mesh.sp, t):
+        x = torch.randn(shape, generator=gen).to(dev, dtype)
+        fns = {"port": lambda: getattr(collectives, op)(x, *axes, mesh.sp_group),
+               "library": lambda: library_exchange(op, x, mesh.sp_group, *axes)}
+        ms, out = {"port": [], "library": []}, {}
+        for who in ("port", "library", "library", "port"):
+            for _ in range(3):
+                out[who] = fns[who]()
+            sync(dev)
+            t0 = time.monotonic()
+            for _ in range(SP_BENCH_REPS):
+                fns[who]()
+            sync(dev)
+            ms[who].append((time.monotonic() - t0) / SP_BENCH_REPS * 1e3)
+        a, b = (out[w].contiguous().view(torch.uint8) for w in ("port", "library"))
+        rows.append(dict(label=label, shape=shape, dtype=str(dtype).split(".")[-1],
+                         mib=x.numel() * x.element_size() / 2**20, ms=ms,
+                         bitwise=bool(torch.equal(a, b))))
+    return dict(rank=mesh.rank, rows=rows)
+
+
+def sp_nccl_phase(name: str) -> None:
+    """Phase 12e (``--sp-nccl``, ``SP_NCCL`` cards): sp over a card a rank,
+    so the sp group is NCCL.  (a) Each exchange at the shapes of one
+    ``SP_T``-token prefill of llama3-8b against the library's collective
+    for the same function (``library_exchange``): ms a call, and the same
+    bytes on every rank.  (b) That prefill at full width, ring and
+    Ulysses, three passes (the first warms up), against one rank's on the
+    same weights (11b's bound; its second pass timed): wall ms."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import init_params
+
+    cards = torch.cuda.device_count()
+    if cards < SP_NCCL:
+        raise AssertionError(f"--sp-nccl needs {SP_NCCL} cards, this machine has {cards}")
+    cfg = get_config(MODEL)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, SP_T).astype(np.int64)
+    run = MeshRun(1, SP_NCCL)
+    try:
+        if run.backend != "nccl":
+            raise AssertionError(f"[12e] backend {run.backend}, not NCCL")
+        print(f"[12e] --sp {SP_NCCL}: rank 0 here, ranks 1-{SP_NCCL - 1} spawned, a "
+              f"card a rank ({cards} cards): backend {run.backend}")
+        run.ctl.send("sp_bench", (SP_T,))
+        mine = exchange_bench(cfg, run.mesh, SP_T)
+        ranks = [mine] + run.reports("sp_bench")
+        for i, row in enumerate(mine["rows"]):
+            per_rank = [r["rows"][i] for r in ranks]
+            if not all(r["bitwise"] for r in per_rank):
+                raise AssertionError(f"[12e] {row['label']}: the port's exchange and "
+                                     f"the library's differ on ranks "
+                                     f"{[r['bitwise'] for r in per_rank]}")
+            passes = [max(r["ms"][w][k] for r in per_rank)
+                      for w, k in (("port", 0), ("library", 0), ("library", 1),
+                                   ("port", 1))]
+            print(f"[12e] {row['label']} {row['shape']} {row['dtype']} "
+                  f"({row['mib']:.2f} MiB a rank): ms a call, slowest rank, passes "
+                  f"port/library/library/port {passes}; port / library "
+                  f"{(passes[0] + passes[3]) / (passes[1] + passes[2]):.4f}; the same "
+                  f"bytes on every rank ({name})")
+        full = init_params(cfg, 0, torch.bfloat16, DEVICE)
+        run.ctl.send("weights", (True, None))
+        ref = [sp_prefill(cfg, full, None, tokens, timed=False) for _ in range(2)][1]
+        for mode in ("ring", "ulysses"):
+            mcfg, wall = dataclasses.replace(cfg, sp_mode=mode), []
+            for _ in range(3):
+                run.ctl.send("sp_logits", (mode, tokens, False))
+                got = sp_prefill(mcfg, full, run.mesh, tokens, timed=False)
+                peers = run.reports("sp_logits")
+                wall.append(max([got["wall_ms"]] + [p["wall_ms"] for p in peers]))
+            print(f"[12e] {mode} sp {SP_NCCL} (NCCL) vs one rank ({cfg.n_layers} layers, "
+                  f"T {SP_T}): {compare_logits('[12e]', got, ref)}")
+            print(f"[12e] {mode}: prefill wall ms, slowest rank, passes {wall} (the "
+                  f"first warms up); one rank alone {ref['wall_ms']} ms; exchanges "
+                  f"rank 0 {got['exchanges']}; kernel 1 launches rank 0 {got['k1']} "
+                  f"(checked on each rank); peak memory rank 0 {got['peak_gb']:.3f} GB "
+                  f"({name})")
+        run.ctl.send("weights", (False, None))
+        del full
+        torch.cuda.empty_cache()
+        run.close()
+    finally:
+        run.close(clean=False)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3453,6 +4083,14 @@ def main() -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then phase 11 alone (tensor parallelism, "
                          "SPMD ranks, replicas); prints no result line")
+    ap.add_argument("--sp-only", action="store_true",
+                    help="build, then phase 12 alone (sequence parallelism, "
+                         "ring and Ulysses); prints no result line")
+    ap.add_argument("--sp-nccl", action="store_true",
+                    help=f"needs {SP_NCCL} cards: build, then phase 12e alone "
+                         "(sp over NCCL, a card a rank: each exchange against "
+                         "the library's collective, the prefill against one "
+                         "rank's); prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3493,6 +4131,16 @@ def main() -> int:
         tp_phase(name, lambda counts: None)
         replica_phase(name, lambda counts: None)
         print(f"[11] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
+    if args.sp_only:
+        t0 = time.monotonic()
+        sp_phase(name, lambda counts: None)
+        print(f"[12] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
+    if args.sp_nccl:
+        t0 = time.monotonic()
+        sp_nccl_phase(name)
+        print(f"[12e] phase {time.monotonic() - t0:.1f} s ({name})")
         return 0
 
     # Phase 2: kernels against their plain versions.
@@ -3816,6 +4464,10 @@ def main() -> int:
     tp_phase(name, add_launches)
     replica_phase(name, add_launches)
     print(f"[11] phase {time.monotonic() - t0:.1f} s ({name})")
+    # Phase 12: --sp 2 (ring and Ulysses) and tp 2 x sp 2, ranks on the card.
+    t0 = time.monotonic()
+    sp_phase(name, add_launches)
+    print(f"[12] phase {time.monotonic() - t0:.1f} s ({name})")
 
     source = {
         "flash_causal_attention": (

@@ -7,16 +7,17 @@ precedence, the same ``run_with_retry`` backoff and SIGTERM drain.
 (``--device cpu`` runs it on the CPU instead) in the JAX serve CLI's
 default engine configuration: mux, prefix cache and conversation cache ON
 (``TUNNEL_MUX``, ``TUNNEL_PREFIX_CACHE``, ``TUNNEL_CONV_CACHE``), bf16
-weights and KV, ``--ragged-prefill`` off.  ``--tp N`` serves one model
-from N ranks, one process each: with no ``--coordinator`` this process is
-rank 0 and starts ranks 1..N-1 on this host itself; with ``--coordinator
-host:port --num-processes N --process-id r`` every host runs the same
-command, rank 0 serves the tunnel and the other ranks replay its
-dispatches.  ``--replicas N`` serves N engines behind a least-loaded
-router, replica i on ``cuda:(i % device_count)`` with seed i.  Flags of
-engine features the port does not run yet (``--sp``, ``--ep``,
-``--dp-dcn`` above 1) exit with a message naming the ROADMAP.md
-port-queue item.
+weights and KV, ``--ragged-prefill`` off.  ``--tp N --sp M`` serves one
+model from N*M ranks, one process each (tensor parallelism over N, and
+sequence-parallel prefill over M with ``--sp-mode ring|ulysses``): with
+no ``--coordinator`` this process is rank 0 and starts the other ranks on
+this host itself; with ``--coordinator host:port --num-processes N*M
+--process-id r`` every host runs the same command, rank 0 serves the
+tunnel and the other ranks replay its dispatches.  ``--replicas N``
+serves N engines behind a least-loaded router, replica i on
+``cuda:(i % device_count)`` with seed i.  Flags of engine features the
+port does not run yet (``--ep``, ``--dp-dcn`` above 1) exit with a
+message naming the ROADMAP.md port-queue item.
 """
 
 from __future__ import annotations
@@ -275,11 +276,14 @@ def build_parser() -> argparse.ArgumentParser:
                             "serve one model, each holding 1/tp of its heads "
                             "and FFN")
     serve.add_argument("--sp", type=int, default=int(_env("TUNNEL_SP", "1")),
-                       help="sequence-parallel degree (not ported yet: "
-                            "only 1)")
+                       help="sequence-parallel degree for prefill "
+                            "(long-context): ranks that each prefill one "
+                            "block of the prompt")
     serve.add_argument("--sp-mode", choices=("ring", "ulysses"),
                        default=_env("TUNNEL_SP_MODE", "ring"),
-                       help="SP strategy (with --sp, not ported yet)")
+                       help="SP strategy: ring (K/V blocks passed around "
+                            "the ranks) or ulysses (all-to-all; supports "
+                            "sliding windows)")
     serve.add_argument("--ep", type=int, default=int(_env("TUNNEL_EP", "1")),
                        help="expert-parallel degree (not ported yet: only 1)")
     serve.add_argument("--replicas", type=int,
@@ -346,10 +350,11 @@ def _check_parallel_flags(args) -> None:
             "--process-id >= 0 (or TUNNEL_NUM_PROCESSES / "
             "TUNNEL_PROCESS_ID)"
         )
-    if args.coordinator and args.num_processes != args.tp:
+    if args.coordinator and args.num_processes != args.tp * args.sp:
         raise SystemExit(
-            f"--coordinator runs one process per tensor-parallel rank: "
-            f"--num-processes {args.num_processes} must equal --tp {args.tp}"
+            f"--coordinator runs one process per rank of the mesh: "
+            f"--num-processes {args.num_processes} must equal --tp {args.tp} "
+            f"x --sp {args.sp} = {args.tp * args.sp}"
         )
     if args.dp_dcn != 1:
         try:
@@ -362,11 +367,11 @@ def _check_parallel_flags(args) -> None:
                 "--replicas > 1 is a single-host data-parallel mode; "
                 "multi-host runs shard ONE engine over the global mesh"
             )
-        if args.tp > 1:
+        if args.tp > 1 or args.sp > 1:
             raise SystemExit(
-                "--replicas > 1 with --tp > 1 is not supported by the "
-                "PyTorch engine: each replica would need a rank group of "
-                "its own"
+                "--replicas > 1 with --tp or --sp > 1 is not supported by "
+                "the PyTorch engine: each replica would need a rank group "
+                "of its own"
             )
 
 
@@ -457,8 +462,8 @@ async def run_with_retry(name: str, attempt_fn, *, max_attempts: int = 0,
 
 
 _BACKEND = None
-#: Ranks 1..N-1 of a one-host ``--tp N`` run (parallel.distributed
-#: LocalFollowers), started by this process.
+#: Ranks 1..N-1 of a one-host run of N = tp * sp ranks
+#: (parallel.distributed LocalFollowers), started by this process.
 _FOLLOWERS = None
 
 
@@ -472,12 +477,12 @@ def _tokenizer(spec):
 
 
 def _join_ranks(args, tokenizer):
-    """Join this process to the run ``--tp``/``--coordinator`` ask for and
-    return (mesh, this rank's device), or (None, ``--device``) for a
-    one-process run.  Without ``--coordinator`` a ``--tp N`` run is ranks
-    0..N-1 of this host: this process is rank 0 and starts the others,
-    after building every kernel (the card) so no two ranks run nvcc into
-    one build directory."""
+    """Join this process to the run ``--tp``/``--sp``/``--coordinator``
+    ask for and return (mesh, this rank's device), or (None, ``--device``)
+    for a one-process run.  Without ``--coordinator`` a ``--tp N --sp M``
+    run is ranks 0..N*M-1 of this host: this process is rank 0 and starts
+    the others, after building every kernel (the card) so no two ranks run
+    nvcc into one build directory."""
     global _FOLLOWERS
     from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
 
@@ -490,19 +495,20 @@ def _join_ranks(args, tokenizer):
                             local_world_size=local)
         return pd.make_hybrid_mesh(tp=args.tp, dp_dcn=args.dp_dcn,
                                    sp=args.sp, ep=args.ep), dev
-    if args.tp <= 1:
+    world = args.tp * args.sp
+    if world <= 1:
         return None, args.device
     ecfg = _engine_config(args)
     coordinator = pd.local_rendezvous()
     pd.build_before_launch(args.device)
-    log.info("starting %d local follower ranks for --tp %d", args.tp - 1,
-             args.tp)
-    _FOLLOWERS = pd.launch_local_followers(args.tp, lambda r: pd.FollowerSpec(
-        coordinator=coordinator, world=args.tp, rank=r, device=args.device,
+    log.info("starting %d local follower ranks for --tp %d --sp %d",
+             world - 1, args.tp, args.sp)
+    _FOLLOWERS = pd.launch_local_followers(world, lambda r: pd.FollowerSpec(
+        coordinator=coordinator, world=world, rank=r, device=args.device,
         engine_cfg=ecfg, tokenizer=args.tokenizer or tokenizer))
     dev = pd.rank_device(args.device, 0)
-    pd.init_distributed(coordinator, args.tp, 0, device=dev)
-    return pd.make_mesh(tp=args.tp), dev
+    pd.init_distributed(coordinator, world, 0, device=dev)
+    return pd.make_mesh(tp=args.tp, sp=args.sp), dev
 
 
 async def _engine_backend(args):
@@ -539,8 +545,8 @@ async def _engine_backend(args):
         _BACKEND = router_backend(router)
         return _BACKEND
     mesh, device = _join_ranks(args, tokenizer)
-    log.info("starting PyTorch engine: model=%s slots=%d device=%s tp=%d",
-             args.model, args.slots, device, args.tp)
+    log.info("starting PyTorch engine: model=%s slots=%d device=%s tp=%d "
+             "sp=%d", args.model, args.slots, device, args.tp, args.sp)
     engine = InferenceEngine(engine_cfg=_engine_config(args),
                              tokenizer=tokenizer, device=device, mesh=mesh)
     spmd = engine._spmd

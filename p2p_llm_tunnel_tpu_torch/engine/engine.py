@@ -37,14 +37,15 @@ Burst n is dispatched before burst n-1's tokens are fetched: the fetch
 waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
-Tensor parallelism (``tp``) runs one process per rank
-(``parallel/``): the engine shards its params, KV cache and prefix pool
-to this rank's heads, and in a multi-process run every device dispatch
-goes through ``_dispatch``, which on rank 0 first broadcasts the op and
-its host inputs (``parallel/spmd_serve``); the other ranks run
-``spmd_follower_loop`` and replay them.  What this port does not run yet
-(``sp``, ``ep``) raises at construction; ROADMAP.md lists it in the port
-queue.
+Tensor and sequence parallelism (``tp``, ``sp``) run one process per
+rank (``parallel/``): the engine shards its params, KV cache and prefix
+pool to this rank's heads (the cache is replicated over sp), and in a
+multi-process run every device dispatch goes through ``_dispatch``, which
+on rank 0 first broadcasts the op and its host inputs
+(``parallel/spmd_serve``); the other ranks run ``spmd_follower_loop`` and
+replay them — under sp each prefills its own sequence block of the wave
+and decodes its whole cache.  What this port does not run yet (``ep``)
+raises at construction; ROADMAP.md lists it in the port queue.
 """
 
 from __future__ import annotations
@@ -151,9 +152,11 @@ class EngineConfig:
     in the serve CLI, as in the reference.
 
     Knobs the port does not run yet must stay at their off value
-    (``_UNPORTED``); construction raises otherwise.  ``tp`` > 1 needs
-    this process to be one rank of a joined run of ``tp`` ranks
-    (``parallel/distributed``).  ``flash_decode`` and
+    (``_UNPORTED``); construction raises otherwise.  ``tp`` or ``sp`` > 1
+    needs this process to be one rank of a joined run of ``tp * sp`` ranks
+    (``parallel/distributed``); ``sp_mode`` ("ring" | "ulysses") keeps its
+    reference meaning and is promoted into the model config as there.
+    ``flash_decode`` and
     ``flash_sgrid`` choose between XLA and Pallas on a TPU and choose
     nothing here: on the card the model layer always runs the Hopper
     attention kernels, on the CPU their plain versions.
@@ -227,7 +230,6 @@ class EngineConfig:
 
 #: knob -> (values that mean "off", ROADMAP.md port-queue item)
 _UNPORTED = {
-    "sp": ((1,), "18b, sequence parallelism (--sp, --sp-mode)"),
     "ep": ((1,), "18c, expert parallelism (--ep)"),
 }
 
@@ -344,13 +346,18 @@ class InferenceEngine:
         # One-directional promotion into the model config, as the reference.
         if self.ecfg.fused_decode_layer and not self.mcfg.fused_decode_layer:
             self.mcfg = dc_replace(self.mcfg, fused_decode_layer=True)
+        if self.ecfg.sp_mode != "ring" and self.mcfg.sp_mode != self.ecfg.sp_mode:
+            # One-directional too: a non-default EngineConfig choice
+            # promotes into the model config, but an explicitly ulysses
+            # model_cfg is never reverted to ring.
+            self.mcfg = dc_replace(self.mcfg, sp_mode=self.ecfg.sp_mode)
         dtype = _DTYPES[self.ecfg.dtype]
-        # Tensor parallelism: this process is one rank of a joined
-        # torch.distributed run (parallel/distributed.init_distributed).
-        if mesh is None and self.ecfg.tp > 1:
+        # Tensor / sequence parallelism: this process is one rank of a
+        # joined torch.distributed run (parallel/distributed).
+        if mesh is None and (self.ecfg.tp > 1 or self.ecfg.sp > 1):
             from p2p_llm_tunnel_tpu_torch.parallel.mesh import make_mesh
 
-            mesh = make_mesh(tp=self.ecfg.tp)
+            mesh = make_mesh(tp=self.ecfg.tp, sp=self.ecfg.sp)
         self.mesh = mesh
         # Multi-process SPMD serving: rank 0 broadcasts every dispatch's
         # host inputs, the other ranks replay them (spmd_follower_loop).
@@ -403,11 +410,21 @@ class InferenceEngine:
         self._thrash_window: Deque[Tuple[int, int]] = deque(maxlen=64)
         self._thrash_last: Tuple[int, int] = (0, 0)
 
+        if self.ecfg.prefill_chunk > 0 and self.ecfg.sp > 1:
+            # The chunk-prefill path has no sequence-parallel attention:
+            # bypassing ring/Ulysses on long prompts would defeat sp's
+            # memory scaling exactly where it matters (the reference's).
+            self._fence(
+                "prefill_chunk", 0,
+                "the chunk-prefill program has no sequence-parallel "
+                "attention path (sp>1)",
+            )
         # Multiplexing: chunked prefill is the production path, so pick a
         # default segment width when none was configured (128: wide enough
         # that a shared-prefix owner drains in a few sub-batches, narrow
         # enough that one segment's compute stays comparable to a burst).
-        if self.ecfg.mux and self.ecfg.prefill_chunk <= 0:
+        # Under sp mux admits budgeted whole-prompt waves instead.
+        if self.ecfg.mux and self.ecfg.prefill_chunk <= 0 and self.ecfg.sp <= 1:
             self.ecfg = dc_replace(
                 self.ecfg,
                 prefill_chunk=max(self.ecfg.min_prefill_bucket, min(128, s)),
@@ -424,6 +441,14 @@ class InferenceEngine:
 
         # Prefix cache: host index + device block pool + batched copy ops.
         self._prefix: Optional[PrefixIndex] = None
+        if self.ecfg.prefix_cache and self.ecfg.sp > 1:
+            # Cache hits would prefill their tails on the chunk path, which
+            # has no sequence-parallel attention (the reference's fence).
+            self._fence(
+                "prefix_cache", False,
+                "chunk_prefill_into_cache has no sequence-parallel "
+                "attention path (sp>1)",
+            )
         if self.ecfg.conv_cache and not self.ecfg.prefix_cache:
             self._fence(
                 "conv_cache", False,
@@ -2464,7 +2489,13 @@ class InferenceEngine:
         unit = self.ecfg.prefill_chunk or self.ecfg.min_prefill_bucket
         div = math.gcd(self.ecfg.min_prefill_bucket, unit)
         bq = next((c for c in (128, 64, 32, 16, 8) if div % c == 0), 0)
-        if self.ecfg.tp > 1:
+        if self.ecfg.sp > 1:
+            self._fence(
+                "ragged_prefill", False,
+                "the ragged grouped prefill kernel has no "
+                "sequence-parallel attention path (sp>1)",
+            )
+        elif self.ecfg.tp > 1:
             # The reference's fence, kept so both packages route the same
             # requests the same way under tp.
             self._fence(

@@ -44,7 +44,16 @@ Idiom differences from the JAX reference, all deliberate:
   the embedding is a vocab-parallel lookup, and the vocab-sharded logits
   are gathered to full width before sampling.  As the reference's
   ``kernel_ok``, the fused decode layer and the fused verify burst run at
-  tp 1 only.
+  tp 1 only;
+- sequence parallelism (a mesh with sp > 1): each rank carries its own
+  sequence block ``[B, T/sp]`` of a prefill through every block, with
+  rope at its global positions; attention is ring attention
+  (``ops/ring_attention``) or Ulysses (``ops/ulysses_attention``, kernel 1
+  over the whole sequence at H/sp heads) by ``cfg.sp_mode``, the
+  reference's ``_prefill_attention_fn``.  The hidden states are gathered
+  over sp before the final norm and the head, and each layer's K/V before
+  it is written: the cache is replicated over sp (the reference's
+  ``kv_cache_pspecs`` has no sp axis), so decode is unchanged.
 
 Knobs of the reference the port does not run yet raise ``NotPorted`` (a
 NotImplementedError) naming their ROADMAP.md port-queue item.
@@ -126,8 +135,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
-    """A mesh (``parallel/mesh``) may shard on tp only, and tp must divide
-    the query and kv heads."""
+    """A mesh (``parallel/mesh``) may shard on tp and sp only, and tp must
+    divide the query and kv heads."""
     if mesh is None:
         return
     from p2p_llm_tunnel_tpu_torch.parallel.mesh import UNPORTED_AXES
@@ -142,6 +151,33 @@ def _check_model(cfg: ModelConfig, mesh=None) -> None:
 
 def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tp
+
+
+def _sp(mesh) -> int:
+    return 1 if mesh is None else mesh.sp
+
+
+def _seq_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of the sequence axis (axis 1) under sp; the whole
+    ``x`` otherwise.  T must divide over sp (nothing is padded)."""
+    sp = _sp(mesh)
+    if sp == 1:
+        return x
+    t = x.shape[1]
+    if t % sp:
+        raise ValueError(f"sequence parallelism needs the prefill width to "
+                         f"divide over sp: T={t}, sp={sp}")
+    w = t // sp
+    return x[:, mesh.sp_rank * w:(mesh.sp_rank + 1) * w]
+
+
+def _sp_gather(x: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
+    """Every sp rank's sequence block of ``x``, in order along ``axis``."""
+    if _sp(mesh) == 1:
+        return x
+    from p2p_llm_tunnel_tpu_torch.parallel.collectives import all_gather
+
+    return all_gather(x, axis, mesh.sp_group)
 
 
 def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -451,10 +487,9 @@ def _embed(cfg: ModelConfig, params, tokens, mesh=None):
 
 def _logits(cfg: ModelConfig, params, x, mesh=None):
     """f32 logits ``[..., V]``.  Under tp the head is vocab-sharded: each
-    rank computes its ``V/tp`` columns (softcapped, elementwise), writes
-    them into a zeroed full-width buffer, and an ``all_reduce`` of the
-    buffers gathers every rank's columns — one code path for NCCL and for
-    gloo, which has no all_gather on CUDA tensors; adding zeros is exact."""
+    rank computes its ``V/tp`` columns (softcapped, elementwise), and the
+    columns of every tp rank are gathered in rank order
+    (``parallel/collectives.all_gather``, exact)."""
     if cfg.tie_embeddings:
         logits = head_matmul(x, params["embed"], cfg.act_quant).to(torch.float32)
     else:
@@ -462,10 +497,9 @@ def _logits(cfg: ModelConfig, params, x, mesh=None):
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if _tp(mesh) > 1:
-        width = logits.shape[-1]
-        full = logits.new_zeros(logits.shape[:-1] + (width * mesh.tp,))
-        full[..., mesh.tp_rank * width:(mesh.tp_rank + 1) * width] = logits
-        logits = _psum(full, mesh)
+        from p2p_llm_tunnel_tpu_torch.parallel.collectives import all_gather
+
+        logits = all_gather(logits, -1, mesh.tp_group)
     return logits
 
 
@@ -473,30 +507,74 @@ def _logits(cfg: ModelConfig, params, x, mesh=None):
 # prefill
 # ---------------------------------------------------------------------------
 
+def _prefill_attention(cfg: ModelConfig, mesh):
+    """The prefill attention of this (config, mesh), as the reference's
+    ``_prefill_attention_fn``: ``fn(q, k, v, valid, window)`` on this
+    rank's blocks.  sp > 1 picks sequence parallelism by ``cfg.sp_mode``:
+    "ulysses" (kernel 1 over the whole sequence at H/sp heads; pad masks
+    and windows work) or "ring" (no pad mask needed: right-padding sits
+    after every real query, so causality masks it; refuses sliding
+    windows).  Otherwise kernel 1 (per head shard under tp)."""
+    sp = _sp(mesh)
+    if sp > 1 and cfg.sp_mode not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_mode {cfg.sp_mode!r}")
+    if sp > 1 and cfg.sp_mode == "ulysses":
+        from p2p_llm_tunnel_tpu_torch.ops.ulysses_attention import (
+            check_heads,
+            ulysses_attention,
+        )
+
+        if cfg.n_heads % sp or cfg.n_kv_heads % sp:
+            raise ValueError(
+                f"ulysses sp={sp} needs H ({cfg.n_heads}) and K "
+                f"({cfg.n_kv_heads}) divisible by sp; use sp_mode='ring'"
+            )
+        check_heads(cfg.n_heads, cfg.n_kv_heads, sp, mesh.tp)
+        return lambda q, k, v, valid, window: ulysses_attention(
+            q, k, v, valid, group=mesh.sp_group,
+            scale=cfg.query_scale, softcap=cfg.attn_softcap, window=window)
+    if sp > 1:
+        if cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "ring attention does not support sliding windows; "
+                "use sp_mode='ulysses' or an sp=1 mesh for windowed models"
+            )
+        from p2p_llm_tunnel_tpu_torch.ops.ring_attention import ring_attention
+
+        return lambda q, k, v, valid, window: ring_attention(
+            q, k, v, group=mesh.sp_group, scale=cfg.query_scale,
+            softcap=cfg.attn_softcap)
+    return lambda q, k, v, valid, window: flash_causal_attention(
+        q, k, v, valid, scale=cfg.query_scale, softcap=cfg.attn_softcap,
+        window=window)
+
+
 def apply_blocks(
     cfg: ModelConfig,
     blocks: Params,
-    x: torch.Tensor,  # [B, T, Dm] embedded activations
-    valid: torch.Tensor,  # [B, T] bool
+    x: torch.Tensor,  # [B, T/sp, Dm] embedded activations (this rank's block)
+    valid: torch.Tensor,  # [B, T] bool, the whole sequence
     store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run every block over the prompt batch.  Each layer's (k, v) go to
     ``store_kv(layer, k, v)`` when given (prefill_into_cache writes them
     straight into the cache), else they are stacked and returned as
-    ``[L, B, T, K, D]``.  Under tp kernel 1 runs on this rank's head shard
-    (H/tp query and K/tp kv heads: GQA grouping is shard-local), as the
-    reference's ``flash_tp`` runs the Pallas kernel per head shard."""
-    b, t, _ = x.shape
-    positions = torch.arange(t, device=x.device).expand(b, t)
+    ``[L, B, T/sp, K, D]``.  Under tp kernel 1 runs on this rank's head
+    shard (H/tp query and K/tp kv heads: GQA grouping is shard-local), as
+    the reference's ``flash_tp`` runs the Pallas kernel per head shard.
+    Under sp ``x``, the returned activations and the K/V handed on are this
+    rank's sequence block (``_seq_block``), at global positions."""
+    b, tl, _ = x.shape
+    t = valid.shape[1]
+    start = mesh.sp_rank * tl if _sp(mesh) > 1 else 0
+    positions = (start + torch.arange(tl, device=x.device)).expand(b, tl)
+    attention = _prefill_attention(cfg, mesh)
     ks, vs = [], []
     for idx in range(cfg.n_layers):
         blk = _layer(blocks, idx)
         q, k, v = _qkv(cfg, blk, _norm(cfg, x, blk["attn_norm"]), positions)
-        attn = flash_causal_attention(
-            q, k, v, valid, scale=cfg.query_scale, softcap=cfg.attn_softcap,
-            window=_layer_window(cfg, idx, t),
-        )
+        attn = attention(q, k, v, valid, _layer_window(cfg, idx, t))
         x = _block_tail(cfg, blk, x, attn, mesh)
         if store_kv is not None:
             store_kv(idx, k, v)
@@ -515,12 +593,14 @@ def prefill(
     valid: torch.Tensor,  # [B, T] bool
     mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-prompt forward. Returns (logits [B,T,V] fp32, k, v [L,B,T,K,D])."""
+    """Full-prompt forward. Returns (logits [B,T,V] fp32, k, v [L,B,T,K,D]);
+    under sp every rank returns the whole sequence's."""
     _check_model(cfg, mesh)
-    x = _embed(cfg, params, tokens, mesh)
+    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
     x, ks, vs = apply_blocks(cfg, params["blocks"], x, valid, mesh=mesh)
-    x = _norm(cfg, x, params["final_norm"])
-    return _logits(cfg, params, x, mesh), ks, vs
+    x = _norm(cfg, _sp_gather(x, mesh), params["final_norm"])
+    return (_logits(cfg, params, x, mesh), _sp_gather(ks, mesh, 2),
+            _sp_gather(vs, mesh, 2))
 
 
 def encode_pooled(
@@ -539,10 +619,10 @@ def encode_pooled(
     differs between kernel 1 (zero) and its plain version (the mean of V),
     and the engine drops such rows."""
     _check_model(cfg, mesh)
-    x = _embed(cfg, params, tokens, mesh)
+    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid,
                            store_kv=lambda idx, k, v: None, mesh=mesh)
-    x = _norm(cfg, x, params["final_norm"]).to(torch.float32)
+    x = _norm(cfg, _sp_gather(x, mesh), params["final_norm"]).to(torch.float32)
     m = valid[..., None].to(torch.float32)
     pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
     return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp(min=1e-9)
@@ -576,6 +656,10 @@ def prefill_into_cache(
     does); int4 pads an odd width with one zero position so the packed
     write covers whole bytes — a position past the prompt that decode
     overwrites before it is attendable.
+
+    Under sp every rank takes the whole batch, prefills its sequence block,
+    and gathers each layer's K/V to the whole sequence before writing its
+    own (replicated) cache.
     """
     _check_model(cfg, mesh)
     b, t = tokens.shape
@@ -585,6 +669,7 @@ def prefill_into_cache(
     slot_idx = slots.to(torch.long)
 
     def store(idx, k, v):
+        k, v = _sp_gather(k, mesh), _sp_gather(v, mesh)
         for name, new in (("k", k[:, :t_w]), ("v", v[:, :t_w])):
             if mode is None:
                 # Cast as the reference's scatter does: a quantized table
@@ -600,9 +685,10 @@ def prefill_into_cache(
                 vals = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
             write_packed_prefix(kv_cache[name][idx:idx + 1], slot_idx, vals[None])
 
-    x = _embed(cfg, params, tokens, mesh)
+    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid, store_kv=store,
                            mesh=mesh)
+    x = _sp_gather(x, mesh)
     rows = torch.arange(b, device=tokens.device)
     last_idx = (lengths - 1).to(torch.long)
     if not return_prompt_logprobs:

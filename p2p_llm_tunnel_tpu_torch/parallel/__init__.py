@@ -6,12 +6,15 @@ Where the reference annotates arrays with NamedShardings and lets GSPMD
 insert the collectives, the port runs one process per rank and writes the
 collectives into the model (``models/transformer``: an ``all_reduce``
 after each row-parallel product, a vocab-parallel embedding lookup, the
-vocab-sharded logits gathered before sampling), over ``torch.distributed``
-(NCCL between cards, gloo where ranks share one or run on the CPU).
+vocab-sharded logits gathered before sampling; sequence parallelism's
+ring shift, all-to-all and gathers in ``parallel/collectives``), over
+``torch.distributed`` (NCCL between cards, gloo where ranks share one or
+run on the CPU).
 
 Axes convention (the reference's): ``dp`` data parallel, ``ep`` expert
 parallel, ``tp`` tensor parallel (megatron column/row split of attention
-and MLP), ``sp`` sequence parallel.  Only ``tp`` is ported; the pipeline
+and MLP), ``sp`` sequence parallel (prefill over sequence blocks: ring or
+Ulysses attention).  ``tp`` and ``sp`` are ported; the pipeline
 (``make_pp_mesh``, ``pipeline_prefill``, ``pipeline_loss_fn``,
 ``shard_params_pp``) comes with a later slice (ROADMAP.md item 18e).
 """

@@ -3,11 +3,12 @@
 
 A JAX multi-host run is N identical processes that each call
 ``jax.distributed.initialize`` and then see the global device set.  The
-port runs one process per rank for EVERY tensor-parallel run — ``serve
---tp N`` on one host as much as ``--coordinator`` across hosts — joined by
-``torch.distributed``: rank 0 owns the tunnel and the scheduler, every
-other rank replays rank 0's dispatches (``parallel/spmd_serve``), and the
-tp collectives run in the model.
+port runs one process per rank for EVERY tensor- or sequence-parallel run
+— ``serve --tp N --sp M`` on one host as much as ``--coordinator`` across
+hosts — joined by ``torch.distributed``: rank 0 owns the tunnel and the
+scheduler, every other rank replays rank 0's dispatches
+(``parallel/spmd_serve``), and the tp collectives and the sp exchanges
+(``parallel/collectives``) run in the model.
 
 The backend rule, printed at every join: ``nccl`` when every rank of this
 host has a card of its own (``cuda:(local_rank % device_count)``),
@@ -21,9 +22,9 @@ Usage (same command on every host; rank 0 serves the tunnel):
     tunnel-gpu serve --backend gpu --model llama3-8b --tp 2 \\
         --coordinator host0:8476 --num-processes 2 --process-id $RANK
 
-On one host, ``tunnel-gpu serve --backend gpu --tp 2`` needs no more
-flags: ``launch_local_followers`` starts ranks 1..N-1 as processes of
-this host before rank 0 joins.
+On one host, ``tunnel-gpu serve --backend gpu --tp 2 --sp 2`` needs no
+more flags: ``launch_local_followers`` starts ranks 1..tp*sp-1 as
+processes of this host before rank 0 joins.
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def make_hybrid_mesh(tp: int = 1, dp_dcn: int = 1, sp: int = 1,
                      ep: int = 1) -> Mesh:
     """The reference's DCN-aware mesh: dp across hosts, tp/sp/ep inside a
     host.  Only ``dp_dcn == 1`` is ported: the mesh is then the joined
-    world's flat mesh (``make_mesh``)."""
+    world's flat ``tp x sp`` mesh (``make_mesh``)."""
     if dp_dcn != 1:
         raise NotPorted(f"--dp-dcn {dp_dcn}", UNPORTED_AXES["dp"])
     return make_mesh(tp=tp, dp=1, sp=sp, ep=ep)
@@ -240,7 +241,7 @@ def launch_local_followers(n: int, make_spec: Callable[[int], FollowerSpec]
     procs = []
     for r in range(1, n):
         p = ctx.Process(target=run_follower, args=(make_spec(r),),
-                        name=f"tp-rank-{r}", daemon=True)
+                        name=f"mesh-rank-{r}", daemon=True)
         p.start()
         procs.append(p)
     return LocalFollowers(procs)

@@ -4,12 +4,13 @@ JAX's mesh is an array of devices that GSPMD partitions programs over.
 The port runs one process per rank (``torch.distributed``), so its mesh is
 a small value: the axis sizes, this rank's coordinates and the process
 group of each axis that spans more than one rank.  The axes and their
-order are the reference's, ``(dp, ep, tp, sp)`` with ``tp`` fastest: rank
-``r``'s tp coordinate is ``r % tp``, so the tp ranks of one host are
-neighbours.
+layout are the reference's: axis names ``(dp, ep, tp, sp)``, ranks laid
+out as ``(dp, ep, sp, tp)`` with ``tp`` fastest, so rank ``r``'s tp
+coordinate is ``r % tp`` and its sp coordinate ``(r // tp) % sp`` — the tp
+ranks of one host are neighbours.
 
-Only ``tp`` may exceed 1 in this port so far; ``sp``, ``ep`` and ``dp``
-raise ``NotPorted`` naming their ROADMAP.md items.
+``tp`` and ``sp`` may exceed 1; ``ep`` and ``dp`` raise ``NotPorted``
+naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ AXES = ("dp", "ep", "tp", "sp")
 
 #: Mesh axes the port does not shard over yet -> their ROADMAP.md items.
 UNPORTED_AXES = {
-    "sp": "18b, sequence parallelism (--sp, --sp-mode)",
     "ep": "18c, expert parallelism (--ep)",
     "dp": "18d, data parallelism across hosts (--dp-dcn > 1)",
 }
@@ -31,11 +31,13 @@ UNPORTED_AXES = {
 
 @dataclass(frozen=True)
 class Mesh:
-    """Axis sizes, this rank's place on them and the tp process group.
+    """Axis sizes, this rank's place on them and its process groups.
 
     ``tp_group`` is the ``torch.distributed`` group the tensor-parallel
-    collectives run over (None on a one-rank mesh, or on a mesh built only
-    to slice weights for a given rank)."""
+    collectives run over (the ranks that share this rank's sp coordinate),
+    ``sp_group`` the one the sequence-parallel exchanges run over (the
+    ranks that share every coordinate but sp).  Both are None on a mesh
+    built only to slice weights for a given rank."""
 
     tp: int = 1
     dp: int = 1
@@ -43,6 +45,7 @@ class Mesh:
     ep: int = 1
     rank: int = 0
     tp_group: Any = field(default=None, compare=False)
+    sp_group: Any = field(default=None, compare=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -61,6 +64,11 @@ class Mesh:
         """This rank's coordinate on the tp axis (tp varies fastest)."""
         return self.rank % self.tp
 
+    @property
+    def sp_rank(self) -> int:
+        """This rank's coordinate on the sp axis (next after tp)."""
+        return (self.rank // self.tp) % self.sp
+
 
 def _refuse_unported(**sizes: int) -> None:
     for axis, n in sizes.items():
@@ -68,21 +76,46 @@ def _refuse_unported(**sizes: int) -> None:
             raise NotPorted(f"a mesh with {axis}={n}", UNPORTED_AXES[axis])
 
 
+def _join_groups(tp: int, sp: int, rank: int):
+    """This rank's (tp group, sp group) of the joined world: a tp group
+    holds the ranks of one sp coordinate, an sp group the ranks of one tp
+    coordinate.  An axis that spans the whole world is ``WORLD``; otherwise
+    every rank creates every group of both axes, in the same order
+    (``new_group`` is collective over the world: a rank that skipped one
+    would hang the others)."""
+    import torch.distributed as dist
+
+    if tp == 1 or sp == 1:
+        world = dist.group.WORLD
+        return (world if tp > 1 else None), (world if sp > 1 else None)
+    mine = {}
+    for name, groups in (
+            ("tp", [[s * tp + t for t in range(tp)] for s in range(sp)]),
+            ("sp", [[s * tp + t for s in range(sp)] for t in range(tp)])):
+        for ranks in groups:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[name] = group
+    return mine["tp"], mine["sp"]
+
+
 def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
-              rank: Optional[int] = None, tp_group=None) -> Mesh:
+              rank: Optional[int] = None) -> Mesh:
     """Mesh with axes ``(dp, ep, tp, sp)`` over ``dp*ep*tp*sp`` ranks.
 
     With ``rank`` None the mesh is this process's place in the joined
-    ``torch.distributed`` world (``parallel/distributed.init_distributed``)
-    and ``tp_group`` defaults to that world; a tp > 1 mesh outside a joined
-    world of enough ranks raises.  An explicit ``rank`` builds the value
-    without a world (slicing weights for that rank; no collective)."""
+    ``torch.distributed`` world (``parallel/distributed.init_distributed``),
+    with its tp and sp groups; a mesh of more than one rank outside a
+    joined world of enough ranks raises.  An explicit ``rank`` builds the
+    value without a world (slicing weights for that rank; no collective)."""
     for name, n in (("tp", tp), ("dp", dp), ("sp", sp), ("ep", ep)):
         if n < 1:
             raise ValueError(f"mesh axis {name} must be >= 1, got {n}")
-    _refuse_unported(sp=sp, ep=ep, dp=dp)
+    _refuse_unported(ep=ep, dp=dp)
     n = dp * ep * tp * sp
-    if rank is None:
+    tp_group = sp_group = None
+    joined = rank is None
+    if joined:
         import torch.distributed as dist
 
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -92,11 +125,12 @@ def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
                 "(join them first: parallel.distributed.init_distributed)"
             )
         rank = dist.get_rank() if dist.is_initialized() else 0
-        if tp > 1 and tp_group is None:
-            tp_group = dist.group.WORLD
     if not 0 <= rank < n:
         raise ValueError(f"rank {rank} is outside a mesh of {n} ranks")
-    return Mesh(tp=tp, dp=dp, sp=sp, ep=ep, rank=rank, tp_group=tp_group)
+    if joined and n > 1:
+        tp_group, sp_group = _join_groups(tp, sp, rank)
+    return Mesh(tp=tp, dp=dp, sp=sp, ep=ep, rank=rank, tp_group=tp_group,
+                sp_group=sp_group)
 
 
 def best_tp(n_kv_heads: int, n_ranks: int) -> Tuple[int, int]:

@@ -1,24 +1,27 @@
 """SPMD serving: rank 0 broadcasts each dispatch's host inputs, the other
 ranks replay them (port of p2p_llm_tunnel_tpu/parallel/spmd_serve.py).
 
-A tensor-parallel forward pass is a sequence of collectives that every
-rank must enter in the same order.  Serving breaks the symmetry: only
+A tensor- or sequence-parallel forward pass is a sequence of collectives
+that every rank must enter in the same order.  Serving breaks the symmetry: only
 rank 0 owns the tunnel endpoint, the scheduler and the consumers of the
 sampled tokens.  The reference's leader/follower split restores it:
 
 - rank 0 runs the full engine loop; before every device dispatch it
   broadcasts ``(op, host_inputs)`` — a length header, then the pickled
   payload, as the reference's ``_bcast_bytes``;
-- every other rank runs ``InferenceEngine.spmd_follower_loop()``: it
-  receives each op and replays it into the same engine method on its own
-  device state (its shard of the params, its kv heads of the cache and
-  pool, its copy of the decode carry and the logit-bias plane).
+- every other rank — tp and sp ranks alike — runs
+  ``InferenceEngine.spmd_follower_loop()``: it receives each op and
+  replays it into the same engine method on its own device state (its
+  shard of the params, its kv heads of the cache and pool, its copy of the
+  decode carry and the logit-bias plane); a prefill wave arrives whole and
+  each sp rank computes its own sequence block of it.
 
 Device state stays in lockstep because every dispatch is a deterministic
 function of (carried state, broadcast host inputs): the tp all-reduces
-leave every rank with the same activations and the same full-width
-logits, and every rank seeds and consumes its sampling generator the same
-way, so even unseeded draws agree.
+and the sp gathers leave every rank with the same activations, the same
+cache rows and the same full-width logits, and every rank seeds and
+consumes its sampling generator the same way, so even unseeded draws
+agree.
 
 The broadcast runs on a group of its own on the ``gloo`` backend over the
 host (a control plane of kilobytes per dispatch: token ids, positions,

@@ -1,6 +1,6 @@
 """The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config
 with the JAX serve CLI's defaults, flags of features the port does not
-run yet (``--sp``, ``--ep``, ``--dp-dcn`` above 1) are rejected with their
+run yet (``--ep``, ``--dp-dcn`` above 1) are rejected with their
 ROADMAP.md port-queue item, and ``serve --backend gpu --device cpu``
 brings up a working engine backend (on the CPU, as the tests run) — also
 at ``--tp 2``, where this process is rank 0 and starts rank 1 itself, and
@@ -110,6 +110,15 @@ def test_spill_snapshot_and_role_flags_reach_the_engine_config(
 ])
 def test_unported_flags_exit_with_their_queue_item(extra, item):
     args = cli.build_parser().parse_args(SERVE + extra)
+    if item == "18b":
+        # Item 18b is ported: --sp and --sp-mode reach the engine config
+        # as in the JAX CLI.
+        jargs = j_cli.build_parser().parse_args(
+            ["serve", "--backend", "tpu", "--room", "r"] + extra)
+        ecfg = cli._engine_config(args)
+        assert (ecfg.sp, ecfg.sp_mode) == (jargs.sp, jargs.sp_mode)
+        assert ecfg.sp == 2
+        return
     with pytest.raises(SystemExit) as exc:
         cli._engine_config(args)
     assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
@@ -297,11 +306,35 @@ def test_cli_rejects_partial_multihost_flags():
     (["--replicas", "2", "--tp", "2"], "rank group of its own"),
     (["--coordinator", "host0:8476", "--num-processes", "4", "--process-id", "0",
       "--tp", "2"], "must equal --tp 2"),
+    (["--coordinator", "host0:8476", "--num-processes", "2", "--process-id", "0",
+      "--tp", "2", "--sp", "2"], "must equal --tp 2 x --sp 2 = 4"),
+    (["--replicas", "2", "--sp", "2"], "rank group of its own"),
 ])
 def test_parallel_flag_sets_the_port_refuses(extra, match):
     args = cli.build_parser().parse_args(SERVE + extra)
     with pytest.raises(SystemExit, match=match):
         cli._engine_config(args)
+
+
+def test_tp_sp_on_one_host_starts_tp_times_sp_ranks(monkeypatch):
+    """``serve --tp 2 --sp 2`` with no --coordinator: rank 0 starts ranks
+    1..3 of a world of 4 with the engine config it builds itself, and
+    joins a 2 x 2 mesh (the joins are recorded, not made)."""
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+    seen = {}
+    monkeypatch.setattr(pd, "build_before_launch", lambda device: None)
+    monkeypatch.setattr(pd, "launch_local_followers", lambda n, make_spec: seen.update(
+        n=n, specs=[make_spec(r) for r in range(1, n)]) or "followers")
+    monkeypatch.setattr(pd, "init_distributed", lambda *a, **kw: seen.update(join=a))
+    monkeypatch.setattr(pd, "make_mesh", lambda **kw: kw)
+    monkeypatch.setattr(cli, "_FOLLOWERS", None)
+    args = cli.build_parser().parse_args(SERVE + ["--tp", "2", "--sp", "2"])
+    mesh, _ = cli._join_ranks(args, None)
+    assert mesh == {"tp": 2, "sp": 2} and seen["n"] == 4
+    assert [(s.rank, s.world) for s in seen["specs"]] == [(1, 4), (2, 4), (3, 4)]
+    assert all((s.engine_cfg.tp, s.engine_cfg.sp) == (2, 2) for s in seen["specs"])
+    assert seen["join"][1:3] == (4, 0) and cli._FOLLOWERS == "followers"
 
 
 def test_serve_tp2_starts_its_follower_rank(tmp_path, monkeypatch):

@@ -164,7 +164,7 @@ def test_generate_matches_jax_with_logprobs(weights):
 
 def test_construction_guards():
     with pytest.raises(NotPorted, match="ROADMAP"):
-        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, sp=2), device="cpu")
+        InferenceEngine(engine_cfg=EngineConfig(**ENGINE, ep=2), device="cpu")
     # tp is ported: one rank of a joined run each (none joined here).
     with pytest.raises(ValueError, match="needs 2 ranks"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, tp=2), device="cpu")

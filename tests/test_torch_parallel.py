@@ -146,6 +146,14 @@ def test_best_mesh_refuses_leftover_data_parallelism():
 
 @pytest.mark.parametrize("axis,item", [("sp", "18b"), ("ep", "18c"), ("dp", "18d")])
 def test_unported_axes_name_their_roadmap_item(axis, item):
+    if axis == "sp":
+        # Item 18b is ported: an sp mesh is built like a tp mesh, and
+        # outside a joined world of its ranks it is refused like one.
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+            make_mesh(sp=2)
+        mesh = make_mesh(tp=2, sp=2, rank=3)
+        assert (mesh.tp_rank, mesh.sp_rank, mesh.size) == (1, 1, 4)
+        return
     with pytest.raises(NotPorted, match=f"ROADMAP.md, port queue: {item}"):
         make_mesh(**{axis: 2})
 

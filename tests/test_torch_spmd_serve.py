@@ -184,6 +184,12 @@ def test_snapshots_are_skipped_under_spmd(port_runs, snapshot_dir):
 
 @pytest.mark.parametrize("knob,item", [("sp", "18b"), ("ep", "18c")])
 def test_unported_knobs_still_refuse(knob, item):
+    if knob == "sp":
+        # Item 18b is ported: an sp 2 engine needs its two ranks, as a tp
+        # 2 engine does (test_tp_engine_needs_its_ranks).
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+            InferenceEngine(engine_cfg=EngineConfig(**PLAIN, sp=2), device="cpu")
+        return
     with pytest.raises(NotPorted, match=f"port queue: {item}"):
         InferenceEngine(engine_cfg=EngineConfig(**PLAIN, **{knob: 2}), device="cpu")
 

@@ -1,6 +1,6 @@
-"""Rank bodies of the port's multi-process CPU tests (tensor parallelism,
-SPMD serving), and the tunnel traffic both packages' engines are driven
-with.
+"""Rank bodies of the port's multi-process CPU tests (tensor and sequence
+parallelism, SPMD serving), and the tunnel traffic both packages' engines
+are driven with.
 
 ``run_ranks`` spawns one process per rank (a fresh interpreter each, the
 ``spawn`` start method), joins them into one gloo world through a file
@@ -225,8 +225,9 @@ def _record(engine, log):
 
 
 def engine_streams(rank, world, payload):
-    """Each job builds a ``tp = world`` engine on the given weights (the
-    engine shards them) and serves the conversations through the port's
+    """Each job builds a ``tp = world`` engine (or the job's own ``tp x sp``
+    mesh of ``world`` ranks) on the given weights (the engine shards them)
+    and serves the conversations through the port's
     tunnel on rank 0 while the other ranks replay; returns, per job, rank
     0's streams and config fences, and every rank's sampled ids."""
     import torch
@@ -244,7 +245,8 @@ def engine_streams(rank, world, payload):
     for name, job in payload["jobs"].items():
         cfg = get_config(job.get("preset", "tiny"),
                          vocab_size=payload["vocab"])
-        ecfg = EngineConfig(**job["engine"], tp=world)
+        # tp = world unless the job sets its own mesh (tp x sp = world).
+        ecfg = EngineConfig(**{"tp": world, **job["engine"]})
         dtype = torch.float32 if ecfg.dtype == "float32" else torch.bfloat16
         params = params_from_numpy(payload["weights"][job["weights"]], "cpu",
                                    dtype)
@@ -263,6 +265,7 @@ def engine_streams(rank, world, payload):
             res["streams"] = asyncio.run(drive())
             res["fences"] = list(engine.config_fences)
             res["mesh"] = (engine.mesh.shape, engine.mesh.rank)
+            res["sp_mode"] = engine.mcfg.sp_mode
             res["kv_shape"] = tuple(engine.kv_cache["k"].shape)
         else:
             res["ops"] = engine.spmd_follower_loop()
@@ -271,9 +274,9 @@ def engine_streams(rank, world, payload):
 
 
 def engine_fences(rank, world, payload):
-    """Construct a ``tp = world`` engine per config on every rank (their
-    control groups are created in the same order) and return rank 0's
-    config fences; nothing is served."""
+    """Construct a ``tp = world`` engine (or the config's own ``tp x sp``
+    mesh) per config on every rank (their groups are created in the same
+    order) and return rank 0's config fences; nothing is served."""
     from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
     from p2p_llm_tunnel_tpu_torch.models.config import get_config
 
@@ -281,7 +284,7 @@ def engine_fences(rank, world, payload):
     out = {}
     for name, kw in payload["configs"].items():
         engine = InferenceEngine(model_cfg=cfg,
-                                 engine_cfg=EngineConfig(**kw, tp=world),
+                                 engine_cfg=EngineConfig(**{"tp": world, **kw}),
                                  device="cpu")
         out[name] = (list(engine.config_fences),
                      {k: getattr(engine.ecfg, k) for k in kw})
@@ -351,3 +354,121 @@ def cli_ranks(rank, world, flags):
     ok, ids = asyncio.run(run())
     return {"backend": ok, "ids": ids, "ops": None,
             "ecfg": vars(cli._engine_config(args))}
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+def several(rank, world, payload):
+    """``(fn_name, payload)`` pairs of this module, run in order in one
+    spawn of ranks; their results in order."""
+    return [globals()[fn](rank, world, p) for fn, p in payload]
+
+
+def _meshes(cases):
+    """One joined mesh per distinct ``(tp, sp)`` of the cases, built in the
+    cases' order on every rank (their groups are collective)."""
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+
+    meshes = {}
+    for case in cases:
+        key = (case["tp"], case["sp"])
+        if key not in meshes:
+            meshes[key] = make_mesh(tp=key[0], sp=key[1])
+    return meshes
+
+
+def _block(x, mesh):
+    """This rank's block of a global ``[B, T, H, D]`` array: sequence block
+    ``sp_rank`` of axis 1 and head shard ``tp_rank`` of axis 2."""
+    t, h = x.shape[1] // mesh.sp, x.shape[2] // mesh.tp
+    return x[:, mesh.sp_rank * t:(mesh.sp_rank + 1) * t,
+             mesh.tp_rank * h:(mesh.tp_rank + 1) * h].contiguous()
+
+
+def sp_attention(rank, world, payload):
+    """Each case runs ring or Ulysses attention on this rank's blocks of
+    the global q/k/v under its ``(tp, sp)`` mesh; returns ``{case: this
+    rank's output block (f32)}``."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops.ring_attention import ring_attention
+    from p2p_llm_tunnel_tpu_torch.ops.ulysses_attention import ulysses_attention
+
+    meshes = _meshes(payload.values())
+    out = {}
+    for name, case in payload.items():
+        mesh = meshes[(case["tp"], case["sp"])]
+        dtype = getattr(torch, case["dtype"])
+        q, k, v = (_block(torch.from_numpy(case[n]).to(dtype), mesh) for n in "qkv")
+        if case["mode"] == "ring":
+            o = ring_attention(q, k, v, group=mesh.sp_group, softcap=case.get("softcap"))
+        else:
+            o = ulysses_attention(q, k, v, torch.from_numpy(case["valid"]),
+                                  group=mesh.sp_group,
+                                  softcap=case.get("softcap"), window=case.get("window"))
+        out[name] = o.float().numpy()
+    return out
+
+
+def sp_exchanges(rank, world, payload):
+    """Every exchange of ``parallel/collectives`` over an sp = world mesh, on
+    this rank's input ``payload[rank]`` (f32, cast to each dtype); returns
+    ``{(exchange, dtype): the result's bytes}``."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives as col
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+
+    group = make_mesh(sp=world).sp_group
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        x = torch.from_numpy(payload[rank]).to(getattr(torch, dtype))
+        ops = {
+            "ring_shift": lambda: col.ring_shift(x, group),
+            "seq_to_heads": lambda: col.all_to_all(x, 2, 1, group),
+            "heads_to_seq": lambda: col.all_to_all(x, 1, 2, group),
+            "all_gather": lambda: col.all_gather(x, 1, group),
+        }
+        for op, fn in ops.items():
+            y = fn()
+            out[(op, dtype)] = (tuple(y.shape), y.contiguous().view(torch.uint8).numpy())
+    return out
+
+
+def sp_model(rank, world, payload):
+    """Each case under its ``(tp, sp)`` mesh on JAX's weights (this rank's
+    tp shard): ``prefill`` (whole-sequence logits and K/V) and
+    ``prefill_into_cache`` (last logits and the cache this rank wrote)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tt
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import (
+        params_from_numpy_sharded,
+        shard_kv_cache,
+    )
+
+    meshes = _meshes(payload.values())
+    out = {}
+    with torch.inference_mode():
+        for name, case in payload.items():
+            mesh = meshes[(case["tp"], case["sp"])]
+            cfg = get_config(case["preset"], **case["overrides"])
+            params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
+                                               torch.float32)
+            tokens = torch.from_numpy(case["tokens"])
+            lengths = torch.from_numpy(case["lengths"])
+            valid = torch.arange(tokens.shape[1])[None, :] < lengths[:, None]
+            logits, ks, vs = tt.prefill(cfg, params, tokens, valid, mesh=mesh)
+            cache = shard_kv_cache(tt.init_kv_cache(cfg, case["slots"], case["seq"],
+                                                    torch.float32, device="cpu"),
+                                   mesh)
+            last, cache = tt.prefill_into_cache(
+                cfg, params, tokens, lengths, cache,
+                torch.from_numpy(case["slot_idx"]), mesh=mesh)
+            out[name] = dict(logits=logits.numpy(), ks=ks.numpy(), vs=vs.numpy(),
+                             last=last.numpy(), k=cache["k"].numpy(),
+                             v=cache["v"].numpy())
+    return out
