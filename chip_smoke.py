@@ -115,6 +115,25 @@ Phases (any failure exits non-zero before the result line):
    its own launches (kernel 1 32 a Ulysses wave and none on ring, the
    decode kernel 32 a step); tok/s, TTFT p50, each rank's peak memory and
    the exchanges run are printed.
+13. expert and data parallelism, ranks on the one card (spawned
+   processes, gloo): (a) mixtral-8x7b's widths at 8 layers, each rank
+   drawing only its shard of the seed-0 tree: ep 2 prefill logits of a
+   1024-token prompt against one rank's whole tree (11b's bound), each
+   rank holding half the expert bytes; (b) ``--ep 2`` on the serve
+   defaults + ``--ragged-prefill``, phase 5's conversations; (c) tp 2 x
+   ep 2 logits over four ranks; (d) llama3-8b at full width and depth,
+   ``--dp-dcn 2`` through the serve CLI's ``--coordinator`` flags over 15
+   slots (8 of the 16 cache rows a rank), 12 conversations on the serve
+   defaults + ragged, on ``--kv-quant int4 --fused-decode-layer
+   --spec-ngram 3`` and on ``--quant int4``: each rank holds half the
+   cache bytes, its rows of a whole-prompt wave into every slot against
+   one rank's ``prefill_into_cache`` of that wave (int4 codes and scales
+   bitwise, bf16 within 5% of each layer's max), and its own launches.
+   ``--ep-nccl`` (four cards, not in the default run): 13e, mixtral-8x7b
+   at full depth over ep 4 on NCCL — the 8-layer logits against one
+   rank's, the ep all-reduce's ms a call at a decode step's and a
+   1024-token wave's shapes, and phase 5's conversations: tok/s, TTFT
+   p50 and each card's peak memory.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -140,8 +159,8 @@ busy share, device time by kernel), and the CUDA launches of one decode
 step on the mux engines of phases 5, 6a and 8a (8a: with kernel 7's
 device ms per step beside the weight-stream bound) and of one verify
 burst on phase 7's.
-``--kernels-only`` stops after phase 2; ``--tp-only`` and ``--sp-only``
-build and run phase 11 or phase 12 alone.
+``--kernels-only`` stops after phase 2; ``--tp-only``, ``--sp-only`` and
+``--ep-only`` build and run phase 11, 12 or 13 alone.
 """
 
 from __future__ import annotations
@@ -1661,29 +1680,31 @@ async def serve_phase(engine, n_requests: int, max_tokens: int,
     kernel of the engine's path launched once per layer per prefill wave
     (``k1_per_wave``), decode step or ragged dispatch."""
     waves, steps, dispatches, spec = [0], [0], [0], [0]
-    dispatch_prefill, decode_fn, ragged_rows, dispatch_spec = (
-        engine._dispatch_prefill_batch, engine._decode_fn,
-        engine._dispatch_ragged_rows, engine._dispatch_spec)
+    # Waves and ragged dispatches count where this rank runs them (under
+    # --dp-dcn, the rows of its own slots).
+    prefill_rows, decode_fn, ragged_rows, dispatch_spec = (
+        engine._prefill_rows, engine._decode_fn,
+        engine._ragged_rows, engine._dispatch_spec)
 
     def counted_prefill(*a, **kw):
         waves[0] += 1
-        return dispatch_prefill(*a, **kw)
+        return prefill_rows(*a, **kw)
 
     def counted_decode(*a, **kw):
         steps[0] += a[5]  # (ov_mask, ov_tok, ov_pos, samp, view, steps)
         return decode_fn(*a, **kw)
 
-    def counted_ragged(rows):
+    def counted_ragged(*a):
         dispatches[0] += 1
-        return ragged_rows(rows)
+        return ragged_rows(*a)
 
     def counted_spec(**kw):
         spec[0] += 1
         return dispatch_spec(**kw)
 
-    engine._dispatch_prefill_batch = counted_prefill
+    engine._prefill_rows = counted_prefill
     engine._decode_fn = counted_decode
-    engine._dispatch_ragged_rows = counted_ragged
+    engine._ragged_rows = counted_ragged
     engine._dispatch_spec = counted_spec
 
     prompts = prompts or [
@@ -1701,9 +1722,9 @@ async def serve_phase(engine, n_requests: int, max_tokens: int,
             launches = read_counters()
             calls = dict(MODEL_CALLS)
     finally:
-        engine._dispatch_prefill_batch = dispatch_prefill
+        engine._prefill_rows = prefill_rows
         engine._decode_fn = decode_fn
-        engine._dispatch_ragged_rows = ragged_rows
+        engine._ragged_rows = ragged_rows
         engine._dispatch_spec = dispatch_spec
     for r in results:
         if r["tokens"] != max_tokens or r["finish"] != "length":
@@ -2002,22 +2023,25 @@ async def _conv_turn(base: str, prompt_ids, max_tokens: int, ndjson: bool):
                 seconds=time.monotonic() - t0)
 
 
-async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True) -> dict:
-    """8 two-turn conversations through the tunnel on a serving engine
-    (phases 5-10); the kernel checks follow the engine's KV form, decode
-    kernel and ragged switch, kernel 1 once per layer per whole-prompt
-    wave; on an engine with the prefix pool (the serve defaults) its
-    counters rose and (``hit_gate``) each second turn hit its first
-    turn's answer.  ``tunnel`` (default: ``_Tunnel(engine)``) fronts the
-    engines; the dispatches of ``peers`` (engines of the same form behind
-    it) count toward the launch checks too."""
+async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True,
+                    n_conv: int = 0) -> dict:
+    """``n_conv`` (default ``N_CONV``, 8) two-turn conversations through the
+    tunnel on a serving engine (phases 5-10, 13); the kernel checks follow
+    the engine's KV form, decode kernel and ragged switch, kernel 1 once
+    per layer per whole-prompt wave (waves and ragged dispatches counted
+    where this rank runs them); on an engine with the prefix pool (the
+    serve defaults) its counters rose and (``hit_gate``) each second turn
+    hit its first turn's answer.  ``tunnel`` (default:
+    ``_Tunnel(engine)``) fronts the engines; the dispatches of ``peers``
+    (engines of the same form behind it) count toward the launch checks
+    too."""
     from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
 
     waves, dispatches, steps, spec, hist_of = [0], [0], [0], [0], {}
     pool = engine._prefix
     match = pool.match if pool is not None else None
-    wrapped = ("_dispatch_prefill_batch", "_dispatch_ragged_rows", "_decode_fn",
-               "_dispatch_spec")
+    n_conv = n_conv or N_CONV
+    wrapped = ("_prefill_rows", "_ragged_rows", "_decode_fn", "_dispatch_spec")
     saved = [(e, {n: getattr(e, n) for n in wrapped}) for e in (engine, *peers)]
 
     def counted(tally, fn, n=lambda a: 1):
@@ -2027,8 +2051,8 @@ async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True) -> dic
         return call
 
     for e, fns in saved:
-        e._dispatch_prefill_batch = counted(waves, fns["_dispatch_prefill_batch"])
-        e._dispatch_ragged_rows = counted(dispatches, fns["_dispatch_ragged_rows"])
+        e._prefill_rows = counted(waves, fns["_prefill_rows"])
+        e._ragged_rows = counted(dispatches, fns["_ragged_rows"])
         e._decode_fn = counted(steps, fns["_decode_fn"], lambda a: a[5])
         e._dispatch_spec = counted(spec, fns["_dispatch_spec"])
 
@@ -2048,7 +2072,7 @@ async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True) -> dic
     system = list(SYSTEM_PROMPT.encode())
     firsts = [system + list(f"Turn one of conversation {i}: how does the "
                             f"tunnel carry request {i}? ".encode() * (1 + i % 2))
-              for i in range(N_CONV)]
+              for i in range(n_conv)]
     try:
         async with (tunnel or _Tunnel(engine)) as base:
             before = {c: global_metrics.counter(c) for c in counters}
@@ -2072,7 +2096,7 @@ async def mux_phase(engine, peers=(), tunnel=None, hit_gate: bool = True) -> dic
                 setattr(e, n, fn)
         if pool is not None:
             pool.match = match
-    for r, want in zip(one + two, [TURN1_TOKENS] * N_CONV + [TURN2_TOKENS] * N_CONV):
+    for r, want in zip(one + two, [TURN1_TOKENS] * n_conv + [TURN2_TOKENS] * n_conv):
         if len(r["ids"]) != want or r["finish"] != "length":
             raise AssertionError(f"conversation stream ended early: {r}")
     sys_pages = len(system) // 16 * 16
@@ -3182,48 +3206,76 @@ def tp_logits(cfg, params, mesh, prompt, forced):
     return torch.stack(out)
 
 
-def follow_engine(params, cfg, flags, fences=()) -> dict:
-    """A follower rank's half of one phase-11 or phase-12 engine: the
-    engine rank 0 builds from the same flags (on the same full tree,
-    sharded by the engine), its replay of rank 0's dispatches until rank 0
-    stops, and this rank's own launch checks — kernel 1 once per layer per
-    prefill wave (none under ring sp), the decode kernel once per layer per
-    decode step, kernel 7 225 times per model call under ``--quant`` (on
-    the card); with its peak memory and the exchanges it ran."""
+def follow_engine(params, cfg, flags, fences=(), model=None, layers=None,
+                  dp_run=None) -> dict:
+    """A follower rank's half of one phase-11, 12 or 13 engine: the engine
+    rank 0 builds from the same flags (on the same full tree, sharded by
+    the engine, or on its own draw of this rank's shard), its replay of
+    rank 0's dispatches until rank 0 stops, and this rank's own launch
+    checks — kernel 1 once per layer per prefill wave it runs (none under
+    ring sp), the decode kernel once per layer per decode step, kernel 5
+    once per layer per verify burst on the fused layer, kernel 6 once per
+    layer per ragged dispatch it runs, kernel 7 225 times per model call
+    under ``--quant`` (on the card); with its peak memory, the exchanges it
+    ran and (sp, dp) its cache rows against one rank's.  ``model`` and
+    ``layers`` serve another preset, cut to a depth; ``dp_run`` = (the
+    run's coordinator, world) builds the engine through the serve CLI's
+    ``--coordinator`` flags (``dp_engine``)."""
+    import dataclasses
+
     import torch
 
-    engine = cli_engine(params, cfg, *flags, model=MODEL, fences=fences)
-    recorded = record_waves(engine) if engine.mesh.sp > 1 else None
-    steps, waves = [0], [0]
-    decode_fn, prefill_fn = engine._decode_fn, engine._prefill_fn
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
 
-    def counted_decode(*a):
-        steps[0] += a[5]
-        return decode_fn(*a)
+    if model is not None:
+        cfg = get_config(model)
+    model = model or MODEL
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if dp_run is not None:
+        engine = dp_engine(cfg, flags, *dp_run)
+    else:
+        engine = cli_engine(params, cfg, *flags, model=model, fences=fences,
+                            depth_cut=bool(layers))
+    mesh = engine.mesh
+    recorded = record_waves(engine) if mesh.sp > 1 or mesh.dp > 1 else None
+    steps, waves, dispatches, spec = [0], [0], [0], [0]
+    fns = {n: getattr(engine, n) for n in ("_decode_fn", "_prefill_rows",
+                                           "_ragged_rows", "_spec_verify_fn")}
 
-    def counted_prefill(*a):
-        waves[0] += 1
-        return prefill_fn(*a)
+    def counted(name, tally, n=lambda a: 1):
+        def call(*a):
+            tally[0] += n(a)
+            return fns[name](*a)
+        return call
 
-    engine._decode_fn, engine._prefill_fn = counted_decode, counted_prefill
+    engine._decode_fn = counted("_decode_fn", steps, lambda a: a[5])
+    engine._prefill_rows = counted("_prefill_rows", waves)
+    engine._ragged_rows = counted("_ragged_rows", dispatches)
+    engine._spec_verify_fn = counted("_spec_verify_fn", spec)
     reset_counters()
     if engine.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ops = engine.spmd_follower_loop()
     launches, calls = read_counters(), dict(MODEL_CALLS)
-    per_wave = k1_per_wave(engine.mcfg, engine.mesh)
+    per_wave = k1_per_wave(engine.mcfg, mesh)
     if engine.device.type == "cuda":
         if launches["flash_causal_attention"] != per_wave * waves[0]:
-            raise AssertionError(f"rank {engine.mesh.rank}: kernel 1 launches "
+            raise AssertionError(f"rank {mesh.rank}: kernel 1 launches "
                                  f"{launches['flash_causal_attention']} != "
                                  f"{per_wave} x {waves[0]} prefill waves")
-        check_engine_launches(engine, launches, steps[0], 0, 0, calls)
+        check_engine_launches(engine, launches, steps[0], dispatches[0], spec[0],
+                              calls)
     peak, forms = peak_gb(engine.device), exchange_counts()
     cache = None if recorded is None else check_sp_cache(engine, recorded)
+    out = dict(rank=mesh.rank, ops=ops, steps=steps[0], waves=waves[0],
+               dispatches=dispatches[0], spec=spec[0], calls=calls,
+               launches={k: v for k, v in launches.items() if v},
+               peak_gb=peak, exchanges=forms, cache=cache,
+               kv_rows=int(engine.kv_cache["k"].shape[1]),
+               kv_bytes=kv_bytes(engine), weights_gb=weight_gb(engine))
     free_engine(engine)
-    return dict(rank=engine.mesh.rank, ops=ops, steps=steps[0], waves=waves[0],
-                calls=calls, launches={k: v for k, v in launches.items() if v},
-                peak_gb=peak, exchanges=forms, cache=cache)
+    return out
 
 
 def record_waves(engine) -> list:
@@ -3250,13 +3302,17 @@ SP_CACHE_REL, SP_CACHE_EQUAL = 0.05, 0.9
 
 
 def check_sp_cache(engine, waves) -> str:
-    """The sp engine's cache rows against one rank's: each prompt row of
-    the recorded ``waves`` whose slot no later wave rewrote (warmup's pad
-    rows go to the scratch slot) is compared with the same wave prefilled
-    by this rank alone (``prefill_into_cache``, no mesh) into a fresh
-    cache of the engine's layout, over the prompt's positions, within
-    ``SP_CACHE_REL`` / ``SP_CACHE_EQUAL``.  Raises past them; returns the
-    worst figures."""
+    """The sp or dp engine's cache rows against one rank's: each prompt row
+    of the recorded ``waves`` whose slot no later wave rewrote and this
+    rank holds (warmup's pad rows go to the scratch slot; under dp a rank
+    holds its own slots' rows) is compared with the same wave prefilled
+    whole by this rank alone (``prefill_into_cache``, no mesh) into a
+    fresh cache of the engine's layout, over the prompt's positions,
+    within ``SP_CACHE_REL`` / ``SP_CACHE_EQUAL``; under dp the quantized
+    codes and scales must be bitwise those rows, and the last logits of
+    this rank's rows prefilled as the rank runs them (its rows alone)
+    within 11b's bound of that whole wave's.  Raises past them; returns
+    the worst figures."""
     import torch
 
     from p2p_llm_tunnel_tpu_torch.models import transformer as tr
@@ -3264,49 +3320,75 @@ def check_sp_cache(engine, waves) -> str:
     cache = engine.kv_cache
     mode = tr.kv_cache_quant_mode(cache)
     dev = cache["k"].device
+    dp = engine._dp
+    lo = 0 if dp is None else dp.lo
     seen, rows, rel, equal, bitwise = set(), 0, 0.0, 1.0, True
+    logit_diff, logit_scale, agree = 0.0, 0.0, []
 
     def layer_max(x):
         return x.float().abs().flatten(1).amax(1)
 
     for tokens, lengths, slots in reversed(waves):
-        check = [(i, int(s)) for i, s in enumerate(slots.tolist())
-                 if s != engine._scratch_slot and s not in seen]
+        mine = range(len(slots)) if dp is None else dp.route(slots)
+        check = [(i, int(slots[i])) for i in mine
+                 if slots[i] != engine._scratch_slot and slots[i] not in seen]
         seen.update(s for _, s in check)
         if not check:
             continue
         fresh = tr.init_kv_cache(engine.mcfg, len(slots), tr._seq_len(cache),
                                  cache["k"].dtype, quant=mode or False, device=dev)
+        toks, lens = (torch.as_tensor(x, device=dev) for x in (tokens, lengths))
         with torch.inference_mode():
-            tr.prefill_into_cache(engine._prefill_mcfg, engine.params,
-                                  torch.as_tensor(tokens, device=dev),
-                                  torch.as_tensor(lengths, device=dev), fresh,
-                                  torch.arange(len(slots), device=dev))
+            last, _ = tr.prefill_into_cache(engine._prefill_mcfg, engine.params,
+                                            toks, lens, fresh,
+                                            torch.arange(len(slots), device=dev))
+            if dp is not None:
+                own = torch.as_tensor([i for i, _ in check], device=dev)
+                sub = tr.init_kv_cache(engine.mcfg, len(own), tr._seq_len(cache),
+                                       cache["k"].dtype, quant=mode or False,
+                                       device=dev)
+                mine_last, _ = tr.prefill_into_cache(
+                    engine._prefill_mcfg, engine.params, toks[own], lens[own], sub,
+                    torch.arange(len(own), device=dev))
+                del sub
+                logit_diff = max(logit_diff,
+                                 (mine_last - last[own]).abs().max().item())
+                logit_scale = max(logit_scale, last[own].abs().max().item())
+                agree += (mine_last.argmax(-1) == last[own].argmax(-1)).tolist()
         for i, s in check:
             n = int(lengths[i])
             rows += 1
             for name in ("k", "v"):
                 nb = n // 2 if mode == "int4" else n
-                got, ref = cache[name][:, s, :nb], fresh[name][:, i, :nb]
+                got, ref = cache[name][:, s - lo, :nb], fresh[name][:, i, :nb]
                 bitwise &= torch.equal(got, ref)
                 if mode is None:
                     rel = max(rel, (layer_max(got.float() - ref.float())
                                     / layer_max(ref).clamp(min=1e-30)).max().item())
                     continue
                 equal = min(equal, (got == ref).flatten(1).float().mean(1).min().item())
-                gs, rs = cache[name + "_scale"][:, s, :n], fresh[name + "_scale"][:, i, :n]
+                gs, rs = (cache[name + "_scale"][:, s - lo, :n],
+                          fresh[name + "_scale"][:, i, :n])
                 bitwise &= torch.equal(gs, rs)
                 rel = max(rel, (layer_max(gs - rs) / layer_max(rs).clamp(min=1e-30))
                           .max().item())
         del fresh
     if not rows:
-        raise AssertionError("no served prompt row to check in the sp engine's cache")
+        raise AssertionError("no served prompt row to check in the engine's cache")
     what = ("K/V, max |diff| / the layer's max" if mode is None else
             f"{mode} codes: least share of equal bytes in a layer {equal:.4f} "
             f"(limit {SP_CACHE_EQUAL}); scales, max |diff| / the layer's max")
     out = (f"cache rows of {rows} prompts vs one rank's prefill_into_cache: {what} "
            f"{rel:.4g} (limit {SP_CACHE_REL}); bitwise equal {bitwise}")
-    if rel > SP_CACHE_REL or equal < SP_CACHE_EQUAL:
+    bad_logits = False
+    if dp is not None:
+        share = sum(agree) / len(agree)
+        out += (f"; last logits of its rows alone vs the whole wave's: max |diff| "
+                f"{logit_diff:.4g} (limit {0.05 * logit_scale:.4g} = 5% of max |logit|), "
+                f"argmax agreement {share:.2f}")
+        bad_logits = logit_diff > 0.05 * logit_scale or share < 0.8
+    if (rel > SP_CACHE_REL or equal < SP_CACHE_EQUAL or bad_logits
+            or (dp is not None and mode is not None and not bitwise)):
         raise AssertionError(f"rank {engine.mesh.rank}: {out}")
     return out
 
@@ -3328,16 +3410,18 @@ def exchange_counts() -> dict:
 
 
 def mesh_follower(coordinator: str, rank: int, results, settings: dict) -> None:
-    """A follower rank of phase 11 or 12, a spawned process: takes rank 0's
-    module settings (``DEVICE``, ``MODEL``, ``NUM_SLOTS``, ``MAX_SEQ``,
-    ``TP_GROUP`` and the run's ``MESH`` = (tp, sp)), joins the run, then
-    obeys rank 0's commands on a control group of its own — ``weights``
-    (draw, at an optional depth, or drop the full seed-0 tree rank 0
-    draws), ``logits`` (the tp forward of 11b), ``sp_logits`` (a prefill
-    of 12a / 12d / 12e, its report to ``results``), ``sp_bench`` (12e's
-    exchanges, its report to ``results``), ``engine``
-    (``follow_engine``; its report to ``results``) and ``exit``.  A
-    failure is reported to rank 0, which fails the phase."""
+    """A follower rank of phase 11, 12 or 13, a spawned process: takes rank
+    0's module settings (``DEVICE``, ``MODEL``, ``NUM_SLOTS``, ``MAX_SEQ``,
+    ``TP_GROUP`` and the run's ``MESH`` = (tp, sp, ep, dp)), joins the run,
+    then obeys rank 0's commands on a control group of its own —
+    ``weights`` (draw, at an optional depth, or drop the full seed-0 tree
+    rank 0 draws), ``shard`` (draw this rank's shard of a preset's seed-0
+    tree at a depth, or drop it), ``logits`` (the tp forward of 11b),
+    ``sp_logits`` (a prefill of 12a / 12d / 12e, its report to
+    ``results``), ``ep_logits`` (13a / 13c / 13e's prefill on the shard),
+    ``sp_bench`` (12e's exchanges) and ``ep_bench`` (13e's all-reduces),
+    ``engine`` (``follow_engine``; its report to ``results``) and
+    ``exit``.  A failure is reported to rank 0, which fails the phase."""
     import dataclasses
     import gc
     import traceback
@@ -3351,17 +3435,17 @@ def mesh_follower(coordinator: str, rank: int, results, settings: dict) -> None:
     from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
 
     globals().update(settings)
-    tp, sp = MESH
+    tp, sp, ep, dp = MESH
     try:
         dev = pd.rank_device(DEVICE, rank)
-        pd.init_distributed(coordinator, tp * sp, rank, device=dev,
+        pd.init_distributed(coordinator, tp * sp * ep * dp, rank, device=dev,
                             timeout_s=TP_TIMEOUT_S)
         torch.backends.cuda.matmul.allow_tf32 = False
         count_model_calls()
-        mesh = make_mesh(tp=tp, sp=sp)
+        mesh = make_mesh(tp=tp, sp=sp, ep=ep, dp=dp)
         ctl = SpmdCoordinator(mesh)
         cfg = get_config(MODEL)
-        full = None
+        full = shard = shard_cfg = None
         while True:
             op, args = ctl.recv()
             if op == "exit":
@@ -3373,16 +3457,32 @@ def mesh_follower(coordinator: str, rank: int, results, settings: dict) -> None:
                 full = init_params(cfg, 0, torch.bfloat16, dev) if draw else None
                 gc.collect()
                 torch.cuda.empty_cache()
+            elif op == "shard":
+                shard = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                if args:
+                    shard_cfg = dataclasses.replace(get_config(args[0]),
+                                                    n_layers=args[1])
+                    shard = init_params(shard_cfg, 0, torch.bfloat16, dev, mesh=mesh)
+            elif op == "ep_logits":
+                results.put(("ep_logits", follow_ep_prefill(shard, shard_cfg, mesh,
+                                                            *args)))
+            elif op == "ep_bench":
+                results.put(("ep_bench", ep_allreduce_bench(mesh, *args)))
             elif op == "logits":
-                shard = shard_params(full, cfg, mesh)
-                tp_logits(cfg, shard, mesh, *args)
-                del shard
+                tp_shard = shard_params(full, cfg, mesh)
+                tp_logits(cfg, tp_shard, mesh, *args)
+                del tp_shard
             elif op == "sp_logits":
                 results.put(("sp_logits", follow_sp_prefill(full, cfg, mesh, *args)))
             elif op == "sp_bench":
                 results.put(("sp_bench", exchange_bench(cfg, mesh, *args)))
             elif op == "engine":
                 results.put(("engine", follow_engine(full, cfg, *args)))
+            elif op == "dp_engine":
+                results.put(("engine", follow_engine(
+                    None, cfg, *args, dp_run=(coordinator, tp * sp * ep * dp))))
         results.put(("exit", rank))
     except BaseException:  # reported to rank 0, which fails the phase
         results.put(("error", f"rank {rank}:\n{traceback.format_exc()}"))
@@ -3408,25 +3508,25 @@ def follower_report(results, want: str):
 
 
 class MeshRun:
-    """Rank 0 of a run of ``tp x sp`` ranks on this host (phases 11 and
-    12): the other ranks are spawned processes running ``mesh_follower``,
-    joined by the backend rule (gloo where they share the card), driven on
-    a control group of their own.  ``close`` makes them exit and joins
-    them (killing what is left)."""
+    """Rank 0 of a run of ``tp x sp x ep x dp`` ranks on this host (phases
+    11-13): the other ranks are spawned processes running
+    ``mesh_follower``, joined by the backend rule (gloo where they share
+    the card), driven on a control group of their own.  ``close`` makes
+    them exit and joins them (killing what is left)."""
 
-    def __init__(self, tp: int, sp: int):
+    def __init__(self, tp: int, sp: int, ep: int = 1, dp: int = 1):
         import multiprocessing
 
         from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
         from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
         from p2p_llm_tunnel_tpu_torch.parallel.spmd_serve import SpmdCoordinator
 
-        self.world = tp * sp
-        coordinator = pd.local_rendezvous()
+        self.world = tp * sp * ep * dp
+        coordinator = self.coordinator = pd.local_rendezvous()
         ctx = multiprocessing.get_context("spawn")
         self.results = ctx.Queue()
         settings = dict(DEVICE=DEVICE, MODEL=MODEL, NUM_SLOTS=NUM_SLOTS,
-                        MAX_SEQ=MAX_SEQ, TP_GROUP=TP_GROUP, MESH=(tp, sp))
+                        MAX_SEQ=MAX_SEQ, TP_GROUP=TP_GROUP, MESH=(tp, sp, ep, dp))
         self.procs = [ctx.Process(target=mesh_follower,
                                   args=(coordinator, r, self.results, settings),
                                   name=f"mesh-rank-{r}", daemon=True)
@@ -3438,7 +3538,7 @@ class MeshRun:
             dev = pd.rank_device(DEVICE, 0)
             self.backend = pd.init_distributed(coordinator, self.world, 0, device=dev,
                                                timeout_s=TP_TIMEOUT_S)
-            self.mesh = make_mesh(tp=tp, sp=sp)
+            self.mesh = make_mesh(tp=tp, sp=sp, ep=ep, dp=dp)
             self.ctl = SpmdCoordinator(self.mesh)
         except BaseException:
             self.close(clean=False)
@@ -4070,6 +4170,394 @@ def sp_nccl_phase(name: str) -> None:
         run.close(clean=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: expert parallelism (--ep) and data parallelism (--dp-dcn)
+# ---------------------------------------------------------------------------
+
+EP = 2
+#: 13a / 13c / 13e: one prompt of EP_T tokens prefilled at mixtral's widths
+#: cut to MOE_LAYERS (the whole bf16 tree, 23.5 GB, is one rank's reference).
+EP_T = 1024
+#: 13d: --dp-dcn 2 over DP_SLOTS slots: 16 cache rows with the scratch
+#: row, 8 a rank (num_slots + 1 must divide over dp, as the reference's
+#: device_put of the cache requires); DP_CONV conversations, so both ranks'
+#: slots serve (slots are taken lowest first: 0-7 are rank 0's), and a pool
+#: of DP_POOL blocks that holds their working set (the default 128 evicts
+#: the shared system prompt's pages under 12 conversations).
+DP, DP_SLOTS, DP_CONV, DP_POOL = 2, 15, 12, 256
+DP_FLAGS = ("--dp-dcn", str(DP), "--slots", str(DP_SLOTS),
+            "--prefix-pool-blocks", str(DP_POOL))
+#: 13e (``--ep-nccl``): mixtral-8x7b at full depth over this many cards.
+EP_NCCL = 4
+#: 13e's all-reduce shapes: a decode step's [16 slots + scratch, 1, Dm] and
+#: a 1024-token wave's [1, 1024, Dm], f32 (moe_mlp sums before the cast).
+EP_BENCH_ROWS = (NUM_SLOTS + 1, RAGGED_TOT)
+EP_BENCH_REPS = 20
+_MOE_LEAVES = ("router", "moe_gate", "moe_up", "moe_down")
+
+
+def kv_bytes(engine) -> int:
+    """The bytes of the engine's KV cache (this rank's block)."""
+    return sum(x.numel() * x.element_size() for x in engine.kv_cache.values())
+
+
+def weight_gb(engine) -> float:
+    """The engine's weights on this rank (its shard), in GB."""
+    from p2p_llm_tunnel_tpu_torch.models.quant import weight_bytes
+
+    return weight_bytes(engine.params) / 1e9
+
+
+def expert_bytes(params) -> int:
+    return sum(params["blocks"][k].numel() * params["blocks"][k].element_size()
+               for k in _MOE_LEAVES[1:])
+
+
+def dp_engine(cfg, flags, coordinator: str, world: int):
+    """The engine ``tunnel-gpu serve --backend gpu --coordinator ...
+    --num-processes world --process-id <this rank> <flags>`` builds: the
+    CLI joins the run (already joined here: a no-op for the same world)
+    and builds the hybrid mesh of ``--dp-dcn``; the engine draws its own
+    weights from seed 0."""
+    import torch.distributed as dist
+
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+
+    args = cli.build_parser().parse_args([
+        "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", MODEL,
+        "--device", DEVICE, "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ),
+        "--coordinator", coordinator, "--num-processes", str(world),
+        "--process-id", str(dist.get_rank()), *flags])
+    ecfg = cli._engine_config(args)
+    mesh, dev = cli._join_ranks(args, None)
+    return InferenceEngine(engine_cfg=ecfg, mesh=mesh, device=dev,
+                           tokenizer=NumericTokenizer(vocab_size=cfg.vocab_size))
+
+
+def warm_prefill(cfg, params, mesh, tokens) -> dict:
+    """``sp_prefill`` twice, the first untimed (the card's libraries warm
+    up on a rank's first forward): the second's report."""
+    sp_prefill(cfg, params, mesh, tokens, timed=False)
+    return sp_prefill(cfg, params, mesh, tokens, timed=False)
+
+
+def follow_ep_prefill(shard, cfg, mesh, tokens) -> dict:
+    """A follower's half of 13a / 13c / 13e: the prefill on this rank's
+    shard; its report (kernel-1 check included)."""
+    out = warm_prefill(cfg, shard, mesh, tokens)
+    return dict(rank=mesh.rank, k1=out["k1"], peak_gb=out["peak_gb"],
+                wall_ms=out["wall_ms"], experts_gb=expert_bytes(shard) / 1e9)
+
+
+def ep_allreduce_bench(mesh, dm: int) -> dict:
+    """13e: the ep all-reduce ``moe_mlp`` runs once a layer — f32 ``[rows,
+    Dm]`` over the ep group — at a decode step's rows and a 1024-token
+    wave's, ms a call (host clock around ``EP_BENCH_REPS`` calls after
+    three untimed ones, the card synchronized around them; every rank
+    calls it)."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_llm_tunnel_tpu_torch.parallel.distributed import rank_device
+
+    dev = rank_device(DEVICE, mesh.rank)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    out = {}
+    for rows in EP_BENCH_ROWS:
+        x = torch.randn((rows, dm), dtype=torch.float32, device=dev)
+        for _ in range(3):
+            dist.all_reduce(x, group=mesh.ep_group)
+        sync(dev)
+        t0 = time.monotonic()
+        for _ in range(EP_BENCH_REPS):
+            dist.all_reduce(x, group=mesh.ep_group)
+        sync(dev)
+        out[rows] = (time.monotonic() - t0) / EP_BENCH_REPS * 1e3
+    return dict(rank=mesh.rank, ms=out)
+
+
+def ep_logits_run(run, cfg, ref: dict, tokens, tag: str, experts_ep1: float) -> None:
+    """13a / 13c / 13e: every rank draws its shard of the seed-0 tree at
+    ``cfg``'s depth and prefills the prompt on it; rank 0's logits against
+    the one-rank reference ``ref`` (11b's bound, K/V of this rank's tp
+    heads printed), each rank's kernel-1 check, its expert bytes (1/ep of
+    ``experts_ep1``) and peak memory."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    mesh = run.mesh
+    run.ctl.send("shard", (MOE_MODEL, cfg.n_layers))
+    shard = tr.init_params(cfg, 0, torch.bfloat16, DEVICE, mesh=mesh)
+    run.ctl.send("ep_logits", (tokens,))
+    got = warm_prefill(cfg, shard, mesh, tokens)
+    ranks = [dict(rank=0, k1=got["k1"], peak_gb=got["peak_gb"], wall_ms=got["wall_ms"],
+                  experts_gb=expert_bytes(shard) / 1e9)] + run.reports("ep_logits")
+    del shard
+    heads = None
+    if mesh.tp > 1:
+        kh = cfg.n_kv_heads // mesh.tp
+        heads = slice(mesh.tp_rank * kh, (mesh.tp_rank + 1) * kh)
+    for r in ranks:
+        if abs(r["experts_gb"] * mesh.ep - experts_ep1) > 1e-6:
+            raise AssertionError(f"{tag} rank {r['rank']} holds {r['experts_gb']:.4f} GB "
+                                 f"of experts, not 1/{mesh.ep} of {experts_ep1:.4f}")
+    print(f"{tag} tp {mesh.tp} x ep {mesh.ep} vs one rank ({cfg.n_layers} layers, T "
+          f"{len(tokens)}, the same seed-0 weights): {compare_logits(tag, got, ref, heads)}")
+    print(f"{tag} expert bytes per rank {[round(r['experts_gb'], 4) for r in ranks]} GB "
+          f"(ep 1: {experts_ep1:.4f} GB, 1/{mesh.ep} each); kernel 1 launches per rank "
+          f"{[r['k1'] for r in ranks]} (each checked: {cfg.n_layers}); peak memory per "
+          f"rank {[round(r['peak_gb'], 3) for r in ranks]} GB; prefill wall ms per rank "
+          f"{[round(r['wall_ms'], 1) for r in ranks]} (one rank alone "
+          f"{ref['wall_ms']:.1f} ms; host clock, synchronized)")
+    run.ctl.send("shard", ())
+
+
+def ep_reference(cfg, tokens, tag: str):
+    """The one-rank reference of 13a / 13c / 13e: rank 0 draws the whole
+    seed-0 tree at ``cfg``'s depth (its followers hold nothing yet) and
+    prefills the prompt; returns (the prefill report, expert GB)."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+
+    full = tr.init_params(cfg, 0, torch.bfloat16, DEVICE)
+    experts = expert_bytes(full) / 1e9
+    ref = warm_prefill(cfg, full, None, tokens)
+    del full
+    torch.cuda.empty_cache()
+    print(f"{tag} one rank, the whole tree ({cfg.n_layers} layers): experts "
+          f"{experts:.4f} GB, prefill {ref['wall_ms']:.1f} ms, peak "
+          f"{ref['peak_gb']:.3f} GB")
+    return ref, experts
+
+
+def mesh_engine_run(run, flags, phase, tag: str, name: str, model=None,
+                    layers=None, dp: bool = False) -> dict:
+    """One phase-13 engine: every follower builds it from the same flags
+    (``dp``: through the serve CLI's ``--coordinator`` flags), rank 0
+    builds it and serves ``phase`` through the tunnel; every rank checks
+    its own launches and replayed every step; returns rank 0's result and
+    the followers' reports."""
+    import dataclasses
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    cfg = get_config(model or MODEL)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if dp:
+        run.ctl.send("dp_engine", (flags,))
+        engine = dp_engine(cfg, flags, run.coordinator, run.world)
+    else:
+        run.ctl.send("engine", (flags, (), model, layers))
+        engine = cli_engine(None, cfg, *flags, model=model or MODEL,
+                            depth_cut=bool(layers))
+    if engine.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    t_ready, out = run_engine(engine, phase)
+    peers = run.reports("engine")
+    out["cache"] = check_sp_cache(engine, out["waves_rec"]) if dp else None
+    out.update(peak_gb=peak_gb(engine.device), kv_rows=int(engine.kv_cache["k"].shape[1]),
+               kv_bytes=kv_bytes(engine), weights_gb=weight_gb(engine))
+    for peer in peers:
+        if out["steps"] > peer["steps"]:
+            raise AssertionError(f"{tag} rank {peer['rank']} replayed {peer['steps']} "
+                                 f"decode steps; rank 0 served {out['steps']}")
+    ec = engine.ecfg
+    print(f"{tag} {' '.join(flags)}: ready in {t_ready:.1f} s; mesh {engine.mesh.shape}; "
+          f"{cfg.n_layers} layers; fences {[f['knob'] for f in engine.config_fences]}; "
+          f"kv_quant {ec.kv_quant}, fused decode layer {engine.mcfg.fused_decode_layer}, "
+          f"ragged {ec.ragged_prefill}, spec_ngram {ec.spec_ngram}, quant {ec.quant}")
+    ranks = [dict(rank=0, waves=out["waves"], dispatches=out["dispatches"],
+                  steps=out["steps"], spec=out["spec"], peak_gb=out["peak_gb"],
+                  kv_rows=out["kv_rows"], kv_bytes=out["kv_bytes"], cache=out["cache"],
+                  weights_gb=out["weights_gb"],
+                  launches={k: v for k, v in out["launches"].items() if v})] + peers
+    for r in ranks:
+        print(f"{tag} rank {r['rank']}: {r['waves']} prefill waves, {r['dispatches']} "
+              f"ragged dispatches, {r['steps']} decode steps, {r['spec']} verify "
+              f"bursts (followers: warmup included), launch counts {r['launches']} "
+              f"(checked on the rank: the decode kernel {cfg.n_layers} a step, kernel "
+              f"6 {cfg.n_layers} a dispatch, kernel 1 {cfg.n_layers} a wave); cache "
+              f"rows {r['kv_rows']}, {r['kv_bytes'] / 1e9:.4f} GB; weights "
+              f"{r['weights_gb']:.3f} GB; peak memory {r['peak_gb']:.3f} GB")
+        if r["cache"]:
+            print(f"{tag} rank {r['rank']} {r['cache']}")
+    print(f"{tag} {out['tok_s']:.1f} tok/s, TTFT p50 {out['ttft_p50_ms']:.1f} ms, max "
+          f"{out['ttft_max_ms']:.1f} ms ({name}; client side through the tunnel)")
+    if ec.quant not in ("none", ""):
+        print_quant_launches(tag, out, engine)
+    out["ranks"] = ranks
+    free_engine(engine)
+    return out
+
+
+async def dp_phase_run(engine) -> dict:
+    """13d on rank 0: ``DP_CONV`` conversations on the dp engine, then one
+    whole-prompt wave into every slot (both ranks' rows) for the cache
+    check (``check_sp_cache``: each rank's rows against one rank's
+    ``prefill_into_cache`` of the whole wave)."""
+    import numpy as np
+
+    from p2p_llm_tunnel_tpu_torch.engine import sampling
+
+    out = await mux_phase(engine, n_conv=DP_CONV)
+    if engine.device.type == "cuda" and out["dispatches"] == 0 and engine.ecfg.ragged_prefill:
+        raise AssertionError("13d rank 0 ran no ragged dispatch")
+    out["waves_rec"] = record_waves(engine)
+    n, t = DP_SLOTS, 256
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(1, engine.mcfg.vocab_size, (n, t)).astype(np.int32)
+    lengths = rng.integers(t // 2, t + 1, n).astype(np.int32)
+    slots = np.arange(n, dtype=np.int64)
+    samp = sampling.make_params(n)
+
+    def wave():
+        import torch
+
+        with torch.inference_mode():
+            engine._dispatch("prefill", tokens, lengths, slots, samp)
+        engine._sync()
+
+    await asyncio.get_running_loop().run_in_executor(engine._executor, wave)
+    return out
+
+
+def ep_phase(name: str, add_launches) -> None:
+    """Phase 13: expert and data parallelism, ranks on the one card
+    (spawned processes, gloo): (a) mixtral-8x7b's widths at 8 layers, ep 2
+    prefill logits against one rank's, each rank half the experts; (b) ep
+    2 on the serve defaults + ``--ragged-prefill``; (c) tp 2 x ep 2 logits
+    over four ranks; (d) llama3-8b at full width and depth, ``--dp-dcn 2``
+    through the serve CLI's ``--coordinator`` flags: the serve defaults +
+    ragged, ``--kv-quant int4 --fused-decode-layer --spec-ngram 3`` and
+    ``--quant int4``, each rank half the cache rows, its rows against one
+    rank's and its own launch checks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg8 = get_config(MOE_MODEL, n_layers=MOE_LAYERS)
+    tokens = np.random.default_rng(13).integers(0, cfg8.vocab_size, EP_T).astype(np.int64)
+    t0 = time.monotonic()
+    ref, experts = ep_reference(cfg8, tokens, "[13a]")
+    run = MeshRun(1, 1, ep=EP)
+    try:
+        print(f"[13] --ep {EP}: rank 0 here, rank 1 a spawned process, on "
+              f"{torch.cuda.device_count()} card(s): backend {run.backend} (ranks "
+              f"share a card: NCCL refuses two ranks on one GPU); the ep sum an "
+              f"all-reduce through the host; no interconnect measured")
+        ep_logits_run(run, cfg8, ref, tokens, "[13a]", experts)
+        print(f"[13a] {time.monotonic() - t0:.1f} s ({name})")
+        t0 = time.monotonic()
+        m = mesh_engine_run(run, ("--ep", str(EP), "--ragged-prefill"), mux_phase,
+                            "[13b]", name, model=MOE_MODEL, layers=MOE_LAYERS)
+        add_launches(m["launches"])
+        print(f"[13b] {time.monotonic() - t0:.1f} s ({name})")
+        run.close()
+    finally:
+        run.close(clean=False)
+    t0 = time.monotonic()
+    run = MeshRun(2, 1, ep=EP)
+    try:
+        ep_logits_run(run, cfg8, ref, tokens, "[13c]", experts)
+        run.close()
+    finally:
+        run.close(clean=False)
+    print(f"[13c] {time.monotonic() - t0:.1f} s ({name})")
+    del ref
+    # 13d's yardstick: the same slots, pool and conversations on one rank.
+    t0 = time.monotonic()
+    cfg = get_config(MODEL)
+    one = cli_engine(None, cfg, *DP_FLAGS[2:], "--ragged-prefill", model=MODEL)
+    t_ready, m = run_engine(one, lambda e: mux_phase(e, n_conv=DP_CONV))
+    add_launches(m["launches"])
+    print(f"[13d] dp 1 yardstick, {' '.join(DP_FLAGS[2:])} --ragged-prefill on one "
+          f"rank: {DP_CONV} conversations, {m['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{m['ttft_p50_ms']:.1f} ms, cache {kv_bytes(one) / 1e9:.4f} GB; "
+          f"{time.monotonic() - t0:.1f} s ({name})")
+    free_engine(one)
+    del one
+    run = MeshRun(1, 1, dp=DP)
+    try:
+        for flags in (("--ragged-prefill",),
+                      ("--kv-quant", "int4", "--fused-decode-layer", "--spec-ngram", "3"),
+                      ("--quant", "int4")):
+            t0 = time.monotonic()
+            m = mesh_engine_run(run, DP_FLAGS + flags, dp_phase_run, "[13d]", name,
+                                dp=True)
+            add_launches(m["launches"])
+            full_rows = DP_SLOTS + 1
+            for r in m["ranks"]:
+                if r["kv_rows"] * DP != full_rows:
+                    raise AssertionError(f"[13d] rank {r['rank']} holds {r['kv_rows']} "
+                                         f"cache rows, not {full_rows} / {DP}")
+            print(f"[13d] each rank holds {m['kv_rows']} of {full_rows} cache rows: "
+                  f"{m['kv_bytes'] / 1e9:.4f} GB, half of dp 1's "
+                  f"{m['kv_bytes'] * DP / 1e9:.4f} GB; {time.monotonic() - t0:.1f} s "
+                  f"({name})")
+        run.close()
+    finally:
+        run.close(clean=False)
+
+
+def ep_nccl_phase(name: str) -> None:
+    """13e (``--ep-nccl``, four cards, a card a rank, NCCL): at 8 layers, ep
+    4 logits against one rank's; the ep all-reduce's ms a call at a
+    decode step's and a 1024-token wave's shapes; then mixtral-8x7b at
+    full depth (32 layers) at ep 4 serving phase 5's conversations on the
+    serve defaults + ``--ragged-prefill`` — tok/s, TTFT p50 and each
+    card's peak memory."""
+    import numpy as np
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    if torch.cuda.device_count() < EP_NCCL:
+        raise AssertionError(f"--ep-nccl needs {EP_NCCL} cards, have "
+                             f"{torch.cuda.device_count()}")
+    cfg8 = get_config(MOE_MODEL, n_layers=MOE_LAYERS)
+    tokens = np.random.default_rng(13).integers(0, cfg8.vocab_size, EP_T).astype(np.int64)
+    ref, experts = ep_reference(cfg8, tokens, "[13e]")
+    run = MeshRun(1, 1, ep=EP_NCCL)
+    try:
+        print(f"[13e] --ep {EP_NCCL}: a card a rank, backend {run.backend}")
+        if run.backend != "nccl":
+            raise AssertionError(f"[13e] joined over {run.backend}, not nccl")
+        ep_logits_run(run, cfg8, ref, tokens, "[13e]", experts)
+        run.ctl.send("ep_bench", (cfg8.dim,))
+        mine = ep_allreduce_bench(run.mesh, cfg8.dim)
+        ranks = [mine] + run.reports("ep_bench")
+        for rows in EP_BENCH_ROWS:
+            ms = [r["ms"][rows] for r in ranks]
+            what = "decode step" if rows == EP_BENCH_ROWS[0] else f"{rows}-token wave"
+            print(f"[13e] ep all-reduce of f32 [{rows}, {cfg8.dim}] (one a layer, a "
+                  f"{what}): {max(ms):.4f} ms a call on the slowest rank, per rank "
+                  f"{[round(x, 4) for x in ms]} ({name}, NCCL; host clock over "
+                  f"{EP_BENCH_REPS} calls, synchronized)")
+        full = get_config(MOE_MODEL)
+        m = mesh_engine_run(run, ("--ep", str(EP_NCCL), "--ragged-prefill"), mux_phase,
+                            "[13e]", name, model=MOE_MODEL)
+        print(f"[13e] {MOE_MODEL} at full depth ({full.n_layers} layers) over "
+              f"{EP_NCCL} cards: {m['tok_s']:.1f} tok/s, TTFT p50 "
+              f"{m['ttft_p50_ms']:.1f} ms; weights per card "
+              f"{[round(r['weights_gb'], 3) for r in m['ranks']]} GB, peak memory "
+              f"per card {[round(r['peak_gb'], 3) for r in m['ranks']]} GB ({name})")
+        run.close()
+    finally:
+        run.close(clean=False)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4086,6 +4574,13 @@ def main() -> int:
     ap.add_argument("--sp-only", action="store_true",
                     help="build, then phase 12 alone (sequence parallelism, "
                          "ring and Ulysses); prints no result line")
+    ap.add_argument("--ep-only", action="store_true",
+                    help="build, then phase 13 alone (expert parallelism and "
+                         "--dp-dcn, ranks on the card); prints no result line")
+    ap.add_argument("--ep-nccl", action="store_true",
+                    help=f"needs {EP_NCCL} cards: build, then phase 13e alone "
+                         "(mixtral-8x7b at full depth, ep over NCCL, a card a "
+                         "rank); prints no result line")
     ap.add_argument("--sp-nccl", action="store_true",
                     help=f"needs {SP_NCCL} cards: build, then phase 12e alone "
                          "(sp over NCCL, a card a rank: each exchange against "
@@ -4141,6 +4636,16 @@ def main() -> int:
         t0 = time.monotonic()
         sp_nccl_phase(name)
         print(f"[12e] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
+    if args.ep_only:
+        t0 = time.monotonic()
+        ep_phase(name, lambda counts: None)
+        print(f"[13] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
+    if args.ep_nccl:
+        t0 = time.monotonic()
+        ep_nccl_phase(name)
+        print(f"[13e] phase {time.monotonic() - t0:.1f} s ({name})")
         return 0
 
     # Phase 2: kernels against their plain versions.
@@ -4468,6 +4973,11 @@ def main() -> int:
     t0 = time.monotonic()
     sp_phase(name, add_launches)
     print(f"[12] phase {time.monotonic() - t0:.1f} s ({name})")
+    # Phase 13: --ep 2 (mixtral widths) and --dp-dcn 2 (llama3-8b), ranks on
+    # the card.
+    t0 = time.monotonic()
+    ep_phase(name, add_launches)
+    print(f"[13] phase {time.monotonic() - t0:.1f} s ({name})")
 
     source = {
         "flash_causal_attention": (

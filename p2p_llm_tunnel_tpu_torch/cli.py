@@ -7,17 +7,17 @@ precedence, the same ``run_with_retry`` backoff and SIGTERM drain.
 (``--device cpu`` runs it on the CPU instead) in the JAX serve CLI's
 default engine configuration: mux, prefix cache and conversation cache ON
 (``TUNNEL_MUX``, ``TUNNEL_PREFIX_CACHE``, ``TUNNEL_CONV_CACHE``), bf16
-weights and KV, ``--ragged-prefill`` off.  ``--tp N --sp M`` serves one
-model from N*M ranks, one process each (tensor parallelism over N, and
-sequence-parallel prefill over M with ``--sp-mode ring|ulysses``): with
-no ``--coordinator`` this process is rank 0 and starts the other ranks on
-this host itself; with ``--coordinator host:port --num-processes N*M
---process-id r`` every host runs the same command, rank 0 serves the
-tunnel and the other ranks replay its dispatches.  ``--replicas N``
-serves N engines behind a least-loaded router, replica i on
-``cuda:(i % device_count)`` with seed i.  Flags of engine features the
-port does not run yet (``--ep``, ``--dp-dcn`` above 1) exit with a
-message naming the ROADMAP.md port-queue item.
+weights and KV, ``--ragged-prefill`` off.  ``--tp N --sp M --ep E``
+serves one model from N*M*E ranks, one process each (tensor parallelism
+over N, sequence-parallel prefill over M with ``--sp-mode
+ring|ulysses``, a MoE model's experts over E): with no ``--coordinator``
+this process is rank 0 and starts the other ranks on this host itself;
+with ``--coordinator host:port --num-processes D*E*N*M --process-id r``
+every host runs the same command, rank 0 serves the tunnel and the other
+ranks replay its dispatches, and ``--dp-dcn D`` splits the engine's slots
+over D data-parallel rank groups (dp outermost, as the JAX CLI's hybrid
+mesh).  ``--replicas N`` serves N engines behind a least-loaded router,
+replica i on ``cuda:(i % device_count)`` with seed i.
 """
 
 from __future__ import annotations
@@ -285,7 +285,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "the ranks) or ulysses (all-to-all; supports "
                             "sliding windows)")
     serve.add_argument("--ep", type=int, default=int(_env("TUNNEL_EP", "1")),
-                       help="expert-parallel degree (not ported yet: only 1)")
+                       help="expert-parallel degree: a MoE model's experts "
+                            "split over this many ranks")
     serve.add_argument("--replicas", type=int,
                        default=int(_env("TUNNEL_REPLICAS", "1")),
                        help="data-parallel engine replicas behind a router, "
@@ -308,8 +309,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="multi-process: this process's rank")
     serve.add_argument("--dp-dcn", type=int,
                        default=int(_env("TUNNEL_DP_DCN", "1")),
-                       help="data-parallel degree across hosts (not ported "
-                            "yet: only 1)")
+                       help="data-parallel degree across hosts: with "
+                            "--coordinator, the engine's slots split over "
+                            "this many rank groups (dp outermost)")
 
     proxy = sub.add_parser("proxy", help="consumer peer: local HTTP port")
     common(proxy)
@@ -338,10 +340,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_parallel_flags(args) -> None:
     """The JAX serve CLI's refusals of parallel flag sets, and the port's
-    of what it does not run yet; raises SystemExit."""
-    from p2p_llm_tunnel_tpu_torch.parallel.distributed import make_hybrid_mesh
-    from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
-
+    one-process-per-rank rule; raises SystemExit.  ``--dp-dcn`` builds a
+    mesh only in a ``--coordinator`` run, as in the JAX CLI."""
     if args.coordinator and (args.num_processes <= 0 or args.process_id < 0):
         # A partial flag set must error loudly, not silently start an
         # independent single-host server for every rank.
@@ -350,27 +350,26 @@ def _check_parallel_flags(args) -> None:
             "--process-id >= 0 (or TUNNEL_NUM_PROCESSES / "
             "TUNNEL_PROCESS_ID)"
         )
-    if args.coordinator and args.num_processes != args.tp * args.sp:
+    world = args.dp_dcn * args.ep * args.tp * args.sp
+    if args.coordinator and args.num_processes != world:
+        axes = [f"--tp {args.tp}", f"--sp {args.sp}"] + [
+            f"{flag} {n}" for flag, n in (("--ep", args.ep),
+                                          ("--dp-dcn", args.dp_dcn)) if n > 1]
         raise SystemExit(
             f"--coordinator runs one process per rank of the mesh: "
-            f"--num-processes {args.num_processes} must equal --tp {args.tp} "
-            f"x --sp {args.sp} = {args.tp * args.sp}"
+            f"--num-processes {args.num_processes} must equal "
+            f"{' x '.join(axes)} = {world}"
         )
-    if args.dp_dcn != 1:
-        try:
-            make_hybrid_mesh(tp=args.tp, dp_dcn=args.dp_dcn)
-        except NotPorted as e:
-            raise SystemExit(str(e)) from None
     if args.replicas > 1:
         if args.coordinator and args.num_processes > 1:
             raise SystemExit(
                 "--replicas > 1 is a single-host data-parallel mode; "
                 "multi-host runs shard ONE engine over the global mesh"
             )
-        if args.tp > 1 or args.sp > 1:
+        if args.tp > 1 or args.sp > 1 or args.ep > 1:
             raise SystemExit(
-                "--replicas > 1 with --tp or --sp > 1 is not supported by "
-                "the PyTorch engine: each replica would need a rank group "
+                "--replicas > 1 with --tp, --sp or --ep > 1 is not supported "
+                "by the PyTorch engine: each replica would need a rank group "
                 "of its own"
             )
 
@@ -378,13 +377,8 @@ def _check_parallel_flags(args) -> None:
 def _engine_config(args, seed: int = 0):
     """The EngineConfig of ``serve --backend gpu`` (replica ``seed`` of a
     ``--replicas`` run snapshots into ``replica-<seed>/``); raises
-    SystemExit with the port-queue item for a knob the port does not run
-    yet."""
-    from p2p_llm_tunnel_tpu_torch.engine.engine import (
-        EngineConfig,
-        NotPorted,
-        check_ported,
-    )
+    SystemExit for a parallel flag set the port refuses."""
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig
 
     _check_parallel_flags(args)
     pfx_dir = args.prefix_cache_dir
@@ -416,10 +410,6 @@ def _engine_config(args, seed: int = 0):
         tenant_weights=args.tenant_weights,
         watchdog_budget_s=args.watchdog_budget, role=args.role, seed=seed,
     )
-    try:
-        check_ported(ecfg)
-    except NotPorted as e:
-        raise SystemExit(str(e)) from None
     return ecfg
 
 
@@ -477,12 +467,13 @@ def _tokenizer(spec):
 
 
 def _join_ranks(args, tokenizer):
-    """Join this process to the run ``--tp``/``--sp``/``--coordinator``
-    ask for and return (mesh, this rank's device), or (None, ``--device``)
-    for a one-process run.  Without ``--coordinator`` a ``--tp N --sp M``
-    run is ranks 0..N*M-1 of this host: this process is rank 0 and starts
-    the others, after building every kernel (the card) so no two ranks run
-    nvcc into one build directory."""
+    """Join this process to the run ``--tp``/``--sp``/``--ep``/
+    ``--coordinator`` ask for and return (mesh, this rank's device), or
+    (None, ``--device``) for a one-process run.  Without ``--coordinator``
+    a ``--tp N --sp M --ep E`` run is ranks 0..N*M*E-1 of this host: this
+    process is rank 0 and starts the others, after building every kernel
+    (the card) so no two ranks run nvcc into one build directory; there
+    ``--dp-dcn`` builds no mesh, as in the JAX CLI."""
     global _FOLLOWERS
     from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
 
@@ -495,20 +486,20 @@ def _join_ranks(args, tokenizer):
                             local_world_size=local)
         return pd.make_hybrid_mesh(tp=args.tp, dp_dcn=args.dp_dcn,
                                    sp=args.sp, ep=args.ep), dev
-    world = args.tp * args.sp
+    world = args.tp * args.sp * args.ep
     if world <= 1:
         return None, args.device
     ecfg = _engine_config(args)
     coordinator = pd.local_rendezvous()
     pd.build_before_launch(args.device)
-    log.info("starting %d local follower ranks for --tp %d --sp %d",
-             world - 1, args.tp, args.sp)
+    log.info("starting %d local follower ranks for --tp %d --sp %d --ep %d",
+             world - 1, args.tp, args.sp, args.ep)
     _FOLLOWERS = pd.launch_local_followers(world, lambda r: pd.FollowerSpec(
         coordinator=coordinator, world=world, rank=r, device=args.device,
         engine_cfg=ecfg, tokenizer=args.tokenizer or tokenizer))
     dev = pd.rank_device(args.device, 0)
     pd.init_distributed(coordinator, world, 0, device=dev)
-    return pd.make_mesh(tp=args.tp, sp=args.sp), dev
+    return pd.make_mesh(tp=args.tp, sp=args.sp, ep=args.ep), dev
 
 
 async def _engine_backend(args):
@@ -545,8 +536,9 @@ async def _engine_backend(args):
         _BACKEND = router_backend(router)
         return _BACKEND
     mesh, device = _join_ranks(args, tokenizer)
-    log.info("starting PyTorch engine: model=%s slots=%d device=%s tp=%d "
-             "sp=%d", args.model, args.slots, device, args.tp, args.sp)
+    log.info("starting PyTorch engine: model=%s slots=%d device=%s mesh=%s",
+             args.model, args.slots, device,
+             None if mesh is None else mesh.shape)
     engine = InferenceEngine(engine_cfg=_engine_config(args),
                              tokenizer=tokenizer, device=device, mesh=mesh)
     spmd = engine._spmd

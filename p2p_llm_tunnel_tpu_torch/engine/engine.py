@@ -37,15 +37,18 @@ Burst n is dispatched before burst n-1's tokens are fetched: the fetch
 waits on a CUDA event recorded after burst n-1's device-to-host copy,
 while the card already runs burst n.
 
-Tensor and sequence parallelism (``tp``, ``sp``) run one process per
-rank (``parallel/``): the engine shards its params, KV cache and prefix
-pool to this rank's heads (the cache is replicated over sp), and in a
-multi-process run every device dispatch goes through ``_dispatch``, which
-on rank 0 first broadcasts the op and its host inputs
+Tensor, sequence, expert and data parallelism (``tp``, ``sp``, ``ep``
+and a mesh's ``dp``) run one process per rank (``parallel/``): the engine
+shards its params (heads under tp, experts under ep), KV cache and prefix
+pool to this rank's heads (the cache is replicated over sp and ep), and
+in a multi-process run every device dispatch goes through ``_dispatch``,
+which on rank 0 first broadcasts the op and its host inputs
 (``parallel/spmd_serve``); the other ranks run ``spmd_follower_loop`` and
 replay them — under sp each prefills its own sequence block of the wave
-and decodes its whole cache.  What this port does not run yet (``ep``)
-raises at construction; ROADMAP.md lists it in the port queue.
+and decodes its whole cache.  Under dp a rank's cache holds the rows of
+its own slots only: it decodes those, prefills the wave rows routed to
+them, and the sampled rows are gathered over dp; the prefix pool is
+replicated (``parallel/data_parallel``).
 """
 
 from __future__ import annotations
@@ -95,7 +98,6 @@ from p2p_llm_tunnel_tpu_torch.engine.tokenizer import (
 )
 from p2p_llm_tunnel_tpu_torch.models.config import ModelConfig, get_config
 from p2p_llm_tunnel_tpu_torch.models.transformer import (
-    NotPorted,
     chunk_prefill_into_cache,
     decode_step,
     encode_pooled,
@@ -108,6 +110,11 @@ from p2p_llm_tunnel_tpu_torch.models.transformer import (
 )
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.prefill_attention import plan_ragged_group
+from p2p_llm_tunnel_tpu_torch.parallel.data_parallel import (
+    SlotShard,
+    dp_copy_ops,
+    gather_rows,
+)
 from p2p_llm_tunnel_tpu_torch.protocol.frames import MAX_KV_PAGES_PER_XFER
 from p2p_llm_tunnel_tpu_torch.transport.chaos import maybe_spill_chaos
 from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox, global_flight
@@ -151,10 +158,10 @@ class EngineConfig:
     default: mux, prefix cache and conversation cache are off here and ON
     in the serve CLI, as in the reference.
 
-    Knobs the port does not run yet must stay at their off value
-    (``_UNPORTED``); construction raises otherwise.  ``tp`` or ``sp`` > 1
-    needs this process to be one rank of a joined run of ``tp * sp`` ranks
-    (``parallel/distributed``); ``sp_mode`` ("ring" | "ulysses") keeps its
+    ``tp``, ``sp`` or ``ep`` > 1 needs this process to be one rank of a
+    joined run of ``tp * sp * ep`` ranks (``parallel/distributed``), or of
+    the mesh handed to the engine (whose ``dp`` the CLI's ``--dp-dcn``
+    sets, as the reference's); ``sp_mode`` ("ring" | "ulysses") keeps its
     reference meaning and is promoted into the model config as there.
     ``flash_decode`` and
     ``flash_sgrid`` choose between XLA and Pallas on a TPU and choose
@@ -228,11 +235,6 @@ class EngineConfig:
     role: str = "both"
 
 
-#: knob -> (values that mean "off", ROADMAP.md port-queue item)
-_UNPORTED = {
-    "ep": ((1,), "18c, expert parallelism (--ep)"),
-}
-
 #: SPMD op name -> the engine method every rank runs for it with the op's
 #: host inputs (numpy arrays, Python scalars, SamplingParams); the pool
 #: copies (``copy_in``/``copy_out``) are wrapped closures instead.
@@ -247,12 +249,9 @@ _SPMD_OPS = {
 }
 
 
-def check_ported(ecfg: EngineConfig) -> None:
-    """Raise NotPorted naming the first knob set away from its off value."""
-    for knob, (off, item) in _UNPORTED.items():
-        val = getattr(ecfg, knob)
-        if val not in off:
-            raise NotPorted(f"EngineConfig.{knob}={val!r}", item)
+def _samp_rows(samp: sampling.SamplingParams, idx) -> sampling.SamplingParams:
+    """The sampling controls of rows ``idx`` (an index array or slice)."""
+    return sampling.SamplingParams(*(None if f is None else f[idx] for f in samp))
 
 
 @dataclass
@@ -331,7 +330,6 @@ class InferenceEngine:
         mesh=None,
     ):
         self.ecfg = engine_cfg or EngineConfig()
-        check_ported(self.ecfg)
         if self.ecfg.sp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_mode {self.ecfg.sp_mode!r}")
         if self.ecfg.dtype not in _DTYPES:
@@ -352,12 +350,14 @@ class InferenceEngine:
             # model_cfg is never reverted to ring.
             self.mcfg = dc_replace(self.mcfg, sp_mode=self.ecfg.sp_mode)
         dtype = _DTYPES[self.ecfg.dtype]
-        # Tensor / sequence parallelism: this process is one rank of a
-        # joined torch.distributed run (parallel/distributed).
-        if mesh is None and (self.ecfg.tp > 1 or self.ecfg.sp > 1):
+        # Tensor / sequence / expert parallelism: this process is one rank
+        # of a joined torch.distributed run (parallel/distributed); dp
+        # comes only with a mesh handed in (the CLI's --dp-dcn).
+        if mesh is None and (self.ecfg.tp > 1 or self.ecfg.sp > 1
+                             or self.ecfg.ep > 1):
             from p2p_llm_tunnel_tpu_torch.parallel.mesh import make_mesh
 
-            mesh = make_mesh(tp=self.ecfg.tp, sp=self.ecfg.sp)
+            mesh = make_mesh(tp=self.ecfg.tp, sp=self.ecfg.sp, ep=self.ecfg.ep)
         self.mesh = mesh
         # Multi-process SPMD serving: rank 0 broadcasts every dispatch's
         # host inputs, the other ranks replay them (spmd_follower_loop).
@@ -373,15 +373,19 @@ class InferenceEngine:
         # write into, so batched prefill never corrupts a live slot.
         rows = b + 1
         self._scratch_slot = b
-        # Under tp the cache holds this rank's kv heads: allocated at the
-        # shard's shape (the slot axis stays whole), never whole first.
-        cache_cfg = self.mcfg
+        # Under tp the cache holds this rank's kv heads, under dp the rows
+        # of its own slots: allocated at the shard's shape, never whole.
+        self._dp: Optional[SlotShard] = None
+        cache_cfg, cache_rows = self.mcfg, rows
         if mesh is not None:
             from p2p_llm_tunnel_tpu_torch.parallel.sharding import local_kv_heads
 
             cache_cfg = dc_replace(self.mcfg,
                                    n_kv_heads=local_kv_heads(self.mcfg, mesh))
-        self.kv_cache = init_kv_cache(cache_cfg, rows, s, dtype,
+            if mesh.dp > 1:
+                self._dp = SlotShard(mesh, rows, self._scratch_slot)
+                cache_rows = self._dp.n
+        self.kv_cache = init_kv_cache(cache_cfg, cache_rows, s, dtype,
                                       quant=self.ecfg.kv_quant,
                                       device=self.device)
         self.scheduler = Scheduler(
@@ -537,10 +541,14 @@ class InferenceEngine:
             self._publish_prefix_gauges()
             # Row-batched copies: one indexed copy per prefill_rows-wide
             # sub-batch, not per request.
+            packed = pool_packed_keys(self.kv_cache)
             self._copy_in, self._copy_out = make_batch_copy_ops(
                 blk, self._prefix_max_blocks, self.ecfg.prefill_rows,
-                packed_keys=pool_packed_keys(self.kv_cache),
+                packed_keys=packed,
             )
+            if self._dp is not None:
+                self._copy_in, self._copy_out = dp_copy_ops(
+                    self._dp, self._copy_in, blk, packed)
             if self._spmd is not None:
                 # Carries (cache, pool) are each rank's own; the index
                 # arrays are broadcast by rank 0.
@@ -628,8 +636,9 @@ class InferenceEngine:
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="engine-torch"
         )
-        # Per-slot OpenAI logit_bias plane [rows, V] (scratch row included).
-        self._bias = torch.zeros((rows, self.mcfg.vocab_size),
+        # Per-slot OpenAI logit_bias plane [rows, V] (scratch row included;
+        # under dp this rank's rows).
+        self._bias = torch.zeros((cache_rows, self.mcfg.vocab_size),
                                  dtype=torch.float32, device=self.device)
         # Device-side decode carry (created lazily).
         self._dev_tokens: Optional[torch.Tensor] = None
@@ -667,6 +676,12 @@ class InferenceEngine:
         positions >= max_seq write nothing.  Host inputs are numpy arrays
         (``_dispatch``)."""
         self._ensure_decode_carry()
+        # Logprobs are gathered over dp when any row of any rank wants them.
+        any_lp = bool((samp.logprobs > 0).any())
+        if self._dp is not None:  # this rank's slots only
+            ov_mask, ov_tok, ov_pos = (self._dp.rows(x)
+                                       for x in (ov_mask, ov_tok, ov_pos))
+            samp = _samp_rows(samp, slice(self._dp.lo, self._dp.hi))
         ov_mask, ov_tok, ov_pos = (self._host(ov_mask), self._host(ov_tok),
                                    self._host(ov_pos))
         b = ov_tok.shape[0]
@@ -680,7 +695,6 @@ class InferenceEngine:
             counts.masked_fill_(ov_mask[:, None], 0)
             counts.index_put_((rows, ov_tok.long()), ov_mask.to(counts.dtype),
                               accumulate=True)
-        any_lp = bool((samp.logprobs > 0).any())
         toks, lps = [], []
         for _ in range(steps):
             logits, _ = decode_step(
@@ -702,11 +716,25 @@ class InferenceEngine:
         if any_lp:
             lp_out = tuple(torch.stack([lp[j] for lp in lps], dim=1)
                            for j in range(3))  # [B, k], [B, k, W], [B, k, W]
-        return torch.stack(toks, dim=1), lp_out
+        toks = torch.stack(toks, dim=1)
+        if self._dp is not None:
+            toks = gather_rows(toks, self._dp)
+            if lp_out is not None:
+                lp_out = tuple(gather_rows(x, self._dp) for x in lp_out)
+        return toks, lp_out
 
     def _prefill_fn(self, tokens, lengths, slots, samp, echo=False):
         """Plain prefill of one wave into its slots (cache written IN
         PLACE) and the first sampled token per row."""
+        if self._dp is not None:
+            out = self._dp_wave(
+                slots, samp, tokens.shape[1] if echo else 0,
+                lambda i, loc, sub: self._prefill_rows(
+                    tokens[i], lengths[i], loc, sub, echo))
+            return out if echo else out + (None,)
+        return self._prefill_rows(tokens, lengths, slots, samp, echo)
+
+    def _prefill_rows(self, tokens, lengths, slots, samp, echo=False):
         tokens, lengths, slots = (self._host(tokens), self._host(lengths),
                                   self._host(slots))
         prompt_lps = None
@@ -724,6 +752,36 @@ class InferenceEngine:
         first, lp = self._sample_rows(last_logits, samp, lengths, slots)
         return first, lp, prompt_lps
 
+    def _dp_wave(self, slots, samp, echo_t: int, run):
+        """A wave under dp (``parallel/data_parallel``): this rank runs the
+        rows of its own slots, ``run(rows, their local slots, their
+        sampling controls)`` -> ``(first, lp[, prompt lps])``, and every
+        row's outputs are combined over dp: logprob data when any row of
+        the wave asked (zeros for the rows of a rank none of whose rows
+        did), prompt logprobs ``[nb, echo_t]`` with ``echo_t``."""
+        dp, nb = self._dp, len(slots)
+        idx = dp.route(slots)
+        want_lp = bool((samp.logprobs > 0).any())
+        out = (None, None, None)
+        if len(idx):
+            out = run(idx, dp.local(np.asarray(slots)[idx]), _samp_rows(samp, idx))
+            out = tuple(out) + (None,) * (3 - len(out))
+        dev, w = self.device, sampling.lp_width(self.mcfg.vocab_size)
+        first = dp.combine(out[0], idx, nb, torch.empty((0,), dtype=torch.int32,
+                                                         device=dev))
+        lp = None
+        if want_lp:
+            likes = (torch.empty((0,), dtype=torch.float32, device=dev),
+                     torch.empty((0, w), dtype=torch.int32, device=dev),
+                     torch.empty((0, w), dtype=torch.float32, device=dev))
+            lp = tuple(dp.combine(None if out[1] is None else out[1][j], idx,
+                                  nb, likes[j]) for j in range(3))
+        if not echo_t:
+            return first, lp
+        plp = dp.combine(out[2], idx, nb,
+                         torch.empty((0, echo_t), dtype=torch.float32, device=dev))
+        return first, lp, plp
+
     def _sample_rows(self, last_logits, samp, pos, slots):
         """First token per prefill row (rows are packed; each reads its
         SLOT's bias plane) and its logprob data when any row asked."""
@@ -739,6 +797,14 @@ class InferenceEngine:
         """Tail-only prefill against reused history KV (prefix-cache tails
         and chunked-prefill segments), cache written IN PLACE; attention
         reads ``cache[:kv_view]``."""
+        if self._dp is not None:
+            return self._dp_wave(
+                slots, samp, 0,
+                lambda i, loc, sub: self._chunk_rows(
+                    tokens[i], lengths[i], starts[i], loc, sub, kv_view))
+        return self._chunk_rows(tokens, lengths, starts, slots, samp, kv_view)
+
+    def _chunk_rows(self, tokens, lengths, starts, slots, samp, kv_view: int):
         tokens, lengths, starts, slots = (
             self._host(x) for x in (tokens, lengths, starts, slots))
         last_logits, _ = chunk_prefill_into_cache(
@@ -753,14 +819,48 @@ class InferenceEngine:
         segments in one ``ragged_prefill_attention`` launch per layer.
         ``sample_idx``/``samp_pos``/``slots`` are per ROW: each row's
         last-real-token logits sample exactly like the chunk path's."""
+        if self._dp is not None:
+            return self._dp_wave(
+                slots, samp, 0,
+                lambda i, loc, sub: self._ragged_rows(
+                    *self._replan_ragged(tokens, descs, sample_idx, samp_pos, i),
+                    loc, sub))
+        return self._ragged_rows(tokens, descs, sample_idx, samp_pos, slots, samp)
+
+    def _ragged_rows(self, tokens, descs, sample_idx, samp_pos, slots, samp):
         tokens, sample_idx, samp_pos, slots = (
             self._host(x) for x in (tokens, sample_idx, samp_pos, slots))
         descs = [self._host(x) for x in descs]
         last_logits, _ = ragged_prefill_into_cache(
             self._prefill_mcfg, self.params, tokens, *descs, sample_idx,
-            self.kv_cache, block_q=self._ragged_bq,
+            self.kv_cache, block_q=self._ragged_bq, mesh=self.mesh,
         )
         return self._sample_rows(last_logits, samp, samp_pos, slots)
+
+    def _replan_ragged(self, tokens, descs, sample_idx, samp_pos, rows):
+        """The ragged group of wave rows ``rows`` alone, planned as
+        ``_dispatch_ragged_rows`` plans a group (each row's tail at the next
+        q-block-aligned offset, no pad block, slots in this dp rank's
+        cache block): ``(tokens, descs, sample_idx, samp_pos)``."""
+        bq = self._ragged_bq
+        slot_of, start_of, _qoff, base_of = descs
+        entries, segs = [], []
+        for i in rows:
+            first = int(base_of[int(sample_idx[i]) // bq]) * bq
+            n = int(sample_idx[i]) - first + 1
+            entries.append((int(slot_of[first // bq]), int(start_of[first // bq]), n))
+            segs.append(tokens[first:first + n])
+        tot = sum(-(-n // bq) * bq for _s, _st, n in entries)
+        slot_of, start_of, qoff_of, _qlen, base_of, offs = plan_ragged_group(
+            [(s - self._dp.lo, st, n) for s, st, n in entries], bq, tot, 0,
+            max_row_blocks=self._ragged_row_blocks)
+        flat = np.zeros((tot,), np.int32)
+        for seg, off in zip(segs, offs):
+            flat[off:off + len(seg)] = seg
+        return (flat, [slot_of, start_of, qoff_of, base_of],
+                np.array([off + n - 1 for off, (_s, _st, n) in zip(offs, entries)],
+                         np.int64),
+                np.asarray(samp_pos)[rows])
 
     def _spec_verify_fn(self, tokens, positions, samp, kv_view: int):
         """One speculative step over every row: the carry token and k
@@ -771,7 +871,16 @@ class InferenceEngine:
         verifier's argmax at the first mismatch as the bonus token;
         stochastic rows accept nothing and sample position ``pos + 1`` from
         their own (seed, position) stream — a plain decode step.  Returns
-        (emitted ``[B, k+1]``, counts ``[B]``)."""
+        (emitted ``[B, k+1]``, counts ``[B]``); under dp a rank verifies
+        its own rows and both are gathered over dp."""
+        if self._dp is not None:
+            rows = slice(self._dp.lo, self._dp.hi)
+            emitted, counts = self._spec_rows(tokens[rows], positions[rows],
+                                              _samp_rows(samp, rows), kv_view)
+            return gather_rows(emitted, self._dp), gather_rows(counts, self._dp)
+        return self._spec_rows(tokens, positions, samp, kv_view)
+
+    def _spec_rows(self, tokens, positions, samp, kv_view: int):
         tokens, positions = self._host(tokens), self._host(positions)
         b, t = tokens.shape
         k = t - 1
@@ -1742,7 +1851,7 @@ class InferenceEngine:
     def _ensure_decode_carry(self) -> None:
         if self._dev_tokens is not None:
             return
-        rows = self.ecfg.num_slots + 1
+        rows = self.ecfg.num_slots + 1 if self._dp is None else self._dp.n
         self._dev_tokens = torch.zeros((rows,), dtype=torch.int32, device=self.device)
         self._dev_positions = torch.zeros((rows,), dtype=torch.int32, device=self.device)
         self._dev_counts = torch.zeros((rows, self.mcfg.vocab_size),
@@ -1765,7 +1874,12 @@ class InferenceEngine:
             self._slot_bias_on[i] = bool(lb)
 
     def _set_bias(self, row: int, ids: np.ndarray, vals: np.ndarray) -> None:
-        """Zero the slot's bias row, then add the request's entries."""
+        """Zero the slot's bias row, then add the request's entries (under
+        dp on the slot's rank only)."""
+        if self._dp is not None:
+            if not self._dp.lo <= row < self._dp.hi:
+                return
+            row -= self._dp.lo
         self._bias[row].zero_()
         if len(ids):
             self._bias[row].index_add_(0, self._host(ids), self._host(vals))
@@ -2575,10 +2689,13 @@ class InferenceEngine:
         reads it (``quant.kernel_layout``: rows padded to whole 16-byte
         pieces where they are not); on the card every contracted length
         and group size must pass ``model_fence``, which every even group
-        size does at real widths.  With a tp ``mesh`` the full tree is
-        built (or loaded, or injected) first and this rank keeps its shard
-        (``parallel/sharding.shard_params``, laid out per shard), as the
-        reference shards its tree onto the mesh."""
+        size does at real widths.  With a ``mesh`` a random bf16 tree is
+        drawn as this rank's shard alone (``init_params``: the slice of the
+        whole tree, which never exists on the rank — mixtral's experts at
+        ep); any other tree is built (or loaded, or injected) whole first
+        and this rank keeps its shard (``parallel/sharding.shard_params``,
+        laid out per shard), as the reference shards its tree onto the
+        mesh."""
         from p2p_llm_tunnel_tpu_torch.models import quant as q
         from p2p_llm_tunnel_tpu_torch.ops.quant_matmul import model_fence
 
@@ -2586,6 +2703,7 @@ class InferenceEngine:
         if mode not in ("none", "", "int8", "w8a8", "int4"):
             raise ValueError(f"unknown quant mode {mode!r}")
         gs = self.ecfg.quant_group_size
+        tp = mesh.tp if mesh is not None else 1
         if params is None and self.ecfg.ckpt_path:
             from p2p_llm_tunnel_tpu_torch.models.checkpoint import load_checkpoint
 
@@ -2608,7 +2726,8 @@ class InferenceEngine:
                 log.info("initialising random params for %s on %s",
                          self.mcfg.name, self.device)
                 params = init_params(self.mcfg, self.ecfg.seed, dtype,
-                                     self.device)
+                                     self.device, mesh=mesh)
+                mesh = None  # drawn as this rank's shard
         wq = params["blocks"]["wq"]
         if mode in ("int8", "w8a8"):
             if not isinstance(wq, q.QTensor):
@@ -2625,7 +2744,6 @@ class InferenceEngine:
                     "injected int4 tree uses group_size=%d; overriding "
                     "configured quant_group_size=%d", wq.group_size, gs)
                 self.ecfg = dc_replace(self.ecfg, quant_group_size=wq.group_size)
-        tp = mesh.tp if mesh is not None else 1
         why = model_fence(self.mcfg, mode, self.ecfg.quant_group_size, tp)
         if self.device.type == "cuda" and why is not None:
             raise ValueError(f"--quant {mode} on the card: {why}")

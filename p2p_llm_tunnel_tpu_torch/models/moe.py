@@ -10,8 +10,16 @@ reproduced exactly, at ``n_experts / n_experts_per_tok`` times the FLOPs
 of a routed gather (4x for mixtral's 8 experts, top 2).  The expert
 products are plain batched matrix products (``torch.einsum``), as the
 reference leaves them to XLA outside any Pallas kernel; a routed grouped
-GEMM is later work (ROADMAP.md).  The reference's ``moe_pspecs`` (the
-``ep`` mesh axis) belongs to the port's ``parallel/`` item and is not here.
+GEMM is later work (ROADMAP.md).
+
+Expert parallelism, as the reference's ``moe_pspecs`` sets it up
+(``parallel/sharding``): a rank of an ``ep`` mesh holds experts ``[e*E/ep,
+(e+1)*E/ep)`` and the whole router.  It routes over all E experts, runs
+only its own experts' SwiGLUs, contracts them against its slice of the
+router's weight map in f32, and sums that f32 partial over the ep ranks
+with one ``all_reduce`` before the cast — where the reference's GSPMD puts
+its psum (the f32 expert contraction).  Per-rank expert FLOPs and weight
+bytes fall by ep; a token's output is the same sum of its experts.
 
 Pad and parked rows are routed like any row (their outputs are dropped by
 the caller); the softmax over the experts' logits is finite for any finite
@@ -26,16 +34,16 @@ import torch
 
 
 def init_moe_blocks(cfg, dense: Callable) -> Dict[str, torch.Tensor]:
-    """MoE leaves for the stacked block tree.  ``dense(shape, fan_in)`` is
-    ``init_params``' initializer, so the experts follow the dense weights'
-    distribution.  Layout as the reference: router ``[L, Dm, E]``; experts
+    """MoE leaves for the stacked block tree.  ``dense(shape, fan_in, name)``
+    is ``init_params``' initializer, so the experts follow the dense
+    weights' distribution.  Layout as the reference: router ``[L, Dm, E]``; experts
     ``[L, E, Dm, F]`` (gate/up) and ``[L, E, F, Dm]`` (down)."""
     l, dm, f, e = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
     return {
-        "router": dense((l, dm, e), dm),
-        "moe_gate": dense((l, e, dm, f), dm),
-        "moe_up": dense((l, e, dm, f), dm),
-        "moe_down": dense((l, e, f, dm), f),
+        "router": dense((l, dm, e), dm, "router"),
+        "moe_gate": dense((l, e, dm, f), dm, "moe_gate"),
+        "moe_up": dense((l, e, dm, f), dm, "moe_up"),
+        "moe_down": dense((l, e, f, dm), f, "moe_down"),
     }
 
 
@@ -52,15 +60,26 @@ def route(cfg, router: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(probs).scatter_(-1, top_i, top_p)
 
 
-def moe_mlp(cfg, blk, h: torch.Tensor, act_fn: Callable) -> torch.Tensor:
+def moe_mlp(cfg, blk, h: torch.Tensor, act_fn: Callable,
+            mesh=None) -> torch.Tensor:
     """Routed MLP for one layer: ``h [B, T, Dm] -> [B, T, Dm]``.  ``blk``
-    holds this layer's slice (router ``[Dm, E]``, experts ``[E, ...]``).
-    Every expert's SwiGLU in ``h``'s dtype, the expert axis contracted last
-    in f32 against the router's weights, as the reference."""
+    holds this layer's slice (router ``[Dm, E]``, experts ``[E/ep, ...]``:
+    this rank's under an ep ``mesh``).  Every local expert's SwiGLU in
+    ``h``'s dtype, the expert axis contracted last in f32 against the
+    router's weights, as the reference; under ep the f32 partials are
+    summed over the ep ranks (a failed collective raises)."""
     weights = route(cfg, blk["router"], h)
+    ep = 1 if mesh is None else mesh.ep
+    if ep > 1:
+        n = cfg.n_experts // ep
+        weights = weights[..., mesh.ep_rank * n:(mesh.ep_rank + 1) * n]
     gate = torch.einsum("btd,edf->btef", h, blk["moe_gate"].to(h.dtype))
     up = torch.einsum("btd,edf->btef", h, blk["moe_up"].to(h.dtype))
     inner = act_fn(gate) * up  # [B, T, E, F]
     down = torch.einsum("btef,efd->bted", inner, blk["moe_down"].to(h.dtype))
     out = torch.einsum("bted,bte->btd", down.to(torch.float32), weights)
+    if ep > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(out, group=mesh.ep_group)
     return out.to(h.dtype)

@@ -53,10 +53,16 @@ Idiom differences from the JAX reference, all deliberate:
   reference's ``_prefill_attention_fn``.  The hidden states are gathered
   over sp before the final norm and the head, and each layer's K/V before
   it is written: the cache is replicated over sp (the reference's
-  ``kv_cache_pspecs`` has no sp axis), so decode is unchanged.
-
-Knobs of the reference the port does not run yet raise ``NotPorted`` (a
-NotImplementedError) naming their ROADMAP.md port-queue item.
+  ``kv_cache_pspecs`` has no sp axis), so decode is unchanged;
+- expert parallelism (a mesh with ep > 1): each rank holds ``E/ep`` of a
+  MoE layer's experts and ``moe_mlp`` sums their f32 partials over the ep
+  ranks; attention and the dense leaves are replicated over ep (sharded
+  on tp where tp > 1), and a dense model runs no ep collective;
+- data parallelism (a mesh with dp > 1): every function here is one
+  rank's view — it takes the rank's cache block (the rows of its own
+  slots, ``parallel/sharding.kv_cache_pspecs``) and rows of that block;
+  ``parallel/data_parallel`` routes a wave's rows to their owners and
+  gathers what they sample.
 """
 
 from __future__ import annotations
@@ -106,20 +112,6 @@ Params = Dict[str, object]
 KVCache = Dict[str, torch.Tensor]
 
 
-class NotPorted(NotImplementedError):
-    """A feature of the JAX package this port does not run yet; the message
-    names its ROADMAP.md port-queue item.  The serve layer answers it as a
-    typed upstream error."""
-
-    tunnel_code = "upstream"
-
-    def __init__(self, what: str, item: str):
-        super().__init__(
-            f"{what} is not ported to the PyTorch engine yet "
-            f"(ROADMAP.md, port queue: {item})"
-        )
-
-
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device; None means the card.  With no card and
     no explicit CPU request this raises — the port never carries on
@@ -135,18 +127,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_model(cfg: ModelConfig, mesh=None) -> None:
-    """A mesh (``parallel/mesh``) may shard on tp and sp only, and tp must
-    divide the query and kv heads."""
+    """tp must divide the query and kv heads, and ep a MoE model's experts
+    (a dense model replicates over ep)."""
     if mesh is None:
         return
-    from p2p_llm_tunnel_tpu_torch.parallel.mesh import UNPORTED_AXES
-
-    for axis, item in UNPORTED_AXES.items():
-        if mesh.shape[axis] > 1:
-            raise NotPorted(f"a mesh with {axis}={mesh.shape[axis]}", item)
     if cfg.n_heads % mesh.tp or cfg.n_kv_heads % mesh.tp:
         raise ValueError(f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads do "
                          f"not divide over tp={mesh.tp}")
+    if cfg.n_experts and cfg.n_experts % mesh.ep:
+        raise ValueError(f"{cfg.n_experts} experts do not divide over "
+                         f"ep={mesh.ep}")
 
 
 def _tp(mesh) -> int:
@@ -196,7 +186,8 @@ def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_params(
-    cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None
+    cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None,
+    mesh=None,
 ) -> Params:
     """Random init: truncated normal in [-2, 2] times fan_in**-0.5, the
     reference's shapes and scaling, drawn from a ``torch.Generator`` seeded
@@ -205,8 +196,14 @@ def init_params(
     MoE configs draw the router and expert leaves (``models/moe``) in
     place of the dense MLP's.  On the ``meta`` device it allocates nothing:
     the tree's shapes and dtypes, which ``load_checkpoint`` checks a file
-    against."""
-    _check_model(cfg)
+    against.
+
+    With a ``mesh`` (``parallel/mesh``) the tree is this rank's shard
+    (``parallel/sharding.param_pspecs``), bitwise the slice
+    ``shard_params`` cuts from the whole tree: every piece of the whole
+    tree is drawn in the same order, and only this rank's part of each is
+    kept — a model too large for one card never exists whole on one."""
+    _check_model(cfg, mesh)
     dev = resolve_device(device)
     gen = None
     if dev.type != "meta":
@@ -216,24 +213,46 @@ def init_params(
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads,
         cfg.head_dim, cfg.ffn_dim, cfg.vocab_size,
     )
+    specs: Dict[str, tuple] = {}
+    if mesh is not None:
+        from p2p_llm_tunnel_tpu_torch.parallel.sharding import param_pspecs
+
+        tree = param_pspecs(cfg)
+        specs = {**tree["blocks"], "embed": tree["embed"],
+                 "lm_head": tree.get("lm_head")}
 
     # Truncated normal on [-2, 2] by inverse CDF: u ~ U(Phi(-2), Phi(2)),
     # x = sqrt(2) * erfinv(2u - 1).
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 1.0 - lo
 
-    def dense(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=dev)
+    def block(axis_name, n):
+        """This rank's ``[start, stop)`` of an axis of size ``n``."""
+        parts = 1 if axis_name is None else mesh.shape[axis_name]
+        if n % parts:
+            raise ValueError(f"axis of size {n} does not divide over "
+                             f"{axis_name}={parts}")
+        w = n // parts
+        c = 0 if parts == 1 else mesh.coord(axis_name)
+        return c * w, (c + 1) * w
+
+    def dense(shape, fan_in, name):
+        spec = specs.get(name) or (None,) * len(shape)
+        ranges = [block(a, n) for a, n in zip(spec, shape)]
+        out = torch.empty([b - a for a, b in ranges], dtype=dtype, device=dev)
         if gen is None:  # the meta device: shapes and dtypes only
             return out
         # One layer at a time: the fp32 draw of a whole [L, ...] stack would
         # double the 8B model's peak memory (MoE experts: one expert).
-        pieces = (out.flatten(0, -3).unbind(0) if len(shape) >= 3 else (out,))
-        for piece in pieces:
-            tmp = torch.empty(piece.shape, dtype=torch.float32, device=dev)
+        lead = len(shape) - 2 if len(shape) >= 3 else 0
+        tail = tuple(slice(a, b) for a, b in ranges[lead:])
+        for idx in np.ndindex(*shape[:lead]):
+            tmp = torch.empty(shape[lead:], dtype=torch.float32, device=dev)
             tmp.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=gen)
-            tmp.erfinv_().mul_(math.sqrt(2.0) * fan_in**-0.5)
-            piece.copy_(tmp)
+            if all(a <= i < b for i, (a, b) in zip(idx, ranges)):
+                tmp.erfinv_().mul_(math.sqrt(2.0) * fan_in**-0.5)
+                out[tuple(i - a for i, (a, _) in zip(idx, ranges))].copy_(
+                    tmp[tail])
         return out
 
     def norm(shape):
@@ -243,33 +262,33 @@ def init_params(
     blocks = {
         "attn_norm": norm((l, dm)),
         "mlp_norm": norm((l, dm)),
-        "wq": dense((l, dm, h * hd), dm),
-        "wk": dense((l, dm, kh * hd), dm),
-        "wv": dense((l, dm, kh * hd), dm),
-        "wo": dense((l, h * hd, dm), h * hd),
+        "wq": dense((l, dm, h * hd), dm, "wq"),
+        "wk": dense((l, dm, kh * hd), dm, "wk"),
+        "wv": dense((l, dm, kh * hd), dm, "wv"),
+        "wo": dense((l, h * hd, dm), h * hd, "wo"),
     }
     if cfg.n_experts:
         blocks.update(init_moe_blocks(cfg, dense))
     else:
         blocks.update({
-            "w_gate": dense((l, dm, f), dm),
-            "w_up": dense((l, dm, f), dm),
-            "w_down": dense((l, f, dm), f),
+            "w_gate": dense((l, dm, f), dm, "w_gate"),
+            "w_up": dense((l, dm, f), dm, "w_up"),
+            "w_down": dense((l, f, dm), f, "w_down"),
         })
     if cfg.post_norms:
         blocks["post_attn_norm"] = torch.zeros((l, dm), dtype=dtype, device=dev)
         blocks["post_mlp_norm"] = torch.zeros((l, dm), dtype=dtype, device=dev)
     if cfg.attn_bias:
-        blocks["bq"] = dense((l, h * hd), dm)
-        blocks["bk"] = dense((l, kh * hd), dm)
-        blocks["bv"] = dense((l, kh * hd), dm)
+        blocks["bq"] = dense((l, h * hd), dm, "bq")
+        blocks["bk"] = dense((l, kh * hd), dm, "bk")
+        blocks["bv"] = dense((l, kh * hd), dm, "bv")
     params: Params = {
-        "embed": dense((v, dm), dm),
+        "embed": dense((v, dm), dm, "embed"),
         "blocks": blocks,
         "final_norm": norm((dm,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((dm, v), dm)
+        params["lm_head"] = dense((dm, v), dm, "lm_head")
     return params
 
 
@@ -404,9 +423,9 @@ def _act(cfg: ModelConfig, x):
     return F.silu(x)
 
 
-def _mlp(cfg: ModelConfig, blk, h):
+def _mlp(cfg: ModelConfig, blk, h, mesh=None):
     if cfg.n_experts:
-        return moe_mlp(cfg, blk, h, lambda x: _act(cfg, x))
+        return moe_mlp(cfg, blk, h, lambda x: _act(cfg, x), mesh)
     aq = cfg.act_quant
     gate = _act(cfg, mm(h, blk["w_gate"], aq)) * mm(h, blk["w_up"], aq)
     return mm(gate, blk["w_down"], aq)
@@ -450,13 +469,14 @@ def _block_tail(cfg: ModelConfig, blk, x, attn, mesh=None):
     """Output projection, residuals and the MLP half of one block.  Under
     tp the row-parallel ``wo`` and ``w_down`` products are partial sums
     over this rank's heads / FFN slice, summed across ranks before the
-    residual; MoE experts are replicated, so their output is whole."""
+    residual; MoE experts are replicated over tp and summed over ep inside
+    ``moe_mlp``."""
     b, t = x.shape[:2]
     attn = _psum(mm(attn.reshape(b, t, -1), blk["wo"], cfg.act_quant), mesh)
     if cfg.post_norms:
         attn = _norm(cfg, attn, blk["post_attn_norm"])
     x = x + attn
-    mlp = _mlp(cfg, blk, _norm(cfg, x, blk["mlp_norm"]))
+    mlp = _mlp(cfg, blk, _norm(cfg, x, blk["mlp_norm"]), mesh)
     if not cfg.n_experts:
         mlp = _psum(mlp, mesh)
     if cfg.post_norms:
@@ -863,7 +883,7 @@ def spec_verify_into_cache(
             softcap=cfg.attn_softcap, window=_layer_window(cfg, idx, s),
             rope=rope,
         )
-        x = _block_tail(cfg, blk, x, attn)
+        x = _block_tail(cfg, blk, x, attn, mesh)
     x = _norm(cfg, x, params["final_norm"])
     return _logits(cfg, params, x), kv_cache
 
@@ -877,6 +897,7 @@ def ragged_prefill_into_cache(
     kv_cache: KVCache,
     block_q: int,
     return_all_logits: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Ragged GROUPED prefill: one ``ragged_prefill_attention`` launch per
     layer for a whole group of variable-length tails (the ragged twin of
@@ -891,8 +912,11 @@ def ragged_prefill_into_cache(
     ``[TOT, V]`` with ``return_all_logits``) and the updated cache.  A
     quantized cache's scale planes ride along: the kernel quantizes each
     appended row and writes its scale beside it.  It does not run under tp
-    (the engine fences ``ragged_prefill`` there, as the reference)."""
-    _check_model(cfg)
+    (the engine fences ``ragged_prefill`` there, as the reference); a
+    ``mesh`` carries ep's expert sum."""
+    if mesh is not None and mesh.tp > 1:
+        raise ValueError("ragged_prefill_into_cache does not run under tp")
+    _check_model(cfg, mesh)
     descs = (slot_of, start_of, qoff_of, base_of)
     s = _seq_len(kv_cache)
     x = _embed(cfg, params, tokens[None])  # [1, TOT, Dm]
@@ -907,7 +931,7 @@ def ragged_prefill_into_cache(
             scale=cfg.query_scale, softcap=cfg.attn_softcap,
             window=_layer_window(cfg, idx, s),
         )
-        x = _block_tail(cfg, blk, x, attn[None])
+        x = _block_tail(cfg, blk, x, attn[None], mesh)
     if return_all_logits:
         return _logits(cfg, params, _norm(cfg, x, params["final_norm"]))[0], kv_cache
     rows = x[0][sample_idx.to(torch.long)][None]  # [1, R, Dm]
@@ -966,7 +990,7 @@ def decode_step(
                 softcap=cfg.attn_softcap, window=_layer_window(cfg, idx, s),
                 rope=rope,
             )
-            x = _block_tail(cfg, blk, x, attn[:, None])
+            x = _block_tail(cfg, blk, x, attn[:, None], mesh)
         x = _norm(cfg, x, params["final_norm"])
         return _logits(cfg, params, x)[:, 0], kv_cache
     pos2d = positions[:, None]

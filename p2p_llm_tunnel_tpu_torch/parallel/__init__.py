@@ -14,7 +14,9 @@ run on the CPU).
 Axes convention (the reference's): ``dp`` data parallel, ``ep`` expert
 parallel, ``tp`` tensor parallel (megatron column/row split of attention
 and MLP), ``sp`` sequence parallel (prefill over sequence blocks: ring or
-Ulysses attention).  ``tp`` and ``sp`` are ported; the pipeline
+Ulysses attention).  Every axis is ported (the ep sum lives in
+``models/moe``, the dp split of the engine's slots in
+``parallel/data_parallel``); the pipeline
 (``make_pp_mesh``, ``pipeline_prefill``, ``pipeline_loss_fn``,
 ``shard_params_pp``) comes with a later slice (ROADMAP.md item 18e).
 """

@@ -3,12 +3,13 @@
 
 A JAX multi-host run is N identical processes that each call
 ``jax.distributed.initialize`` and then see the global device set.  The
-port runs one process per rank for EVERY tensor- or sequence-parallel run
-— ``serve --tp N --sp M`` on one host as much as ``--coordinator`` across
-hosts — joined by ``torch.distributed``: rank 0 owns the tunnel and the
-scheduler, every other rank replays rank 0's dispatches
-(``parallel/spmd_serve``), and the tp collectives and the sp exchanges
-(``parallel/collectives``) run in the model.
+port runs one process per rank for EVERY tensor-, sequence-, expert- or
+data-parallel run — ``serve --tp N --sp M --ep E`` on one host as much as
+``--coordinator`` across hosts — joined by ``torch.distributed``: rank 0
+owns the tunnel and the scheduler, every other rank replays rank 0's
+dispatches (``parallel/spmd_serve``), the tp collectives, the sp exchanges
+(``parallel/collectives``) and the ep sum run in the model, and the dp
+ranks each serve their own slots (``parallel/data_parallel``).
 
 The backend rule, printed at every join: ``nccl`` when every rank of this
 host has a card of its own (``cuda:(local_rank % device_count)``),
@@ -22,9 +23,10 @@ Usage (same command on every host; rank 0 serves the tunnel):
     tunnel-gpu serve --backend gpu --model llama3-8b --tp 2 \\
         --coordinator host0:8476 --num-processes 2 --process-id $RANK
 
-On one host, ``tunnel-gpu serve --backend gpu --tp 2 --sp 2`` needs no
-more flags: ``launch_local_followers`` starts ranks 1..tp*sp-1 as
-processes of this host before rank 0 joins.
+On one host, ``tunnel-gpu serve --backend gpu --tp 2 --sp 2 --ep 2`` needs
+no more flags: ``launch_local_followers`` starts ranks 1..tp*sp*ep-1 as
+processes of this host before rank 0 joins.  ``--dp-dcn D`` takes
+``--coordinator`` with ``--num-processes D*ep*tp*sp``.
 """
 
 from __future__ import annotations
@@ -38,8 +40,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
-from p2p_llm_tunnel_tpu_torch.parallel.mesh import UNPORTED_AXES, Mesh, make_mesh
+from p2p_llm_tunnel_tpu_torch.parallel.mesh import Mesh, make_mesh
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -154,12 +155,13 @@ def shutdown_distributed() -> None:
 
 def make_hybrid_mesh(tp: int = 1, dp_dcn: int = 1, sp: int = 1,
                      ep: int = 1) -> Mesh:
-    """The reference's DCN-aware mesh: dp across hosts, tp/sp/ep inside a
-    host.  Only ``dp_dcn == 1`` is ported: the mesh is then the joined
-    world's flat ``tp x sp`` mesh (``make_mesh``)."""
-    if dp_dcn != 1:
-        raise NotPorted(f"--dp-dcn {dp_dcn}", UNPORTED_AXES["dp"])
-    return make_mesh(tp=tp, dp=1, sp=sp, ep=ep)
+    """The reference's DCN-aware mesh of the joined world: ``dp_dcn`` across
+    hosts, ``ep x sp x tp`` inside one.  Processes are dp-outermost, as
+    ``create_hybrid_device_mesh`` lays hosts out, so the ranks of one
+    ``ep x sp x tp`` block are consecutive — one host's processes when each
+    host runs that many — and only the dp gather of sampled rows crosses
+    hosts."""
+    return make_mesh(tp=tp, dp=dp_dcn, sp=sp, ep=ep)
 
 
 @dataclass

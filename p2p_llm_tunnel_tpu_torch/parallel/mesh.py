@@ -6,11 +6,10 @@ a small value: the axis sizes, this rank's coordinates and the process
 group of each axis that spans more than one rank.  The axes and their
 layout are the reference's: axis names ``(dp, ep, tp, sp)``, ranks laid
 out as ``(dp, ep, sp, tp)`` with ``tp`` fastest, so rank ``r``'s tp
-coordinate is ``r % tp`` and its sp coordinate ``(r // tp) % sp`` — the tp
-ranks of one host are neighbours.
-
-``tp`` and ``sp`` may exceed 1; ``ep`` and ``dp`` raise ``NotPorted``
-naming their ROADMAP.md items.
+coordinate is ``r % tp``, its sp coordinate ``(r // tp) % sp``, its ep
+coordinate ``(r // (tp * sp)) % ep`` and its dp coordinate
+``r // (tp * sp * ep)`` — the tp ranks of one host are neighbours and dp
+is outermost (across hosts).
 """
 
 from __future__ import annotations
@@ -18,26 +17,23 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
-
 AXES = ("dp", "ep", "tp", "sp")
 
-#: Mesh axes the port does not shard over yet -> their ROADMAP.md items.
-UNPORTED_AXES = {
-    "ep": "18c, expert parallelism (--ep)",
-    "dp": "18d, data parallelism across hosts (--dp-dcn > 1)",
-}
+#: The rank layout, slowest axis first (JAX's ``reshape(dp, ep, sp, tp)``).
+LAYOUT = ("dp", "ep", "sp", "tp")
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Axis sizes, this rank's place on them and its process groups.
 
-    ``tp_group`` is the ``torch.distributed`` group the tensor-parallel
-    collectives run over (the ranks that share this rank's sp coordinate),
-    ``sp_group`` the one the sequence-parallel exchanges run over (the
-    ranks that share every coordinate but sp).  Both are None on a mesh
-    built only to slice weights for a given rank."""
+    Each ``<axis>_group`` is the ``torch.distributed`` group of the ranks
+    that share every coordinate but that axis: ``tp_group`` carries the
+    tensor-parallel collectives, ``sp_group`` the sequence-parallel
+    exchanges, ``ep_group`` the expert-parallel sum of the MoE block and
+    ``dp_group`` the gather of each rank's sampled rows.  A group is None
+    where its axis has size 1, and every group is None on a mesh built
+    only to slice weights for a given rank."""
 
     tp: int = 1
     dp: int = 1
@@ -46,6 +42,8 @@ class Mesh:
     rank: int = 0
     tp_group: Any = field(default=None, compare=False)
     sp_group: Any = field(default=None, compare=False)
+    ep_group: Any = field(default=None, compare=False)
+    dp_group: Any = field(default=None, compare=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -59,44 +57,74 @@ class Mesh:
     def size(self) -> int:
         return self.dp * self.ep * self.tp * self.sp
 
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return coords(self.shape, self.rank)[axis]
+
     @property
     def tp_rank(self) -> int:
         """This rank's coordinate on the tp axis (tp varies fastest)."""
-        return self.rank % self.tp
+        return self.coord("tp")
 
     @property
     def sp_rank(self) -> int:
         """This rank's coordinate on the sp axis (next after tp)."""
-        return (self.rank // self.tp) % self.sp
+        return self.coord("sp")
+
+    @property
+    def ep_rank(self) -> int:
+        """This rank's coordinate on the ep axis (next after sp)."""
+        return self.coord("ep")
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's coordinate on the dp axis (outermost)."""
+        return self.coord("dp")
 
 
-def _refuse_unported(**sizes: int) -> None:
-    for axis, n in sizes.items():
-        if n > 1:
-            raise NotPorted(f"a mesh with {axis}={n}", UNPORTED_AXES[axis])
+def coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis of a mesh of ``shape``."""
+    out = {}
+    for axis in reversed(LAYOUT):
+        out[axis] = rank % shape[axis]
+        rank //= shape[axis]
+    return out
 
 
-def _join_groups(tp: int, sp: int, rank: int):
-    """This rank's (tp group, sp group) of the joined world: a tp group
-    holds the ranks of one sp coordinate, an sp group the ranks of one tp
-    coordinate.  An axis that spans the whole world is ``WORLD``; otherwise
-    every rank creates every group of both axes, in the same order
-    (``new_group`` is collective over the world: a rank that skipped one
-    would hang the others)."""
+def axis_groups(shape: Dict[str, int], axis: str):
+    """Every group of ``axis``: the lists of ranks that share every other
+    coordinate, each in ``axis`` order, in a fixed order."""
+    n = 1
+    for a in AXES:
+        n *= shape[a]
+    groups: Dict[Tuple[int, ...], list] = {}
+    for r in range(n):
+        c = coords(shape, r)
+        groups.setdefault(tuple(c[a] for a in LAYOUT if a != axis), []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+def _join_groups(shape: Dict[str, int], rank: int) -> Dict[str, Any]:
+    """This rank's group of each axis of the joined world (None where the
+    axis has size 1).  An axis that spans the whole world is ``WORLD``;
+    otherwise every rank creates every group of every axis, in one fixed
+    order (``new_group`` is collective over the world: a rank that skipped
+    one would hang the others)."""
     import torch.distributed as dist
 
-    if tp == 1 or sp == 1:
-        world = dist.group.WORLD
-        return (world if tp > 1 else None), (world if sp > 1 else None)
-    mine = {}
-    for name, groups in (
-            ("tp", [[s * tp + t for t in range(tp)] for s in range(sp)]),
-            ("sp", [[s * tp + t for s in range(sp)] for t in range(tp)])):
-        for ranks in groups:
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                mine[name] = group
-    return mine["tp"], mine["sp"]
+    world = dist.get_world_size()
+    mine: Dict[str, Any] = {}
+    for axis in ("tp", "sp", "ep", "dp"):
+        if shape[axis] == 1:
+            mine[axis] = None
+        elif shape[axis] == world:
+            mine[axis] = dist.group.WORLD
+        else:
+            for ranks in axis_groups(shape, axis):
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[axis] = group
+    return mine
 
 
 def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
@@ -105,15 +133,15 @@ def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
 
     With ``rank`` None the mesh is this process's place in the joined
     ``torch.distributed`` world (``parallel/distributed.init_distributed``),
-    with its tp and sp groups; a mesh of more than one rank outside a
+    with its group of each axis; a mesh of more than one rank outside a
     joined world of enough ranks raises.  An explicit ``rank`` builds the
     value without a world (slicing weights for that rank; no collective)."""
-    for name, n in (("tp", tp), ("dp", dp), ("sp", sp), ("ep", ep)):
+    shape = {"dp": dp, "ep": ep, "tp": tp, "sp": sp}
+    for name, n in shape.items():
         if n < 1:
             raise ValueError(f"mesh axis {name} must be >= 1, got {n}")
-    _refuse_unported(ep=ep, dp=dp)
     n = dp * ep * tp * sp
-    tp_group = sp_group = None
+    groups: Dict[str, Any] = {}
     joined = rank is None
     if joined:
         import torch.distributed as dist
@@ -128,9 +156,9 @@ def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
     if not 0 <= rank < n:
         raise ValueError(f"rank {rank} is outside a mesh of {n} ranks")
     if joined and n > 1:
-        tp_group, sp_group = _join_groups(tp, sp, rank)
-    return Mesh(tp=tp, dp=dp, sp=sp, ep=ep, rank=rank, tp_group=tp_group,
-                sp_group=sp_group)
+        groups = _join_groups(shape, rank)
+    return Mesh(tp=tp, dp=dp, sp=sp, ep=ep, rank=rank,
+                **{f"{a}_group": g for a, g in groups.items()})
 
 
 def best_tp(n_kv_heads: int, n_ranks: int) -> Tuple[int, int]:
@@ -146,7 +174,7 @@ def best_tp(n_kv_heads: int, n_ranks: int) -> Tuple[int, int]:
 
 def best_mesh(n_kv_heads: int, n_ranks: Optional[int] = None) -> Mesh:
     """Mesh of every rank of the joined world (``n_ranks``), tp capped by
-    the kv-head count (``best_tp``); a leftover dp > 1 raises NotPorted."""
+    the kv-head count (``best_tp``), the ranks left over data parallel."""
     if n_ranks is None:
         import torch.distributed as dist
 

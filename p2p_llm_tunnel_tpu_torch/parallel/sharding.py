@@ -1,5 +1,5 @@
-"""Tensor-parallel sharding rules for the stacked-layer params tree and the
-KV cache (port of p2p_llm_tunnel_tpu/parallel/sharding.py).
+"""Sharding rules for the stacked-layer params tree and the KV cache (port
+of p2p_llm_tunnel_tpu/parallel/sharding.py).
 
 The spec table is the reference's, as tuples of axis names (``None`` =
 replicated along that axis):
@@ -13,9 +13,12 @@ replicated along that axis):
 - ``embed [V, Dm]`` and ``lm_head [Dm, V]`` shard on vocab: a masked
   lookup plus an ``all_reduce``, and vocab-sharded logits gathered to full
   width before sampling;
-- norms replicate; MoE leaves shard only on ``ep`` (replicated under tp);
+- norms replicate; MoE experts shard their expert axis on ``ep`` (a rank
+  holds experts ``[e*E/ep, (e+1)*E/ep)``, replicated under tp), the router
+  replicates; every other leaf replicates over ep and dp;
 - the KV cache ``[L, B, S, K, D]`` and its ``[L, B, S, K]`` scale planes
-  shard the kv-head axis.
+  shard the kv-head axis on tp and the slot axis on dp (a rank holds the
+  rows of its own slots).
 
 Where JAX places a tree on the mesh (``jax.device_put``), the port slices
 this rank's shard out of a full tree (``shard_params``), or out of the
@@ -25,8 +28,8 @@ int8 scale takes the weight's spec minus the contracted axis (replicated
 for a row-parallel weight), an int4 scale the weight's spec verbatim —
 and a row-parallel int4 weight's K/tp must be a whole number of groups.
 Each shard is then laid out as kernel 7 reads it (``quant.kernel_layout``)
-at its own N and K.  A sharded axis must divide by tp, as JAX's
-``device_put`` requires.
+at its own N and K.  A sharded axis must divide by its mesh axis, as
+JAX's ``device_put`` requires.
 """
 
 from __future__ import annotations
@@ -141,21 +144,22 @@ def kv_cache_pspecs(kv_cache: Optional[dict] = None) -> Dict[str, Spec]:
 
 def _shard(x, spec: Spec, mesh: Mesh, what: str):
     """This rank's block of ``x`` (a numpy array or a tensor) under
-    ``spec``: the ``tp`` axis cut into ``mesh.tp`` equal blocks; every
-    other axis of this port's meshes has size 1."""
+    ``spec``: each axis named ``tp``, ``ep``, ``dp`` or ``sp`` cut into that
+    mesh axis's size of equal blocks, this rank's coordinate picking one."""
     idx = []
     for axis, name in enumerate(spec):
-        if name != "tp" or mesh.tp == 1:
+        parts = 1 if name is None else mesh.shape[name]
+        if parts == 1:
             idx.append(slice(None))
             continue
         n = x.shape[axis]
-        if n % mesh.tp:
+        if n % parts:
             raise ValueError(
                 f"{what} {tuple(x.shape)}: axis {axis} of size {n} does not "
-                f"divide over tp={mesh.tp}"
+                f"divide over {name}={parts}"
             )
-        w = n // mesh.tp
-        idx.append(slice(mesh.tp_rank * w, (mesh.tp_rank + 1) * w))
+        w, c = n // parts, mesh.coord(name)
+        idx.append(slice(c * w, (c + 1) * w))
     out = x[tuple(idx)]
     if isinstance(out, np.ndarray):
         return np.ascontiguousarray(out)
@@ -239,8 +243,8 @@ def params_from_numpy_sharded(tree, cfg: ModelConfig, mesh: Mesh, device,
 
 
 def shard_kv_cache(kv_cache: dict, mesh: Mesh) -> dict:
-    """This rank's kv heads of a full cache (or prefix pool: its leaves put
-    the kv-head axis in the same place)."""
+    """This rank's block of a full cache: its kv heads under tp, its slots'
+    rows under dp (``kv_cache_pspecs``)."""
     specs = kv_cache_pspecs(kv_cache)
     return {name: _shard(leaf, specs[name], mesh, name)
             for name, leaf in kv_cache.items()}

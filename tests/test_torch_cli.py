@@ -1,7 +1,7 @@
 """The port's ``tunnel-gpu`` CLI: serve flags map onto the engine config
-with the JAX serve CLI's defaults, flags of features the port does not
-run yet (``--ep``, ``--dp-dcn`` above 1) are rejected with their
-ROADMAP.md port-queue item, and ``serve --backend gpu --device cpu``
+with the JAX serve CLI's defaults (``--ep`` and ``--dp-dcn`` included,
+with the rank count a ``--coordinator`` run must have), and ``serve
+--backend gpu --device cpu``
 brings up a working engine backend (on the CPU, as the tests run) — also
 at ``--tp 2``, where this process is rank 0 and starts rank 1 itself, and
 with ``--coordinator``, where every rank runs the CLI (two spawned gloo
@@ -109,19 +109,26 @@ def test_spill_snapshot_and_role_flags_reach_the_engine_config(
     (["--dp-dcn", "2"], "18d"),
 ])
 def test_unported_flags_exit_with_their_queue_item(extra, item):
+    """Items 18b, 18c and 18d are ported: --sp, --sp-mode, --ep and
+    --dp-dcn reach the engine config (and the mesh flags) as in the JAX
+    CLI, and a --coordinator run must count every rank of the mesh they
+    make."""
     args = cli.build_parser().parse_args(SERVE + extra)
-    if item == "18b":
-        # Item 18b is ported: --sp and --sp-mode reach the engine config
-        # as in the JAX CLI.
-        jargs = j_cli.build_parser().parse_args(
-            ["serve", "--backend", "tpu", "--room", "r"] + extra)
-        ecfg = cli._engine_config(args)
-        assert (ecfg.sp, ecfg.sp_mode) == (jargs.sp, jargs.sp_mode)
-        assert ecfg.sp == 2
-        return
-    with pytest.raises(SystemExit) as exc:
-        cli._engine_config(args)
-    assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
+    jargs = j_cli.build_parser().parse_args(
+        ["serve", "--backend", "tpu", "--room", "r"] + extra)
+    ecfg = cli._engine_config(args)
+    assert (ecfg.sp, ecfg.sp_mode, ecfg.ep) == (jargs.sp, jargs.sp_mode, jargs.ep)
+    assert args.dp_dcn == jargs.dp_dcn
+    assert ecfg.sp * ecfg.ep * args.dp_dcn == 2
+    bad = cli.build_parser().parse_args(
+        SERVE + extra + ["--coordinator", "h:1", "--num-processes", "1",
+                         "--process-id", "0"])
+    with pytest.raises(SystemExit, match="must equal --tp 1 x --sp"):
+        cli._engine_config(bad)
+    ok = cli.build_parser().parse_args(
+        SERVE + extra + ["--coordinator", "h:1", "--num-processes", "2",
+                         "--process-id", "0"])
+    assert cli._engine_config(ok) == ecfg
 
 
 def test_ckpt_flag_reaches_the_engine_config(monkeypatch):
@@ -331,7 +338,7 @@ def test_tp_sp_on_one_host_starts_tp_times_sp_ranks(monkeypatch):
     monkeypatch.setattr(cli, "_FOLLOWERS", None)
     args = cli.build_parser().parse_args(SERVE + ["--tp", "2", "--sp", "2"])
     mesh, _ = cli._join_ranks(args, None)
-    assert mesh == {"tp": 2, "sp": 2} and seen["n"] == 4
+    assert mesh == {"tp": 2, "sp": 2, "ep": 1} and seen["n"] == 4
     assert [(s.rank, s.world) for s in seen["specs"]] == [(1, 4), (2, 4), (3, 4)]
     assert all((s.engine_cfg.tp, s.engine_cfg.sp) == (2, 2) for s in seen["specs"])
     assert seen["join"][1:3] == (4, 0) and cli._FOLLOWERS == "followers"

@@ -38,7 +38,6 @@ from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
 from p2p_llm_tunnel_tpu_torch.engine.engine import (
     EngineConfig,
     InferenceEngine,
-    NotPorted,
 )
 from p2p_llm_tunnel_tpu.engine import tokenizer as j_tokenizer
 from p2p_llm_tunnel_tpu_torch.engine import tokenizer as t_tokenizer
@@ -163,7 +162,8 @@ def test_generate_matches_jax_with_logprobs(weights):
 
 
 def test_construction_guards():
-    with pytest.raises(NotPorted, match="ROADMAP"):
+    # ep is ported: one rank of a joined run each, as tp and sp.
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         InferenceEngine(engine_cfg=EngineConfig(**ENGINE, ep=2), device="cpu")
     # tp is ported: one rank of a joined run each (none joined here).
     with pytest.raises(ValueError, match="needs 2 ranks"):

@@ -21,6 +21,12 @@ row per slot) and the fused verify layer (kernel 5) share, on the CPU:
   of a group exactly once, for the chip smoke test's serving group and for
   groups planned at the engine's buckets, from a grid computed without the
   descriptors; its shared memory fits at every head dim;
+- under ``--dp-dcn 2`` each rank launches kernels 2, 4 and 6 at its own
+  slot count (8 of the 16 cache rows of 15 slots + the scratch row):
+  kernel 2's and kernel 4's splits, workspaces and arrival counters at
+  that count (counters of their own, zeroed), and kernel 6 over the group
+  a rank re-plans from its rows of a wave (no pad block, each row's tokens
+  and history start unchanged, slots in its cache block);
 - kernel 7's launch plan: the decode plan's 32 x 128 tile for a decode
   step (17 rows, one tile) and every verify burst, the prefill plan's
   128 x 256 tile above 160 rows; at every llama3-8b projection and the
@@ -167,6 +173,81 @@ def test_kernel2_group_limits():
     pos = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="H/K <= 8"):
         da._check(q, kc, kc, None, None, pos, None, max_group=da._PLANE_MAX_GROUP)
+
+
+# -- kernels 2, 4 and 6 at a dp rank's slot count ----------------------------
+
+#: A dp 2 rank's cache rows: 15 slots + the scratch row over two ranks.
+DP_ROWS = 8
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("t", [1, 5])  # kernel 2/4 (one row a slot), kernel 5
+def test_split_kv_plans_at_a_dp_ranks_slot_count(preset, t):
+    cfg = get_config(preset)
+    kh, d = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kh
+    dev = torch.device("cpu")
+    for view in (64, 128, 512, 1024):
+        nsplit, keys, part_acc, part_ml, arrivals = fd.split_kv_workspace(
+            dev, DP_ROWS, kh, t, g, d, view)
+        assert (nsplit, keys) == fd.kv_splits(view, DP_ROWS, kh)
+        assert keys % 64 == 0 and nsplit * keys >= view > (nsplit - 1) * keys
+        assert nsplit <= fd.MAX_SPLITS
+        rows = t * g
+        parts = DP_ROWS * kh * nsplit * fd._key_slices(-(-rows // 16)) * rows
+        assert part_acc.numel() == parts * d and part_ml.numel() == parts * 2
+        assert tuple(arrivals.shape) == (DP_ROWS * kh,) and not arrivals.any()
+    # The dp rank's counters are its own, not those of a 17-row launch.
+    *_, whole = fd.split_kv_workspace(dev, 17, kh, t, g, d, 512)
+    assert whole is not arrivals and tuple(whole.shape) == (17 * kh,)
+
+
+def test_kernel4_splits_at_a_dp_ranks_slot_count():
+    """Half the slots, the same card: the split count doubles (eight
+    64-key splits at view 512, 512 blocks against 17 rows' 544), so a dp
+    rank's launch still fills the card."""
+    assert fd.kv_splits(512, DP_ROWS, 8) == (8, 64)
+    assert fd.kv_splits(512, 17, 8) == (4, 128)
+
+
+@pytest.mark.parametrize("d", _SUPPORTED_D)
+@pytest.mark.parametrize("dp_rank", [0, 1])
+def test_kernel6_tiles_cover_a_dp_ranks_replanned_group(d, dp_rank):
+    import types
+
+    import numpy as np
+
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.parallel.data_parallel import SlotShard
+    from p2p_llm_tunnel_tpu_torch.parallel.mesh import Mesh
+
+    # The serving group's rows on slots 3, 9, 0, 14, 5, 11, 8, 2 of 15.
+    slots = [3, 9, 0, 14, 5, 11, 8, 2]
+    entries = [(s, st, ln) for s, (st, ln) in zip(slots, RAGGED_ROWS)]
+    full = pa.plan_ragged_group(entries, 16, 1024, scratch_slot=15)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, 500, 1024).astype(np.int32)
+    sample_idx = np.array([off + ln - 1 for off, (_s, _st, ln)
+                           in zip(full[5], entries)])
+    samp_pos = np.array([st + ln for _s, st, ln in entries], np.int32)
+    shard = SlotShard(Mesh(dp=2, rank=dp_rank), 16, scratch=15)
+    eng = types.SimpleNamespace(_ragged_bq=16, _dp=shard, _ragged_row_blocks=8)
+    rows = shard.route(slots)
+    flat, descs, s_idx, s_pos = InferenceEngine._replan_ragged(
+        eng, tokens, [full[0], full[1], full[2], full[4]], sample_idx, samp_pos,
+        rows)
+    slot_of, start_of, qoff_of, base_of = descs
+    assert not (slot_of == 15 - shard.lo).any()  # no pad block
+    assert len(flat) == sum(-(-entries[i][2] // 16) * 16 for i in rows)
+    for j, i in enumerate(rows):
+        s, st, ln = entries[i]
+        first = int(s_idx[j]) - ln + 1
+        assert (flat[first:first + ln] == tokens[full[5][i]:full[5][i] + ln]).all()
+        assert slot_of[first // 16] == s - shard.lo
+        assert start_of[first // 16] == st and s_pos[j] == st + ln
+    plan = (slot_of, start_of, qoff_of, None, base_of, None)
+    _covered(plan, d, 4, 8, 16)
 
 
 # -- kernel 6: query tiles over the 16-token q-blocks ------------------------

@@ -3,8 +3,9 @@ against the JAX package's, on the CPU.
 
 - Mesh rules: the axes, the rank -> tp coordinate map, ``best_mesh``'s
   rule (``best_tp`` against the JAX ``best_mesh`` on the 8 virtual CPU
-  devices of conftest.py), and the axes the port does not shard over yet
-  refusing with their ROADMAP.md items.
+  devices of conftest.py, the leftover ranks data parallel), and every
+  axis building its mesh for a given rank and refusing outside a joined
+  world of enough ranks.
 - Sharding rules: ``param_pspecs`` and ``kv_cache_pspecs`` equal JAX's
   leaf by leaf, as axis names, for dense, tied-head, ``attn_bias``,
   post-norm, MoE, int8 and int4 trees; and each rank's slice of a tree
@@ -12,8 +13,8 @@ against the JAX package's, on the CPU.
   ``shard_params`` puts on that rank's device of a tp 2 mesh.
 - Joining a run: ``init_distributed`` forwards its arguments, raises on a
   real failure, is a no-op for its own world; the backend rule; a rank
-  never moves to the CPU unasked; ``make_hybrid_mesh`` at ``dp_dcn`` 1
-  only (mirroring tests/test_distributed.py).
+  never moves to the CPU unasked; ``make_hybrid_mesh`` puts ``dp_dcn``
+  outermost (mirroring tests/test_distributed.py).
 - Model level: two gloo ranks (spawned processes, ``torch_tp_ranks``) run
   the port's ``prefill_into_cache`` and ``decode_step`` at tp 2 on JAX's
   weights; their logits are within 2e-4 of JAX's under a tp 2 mesh at
@@ -46,7 +47,6 @@ from p2p_llm_tunnel_tpu.parallel import shard_params as j_shard_params
 from p2p_llm_tunnel_tpu_torch.models import quant as tq
 from p2p_llm_tunnel_tpu_torch.models import transformer as tt
 from p2p_llm_tunnel_tpu_torch.models.config import get_config
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
 from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
 from p2p_llm_tunnel_tpu_torch.parallel import (
     best_mesh,
@@ -139,23 +139,26 @@ def test_best_tp_is_the_jax_rule(n_kv_heads, cpu_devices):
 
 
 def test_best_mesh_refuses_leftover_data_parallelism():
+    """Item 18d is ported: the leftover ranks are a dp axis, built like any
+    mesh in a joined world of its ranks and refused outside one."""
     assert best_mesh(n_kv_heads=8, n_ranks=1).tp == 1
-    with pytest.raises(NotPorted, match="18d"):
+    assert best_tp(2, 8) == (2, 4)
+    with pytest.raises(ValueError, match="mesh 4x1x2x1 needs 8 ranks, have 1"):
         best_mesh(n_kv_heads=2, n_ranks=8)  # tp 2, dp 4
+    mesh = make_mesh(tp=2, dp=4, rank=5)
+    assert (mesh.tp_rank, mesh.dp_rank, mesh.size) == (1, 2, 8)
 
 
 @pytest.mark.parametrize("axis,item", [("sp", "18b"), ("ep", "18c"), ("dp", "18d")])
 def test_unported_axes_name_their_roadmap_item(axis, item):
-    if axis == "sp":
-        # Item 18b is ported: an sp mesh is built like a tp mesh, and
-        # outside a joined world of its ranks it is refused like one.
-        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
-            make_mesh(sp=2)
-        mesh = make_mesh(tp=2, sp=2, rank=3)
-        assert (mesh.tp_rank, mesh.sp_rank, mesh.size) == (1, 1, 4)
-        return
-    with pytest.raises(NotPorted, match=f"ROADMAP.md, port queue: {item}"):
+    """Items 18b, 18c and 18d are ported: an sp, ep or dp mesh is built
+    like a tp mesh, and outside a joined world of its ranks it is refused
+    like one.  Rank 3 of a tp 2 x <axis> 2 mesh sits at 1 on both."""
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         make_mesh(**{axis: 2})
+    mesh = make_mesh(tp=2, rank=3, **{axis: 2})
+    assert (mesh.tp_rank, mesh.coord(axis), mesh.size) == (1, 1, 4)
+    assert mesh.shape[axis] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +346,10 @@ def test_tp2_logits_match_jax_tp2_mesh(form, tp2_logits):
 # ---------------------------------------------------------------------------
 
 def test_hybrid_mesh_takes_dp_dcn_1_only():
+    """``dp_dcn`` 1 is the flat mesh; ``dp_dcn`` 2 is the dp axis of the
+    joined world (refused outside a world of its 4 ranks here)."""
     assert make_mesh() == pd.make_hybrid_mesh(tp=1, dp_dcn=1)
-    with pytest.raises(NotPorted, match="--dp-dcn 2.*port queue: 18d"):
+    with pytest.raises(ValueError, match="mesh 2x1x2x1 needs 4 ranks, have 1"):
         pd.make_hybrid_mesh(tp=2, dp_dcn=2)
 
 

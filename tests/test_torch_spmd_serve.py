@@ -54,7 +54,6 @@ from p2p_llm_tunnel_tpu.models.config import get_config as j_get_config
 from p2p_llm_tunnel_tpu.models.transformer import init_params
 from p2p_llm_tunnel_tpu.transport import loopback_pair as j_loopback_pair
 from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
-from p2p_llm_tunnel_tpu_torch.models.transformer import NotPorted
 
 from torch_tp_ranks import conversations, run_ranks, tunnel_stack
 
@@ -184,13 +183,9 @@ def test_snapshots_are_skipped_under_spmd(port_runs, snapshot_dir):
 
 @pytest.mark.parametrize("knob,item", [("sp", "18b"), ("ep", "18c")])
 def test_unported_knobs_still_refuse(knob, item):
-    if knob == "sp":
-        # Item 18b is ported: an sp 2 engine needs its two ranks, as a tp
-        # 2 engine does (test_tp_engine_needs_its_ranks).
-        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
-            InferenceEngine(engine_cfg=EngineConfig(**PLAIN, sp=2), device="cpu")
-        return
-    with pytest.raises(NotPorted, match=f"port queue: {item}"):
+    # Items 18b and 18c are ported: an sp 2 or ep 2 engine needs its two
+    # ranks, as a tp 2 engine does (test_tp_engine_needs_its_ranks).
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         InferenceEngine(engine_cfg=EngineConfig(**PLAIN, **{knob: 2}), device="cpu")
 
 

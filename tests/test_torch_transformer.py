@@ -205,12 +205,13 @@ def test_unported_knobs_and_missing_card_raise():
     from p2p_llm_tunnel_tpu_torch.parallel.mesh import Mesh
 
     cfg = get_config("tiny", vocab_size=VOCAB)
-    # tp and sp meshes are ported; a mesh sharding on ep is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.decode_step(cfg, {},
-                       tt.init_kv_cache(cfg, 2, 16, quant="int8", device="cpu"),
+    # Every mesh axis is ported; ep must divide a MoE model's experts.
+    moe = get_config("tiny-moe", vocab_size=VOCAB)
+    with pytest.raises(ValueError, match="4 experts do not divide over ep=3"):
+        tt.decode_step(moe, {},
+                       tt.init_kv_cache(moe, 2, 16, quant="int8", device="cpu"),
                        torch.zeros(2, dtype=torch.long),
-                       torch.zeros(2, dtype=torch.int32), mesh=Mesh(ep=2))
+                       torch.zeros(2, dtype=torch.int32), mesh=Mesh(ep=3))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tt.init_params(cfg)

@@ -366,16 +366,20 @@ def several(rank, world, payload):
     return [globals()[fn](rank, world, p) for fn, p in payload]
 
 
+def _mesh_key(case):
+    return tuple(case.get(a, 1) for a in ("tp", "sp", "ep", "dp"))
+
+
 def _meshes(cases):
-    """One joined mesh per distinct ``(tp, sp)`` of the cases, built in the
-    cases' order on every rank (their groups are collective)."""
+    """One joined mesh per distinct ``(tp, sp, ep, dp)`` of the cases, built
+    in the cases' order on every rank (their groups are collective)."""
     from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
 
     meshes = {}
     for case in cases:
-        key = (case["tp"], case["sp"])
+        key = _mesh_key(case)
         if key not in meshes:
-            meshes[key] = make_mesh(tp=key[0], sp=key[1])
+            meshes[key] = make_mesh(tp=key[0], sp=key[1], ep=key[2], dp=key[3])
     return meshes
 
 
@@ -399,7 +403,7 @@ def sp_attention(rank, world, payload):
     meshes = _meshes(payload.values())
     out = {}
     for name, case in payload.items():
-        mesh = meshes[(case["tp"], case["sp"])]
+        mesh = meshes[_mesh_key(case)]
         dtype = getattr(torch, case["dtype"])
         q, k, v = (_block(torch.from_numpy(case[n]).to(dtype), mesh) for n in "qkv")
         if case["mode"] == "ring":
@@ -454,7 +458,7 @@ def sp_model(rank, world, payload):
     out = {}
     with torch.inference_mode():
         for name, case in payload.items():
-            mesh = meshes[(case["tp"], case["sp"])]
+            mesh = meshes[_mesh_key(case)]
             cfg = get_config(case["preset"], **case["overrides"])
             params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
                                                torch.float32)
@@ -472,3 +476,174 @@ def sp_model(rank, world, payload):
                              last=last.numpy(), k=cache["k"].numpy(),
                              v=cache["v"].numpy())
     return out
+
+
+# ---------------------------------------------------------------------------
+# expert and data parallelism
+# ---------------------------------------------------------------------------
+
+def mesh_groups(rank, world, payload):
+    """Each ``(dp, ep, tp, sp)`` shape of ``payload`` (product ``world``) as
+    a joined mesh, in order: this rank's coordinates and the ranks of its
+    group on each axis (None where the axis has size 1)."""
+    import torch.distributed as dist
+
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for dp, ep, tp, sp in payload:
+        mesh = make_mesh(tp=tp, dp=dp, sp=sp, ep=ep)
+        out[(dp, ep, tp, sp)] = {
+            axis: (mesh.coord(axis), None if getattr(mesh, f"{axis}_group") is None
+                   else dist.get_process_group_ranks(getattr(mesh, f"{axis}_group")))
+            for axis in ("dp", "ep", "tp", "sp")}
+    return out
+
+
+def ep_model(rank, world, payload):
+    """Each case under its ``(tp, ep)`` mesh on JAX's weights (this rank's
+    shard): layer 0's ``moe_mlp`` on the case's hidden states and the
+    whole-sequence ``prefill`` logits, with the expert leaves' local
+    shapes."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import moe as tmoe
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tt
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import params_from_numpy_sharded
+
+    meshes = _meshes(payload.values())
+    out = {}
+    with torch.inference_mode():
+        for name, case in payload.items():
+            mesh = meshes[_mesh_key(case)]
+            cfg = get_config(case["preset"], **case["overrides"])
+            params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
+                                               torch.float32)
+            blk = {k: v[0] for k, v in params["blocks"].items()}
+            mlp = tmoe.moe_mlp(cfg, blk, torch.from_numpy(case["h"]),
+                               lambda x: tt._act(cfg, x), mesh)
+            tokens = torch.from_numpy(case["tokens"])
+            valid = torch.arange(tokens.shape[1])[None, :] < torch.from_numpy(
+                case["lengths"])[:, None]
+            logits, _, _ = tt.prefill(cfg, params, tokens, valid, mesh=mesh)
+            out[name] = dict(mlp=mlp.numpy(), logits=logits.numpy(),
+                             experts=tuple(params["blocks"]["moe_gate"].shape))
+    return out
+
+
+def dp_model(rank, world, payload):
+    """Each case on a ``tp x dp = world`` mesh: one prefill wave and one
+    decode step, the dp way (this rank runs the wave rows of its own slots
+    into its cache block and decodes its block's rows) and, for the same
+    tp group, the dp 1 way (the whole wave into a whole cache); returns
+    this rank's rows, logits and cache bytes of both."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tt
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.data_parallel import SlotShard
+    from p2p_llm_tunnel_tpu_torch.parallel.mesh import Mesh
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import (
+        params_from_numpy_sharded,
+        shard_kv_cache,
+    )
+
+    meshes = _meshes(payload.values())
+    out = {}
+    with torch.inference_mode():
+        for name, case in payload.items():
+            mesh = meshes[_mesh_key(case)]
+            one = Mesh(tp=mesh.tp, rank=mesh.tp_rank, tp_group=mesh.tp_group)
+            cfg = get_config(case["preset"], **case["overrides"])
+            params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
+                                               torch.float32)
+            full = tt.init_kv_cache(cfg, case["slots"], case["seq"], torch.float32,
+                                    quant=case.get("kv_quant"), device="cpu")
+            local = shard_kv_cache({k: v.clone() for k, v in full.items()}, mesh)
+            full = shard_kv_cache(full, one)
+            tokens, lengths, slots = (torch.from_numpy(case[k])
+                                      for k in ("tokens", "lengths", "slot_idx"))
+            dec_tok, dec_pos = (torch.from_numpy(case[k])
+                                for k in ("dec_tokens", "dec_pos"))
+            last_ref, _ = tt.prefill_into_cache(cfg, params, tokens, lengths, full,
+                                                slots, mesh=one)
+            logits_ref, _ = tt.decode_step(cfg, params, full, dec_tok, dec_pos,
+                                           mesh=one)
+            shard = SlotShard(mesh, case["slots"], scratch=-1)
+            idx = shard.route(case["slot_idx"])
+            last, _ = tt.prefill_into_cache(
+                cfg, params, tokens[idx], lengths[idx], local,
+                torch.from_numpy(shard.local(case["slot_idx"][idx])), mesh=mesh)
+            rows = slice(shard.lo, shard.hi)
+            logits, _ = tt.decode_step(cfg, params, local, dec_tok[rows],
+                                       dec_pos[rows], mesh=mesh)
+
+            def raw(c):
+                return {k: v.contiguous().view(torch.uint8).numpy().copy()
+                        for k, v in c.items()}
+
+            out[name] = dict(rows=(shard.lo, shard.hi), idx=idx,
+                             last=last.numpy(), logits=logits.numpy(),
+                             last_ref=last_ref.numpy(), logits_ref=logits_ref.numpy(),
+                             cache=raw(local),
+                             ref_rows=raw({k: v[:, rows] for k, v in full.items()}))
+    return out
+
+
+def dp_cli_streams(rank, world, payload):
+    """Each job through the serve CLI's ``--coordinator <this run>
+    --num-processes 2 --process-id <rank> --dp-dcn 2`` flags: the CLI's
+    join gives the mesh and ``_engine_config`` the engine config; the
+    engine serves the given weights, rank 0 the conversations through the
+    port's tunnel while rank 1 replays.  Returns rank 0's streams and
+    fences and every rank's mesh and cache rows."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.endpoints.proxy import run_proxy
+    from p2p_llm_tunnel_tpu_torch.endpoints.serve import run_serve
+    from p2p_llm_tunnel_tpu_torch.engine.api import engine_backend
+    from p2p_llm_tunnel_tpu_torch.engine.engine import InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.models.transformer import params_from_numpy
+    from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
+
+    out = {}
+    for name, flags in payload["jobs"].items():
+        args = cli.build_parser().parse_args(
+            ["serve", "--backend", "gpu", "--device", "cpu", "--room", "r",
+             "--model", "tiny", "--dtype", "float32",
+             "--coordinator", RENDEZVOUS, "--num-processes", str(world),
+             "--process-id", str(rank)] + flags)
+        ecfg = cli._engine_config(args)
+        mesh, device = cli._join_ranks(args, None)
+        try:
+            engine = InferenceEngine(
+                model_cfg=get_config("tiny", vocab_size=payload["vocab"]),
+                engine_cfg=ecfg, params=params_from_numpy(payload["weights"], "cpu",
+                                                          torch.float32),
+                tokenizer=NumericTokenizer(payload["vocab"]), device=device,
+                mesh=mesh)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        res = {"mesh": (engine.mesh.shape, engine.mesh.rank),
+               "fences": list(engine.config_fences),
+               "kv_rows": int(engine.kv_cache["k"].shape[1])}
+        if name in payload.get("construct_only", ()):
+            pass
+        elif rank == 0:
+            async def drive():
+                async with tunnel_stack(engine, engine_backend, run_serve,
+                                        run_proxy, loopback_pair) as base:
+                    return await conversations(base, payload.get("max_tokens", 8))
+
+            res["streams"] = asyncio.run(drive())
+        else:
+            res["ops"] = engine.spmd_follower_loop()
+        out[name] = res
+        del engine
+    return out
+
