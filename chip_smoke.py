@@ -134,6 +134,22 @@ Phases (any failure exits non-zero before the result line):
    rank's, the ep all-reduce's ms a call at a decode step's and a
    1024-token wave's shapes, and phase 5's conversations: tok/s, TTFT
    p50 and each card's peak memory.
+14. training (the first backward path): (a) kernel 1 under its autograd
+   Function (the kernel forward on bf16 copies, the plain version's
+   gradient backward) at B 8, T 256 with ragged lengths, at llama3-8b's
+   and llama3.2-1b's heads: forward bitwise a direct launch, dq/dk/dv
+   against the plain version's gradient on the same bf16 inputs, forward
+   and backward ms; (b) llama3.2-1b at full width and depth, fp32 weights
+   from seed 0, ``make_train_step`` at dp 1 x tp 1, lr 1e-3, five steps on
+   one fixed B 8 x T 256 batch: losses finite and descending, step 1's loss
+   and gradients against the same step with the plain attention (the same
+   bf16 casts), kernel 1 16 times a step, ms a step, tokens/s and peak
+   memory; (c) dp 2 x tp 2 over four gloo ranks on the card at 4 layers,
+   each rank's loss and gradients against one rank's whole-tree step,
+   moments at the shard shapes, three steps descending; (d) pp 2 over two
+   gloo ranks at full depth (8 layers a stage), ``n_micro`` 4: each
+   stage's loss and gradients against one rank's unsharded ``loss_fn``,
+   ms a value-and-grad.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -159,8 +175,9 @@ busy share, device time by kernel), and the CUDA launches of one decode
 step on the mux engines of phases 5, 6a and 8a (8a: with kernel 7's
 device ms per step beside the weight-stream bound) and of one verify
 burst on phase 7's.
-``--kernels-only`` stops after phase 2; ``--tp-only``, ``--sp-only`` and
-``--ep-only`` build and run phase 11, 12 or 13 alone.
+``--kernels-only`` stops after phase 2; ``--tp-only``, ``--sp-only``,
+``--ep-only`` and ``--train-only`` build and run phase 11, 12, 13 or 14
+alone.
 """
 
 from __future__ import annotations
@@ -168,6 +185,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -263,7 +281,11 @@ def dev_us(event) -> float:
             or getattr(event, "self_cuda_time_total", 0) or 0)
 
 
-def device_ms(fn, kernel, iters: int = 50) -> float:
+# Profiler windows device_ms takes before it gives a time up as not measured.
+WINDOWS = 5
+
+
+def device_ms(fn, kernel, iters: int = 50) -> Optional[float]:
     """Device time per launch of the CUDA kernels whose name holds
     ``kernel``, over ``iters`` calls of ``fn`` under torch.profiler: the
     kernel alone, without the host time between launches that CUDA events
@@ -274,10 +296,14 @@ def device_ms(fn, kernel, iters: int = 50) -> float:
     every kernel ``fn`` launches, per call (a library call's).
 
     A profiler window can come back with some or all of the device's
-    events missing (seen on the card): a kernel's time is averaged over
-    the launches the window shows, and a window that shows none is taken
-    again; a library call's total is the fullest of three windows (a
-    window never shows more than ran).  Fails after three empty windows."""
+    events missing (seen on the card, now and then several windows in a
+    row): a kernel's time is averaged over the launches the window shows,
+    and a window that shows none is taken again, up to ``WINDOWS`` times;
+    a library call's total is the fullest of three windows (a window never
+    shows more than ran), or of up to ``WINDOWS`` while all are empty.  When every window came back empty the
+    time is not measured: None, with a note on stderr.  It is a reading
+    beside the kernel's CUDA-event ``ms``, never a check, so a blind
+    profiler does not fail the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -291,23 +317,33 @@ def device_ms(fn, kernel, iters: int = 50) -> float:
     fn()
     torch.cuda.synchronize()
     if kernel is None:
-        total = max(sum(dev_us(e) for e in window()) for _ in range(3))
-        if total <= 0:
-            raise AssertionError("the profiler saw no device time in three windows")
-        return total / iters / 1e3
-    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
-    for _ in range(3):
-        evs = window()
-        total, seen = 0.0, 0
-        for name in names:
-            events = [e for e in evs if name in e.key]
-            count = sum(e.count for e in events)
-            if count:
-                total += sum(dev_us(e) for e in events) / count / 1e3
-                seen += 1
-        if seen:
-            return total
-    raise AssertionError(f"the profiler saw no launch of {kernel} in three windows")
+        totals = []
+        while len(totals) < WINDOWS and (len(totals) < 3 or max(totals) <= 0):
+            totals.append(sum(dev_us(e) for e in window()))
+        if max(totals) > 0:
+            return max(totals) / iters / 1e3
+    else:
+        names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+        for _ in range(WINDOWS):
+            evs = window()
+            total, seen = 0.0, 0
+            for name in names:
+                events = [e for e in evs if name in e.key]
+                count = sum(e.count for e in events)
+                if count:
+                    total += sum(dev_us(e) for e in events) / count / 1e3
+                    seen += 1
+            if seen:
+                return total
+    print(f"[profiler] {WINDOWS} windows showed no device time of "
+          f"{kernel or 'the library call'}: its device ms is not measured",
+          file=sys.stderr)
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A device ms for a printed line: "not measured" where it is None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def library_times(fn, iters: int = 50) -> dict:
@@ -1414,8 +1450,8 @@ def kernel_phase(cfg) -> dict:
               + ("; w8a8 bitwise" if name.startswith("quant_matmul") else "") + ")")
         for r in cases:
             lib = (r.get("library_note", "n/a") if r["library_ms"] is None else
-                   f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
-            dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
+                   f"{r['library_ms']:.4f} (device {fmt_ms(r['library_device_ms'])})")
+            dev = f" (device {fmt_ms(r['device_ms'])} ms)" if "device_ms" in r else ""
             if "plan" in r:
                 dev += f" [{r['plan']}]"
             print(f"  {r['shape']:<40} max|err| {r['max_abs_err']:.3e}  "
@@ -4558,6 +4594,472 @@ def ep_nccl_phase(name: str) -> None:
         run.close(clean=False)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training (loss_fn, the dp x tp AdamW step, the GPipe pipeline)
+# ---------------------------------------------------------------------------
+
+#: The model phase 14 trains: fp32 weights and AdamW moments take 16 bytes
+#: a parameter, ~20 GB at llama3.2-1b's full width and depth (llama3-8b's
+#: ~128 GB fits no card).
+TRAIN_MODEL = "llama3.2-1b"
+TRAIN_B, TRAIN_T = 8, 256
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+#: Right-padded lengths of the training batch's rows (ragged).
+TRAIN_LENGTHS = (256, 200, 131, 256, 64, 17, 240, 100)
+#: 14a's head geometries (H, K, D): llama3-8b's and llama3.2-1b's.
+TRAIN_HEADS = ((32, 8, 128), (32, 8, 64))
+#: 14c's depth cut (dp 2 x tp 2, four ranks on the one card).
+TRAIN_DPTP_LAYERS = 4
+TRAIN_PP, TRAIN_MICRO = 2, 4
+TRAIN_TIMEOUT_S = 600.0
+#: 14b against the plain attention with the Function's casts (bf16-rounded
+#: inputs and output, an fp32 backward): the loss's absolute difference,
+#: and each leaf's gradient within this share of its max |g|.  Only the
+#: kernel's forward differs (it rounds P to bf16 for PV).  A few times the
+#: worst reading (PERF.md, section 6).
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 2e-2
+#: 14c / 14d against one rank's whole-tree step: the same attention, other
+#: product shapes (tp shards, microbatches), so only rounding differs,
+#: which kernel 1's bf16 copies can amplify.  A few times the worst reading.
+MESH_LOSS_TOL, MESH_GRAD_TOL = 5e-4, 1e-2
+#: 14a: the Function's gradient is the plain version's recomputed, so only
+#: the order of the sums can differ.
+K1_GRAD_TOL = 1e-3
+TRAIN_LEAVES = ("embed", "blocks.wq", "blocks.w_down", "final_norm")
+
+
+def train_batch(vocab: int, device, b: int = TRAIN_B, t: int = TRAIN_T,
+                lengths=TRAIN_LENGTHS):
+    """A fixed right-padded batch from seed 14: tokens, next-token targets
+    and the valid mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(0, vocab, (b, t)).astype(np.int64)
+    valid = np.arange(t)[None, :] < np.asarray(lengths[:b])[:, None]
+    return (torch.as_tensor(tokens, device=device),
+            torch.as_tensor(np.roll(tokens, -1, axis=1), device=device),
+            torch.as_tensor(valid, device=device))
+
+
+def flat(tree, path: str = "") -> dict:
+    """A params tree's leaves by dotted path."""
+    if not isinstance(tree, dict):
+        return {path: tree}
+    return {k: v for name, sub in tree.items()
+            for k, v in flat(sub, f"{path}.{name}" if path else name).items()}
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Per leaf path: max |got - want| / max |want|."""
+    return {k: ((got[k] - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-30)).item()
+            for k in want}
+
+
+def kernel1_grad_case(h: int, kh: int, d: int, name: str) -> dict:
+    """14a at one head geometry: the Function (kernel 1 forward, the plain
+    version's gradient) against a direct launch and against the plain
+    version's gradient on the same bf16-rounded inputs, at B 8, T 256 with
+    ragged lengths; forward / backward / plain-forward ms."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
+    from p2p_llm_tunnel_tpu_torch.ops.attention import causal_attention
+
+    g = torch.Generator(device="cuda").manual_seed(h * d)
+    b, t = TRAIN_B, TRAIN_T
+    q, k, v = (torch.randn(s, generator=g, device="cuda").requires_grad_(True)
+               for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
+    valid = (torch.arange(t, device="cuda")[None, :]
+             < torch.tensor(TRAIN_LENGTHS, device="cuda")[:, None])
+    dout = torch.randn((b, t, h, d), generator=g, device="cuda")
+    out = fa.flash_causal_attention(q, k, v, valid)
+    if out.grad_fn is None or "AttentionGrad" not in type(out.grad_fn).__name__:
+        raise AssertionError("[14a] the wrapper did not enter the autograd Function")
+    with torch.no_grad():
+        direct = fa.flash_causal_attention(*(x.detach().bfloat16() for x in (q, k, v)),
+                                           valid)
+    if not torch.equal(out, direct.float()):
+        raise AssertionError("[14a] the Function's forward is not the direct launch")
+    grads = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    leaves = [x.detach().bfloat16().float().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(causal_attention(*leaves, valid), leaves, dout)
+    errs = {n: (a - r).abs().max().item() for n, a, r in zip("qkv", grads, ref)}
+    scale = {n: r.abs().max().item() for n, r in zip("qkv", ref)}
+    for n in "qkv":
+        if errs[n] > K1_GRAD_TOL * scale[n]:
+            raise AssertionError(f"[14a] H{h} K{kh} D{d}: d{n} off by {errs[n]:.3g} > "
+                                 f"{K1_GRAD_TOL} x max |d{n}| {scale[n]:.3g}")
+    fwd = timed_ms(lambda: fa.flash_causal_attention(q, k, v, valid))
+    bwd = timed_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))
+    qb, kb, vb = (x.detach().bfloat16() for x in (q, k, v))
+    with torch.no_grad():
+        plain = timed_ms(lambda: causal_attention(qb, kb, vb, valid))
+    print(f"[14a] kernel 1 under autograd, B {b} T {t} H {h} K {kh} D {d}, lengths "
+          f"{list(TRAIN_LENGTHS)}: forward bitwise the direct launch; max |grad - "
+          f"plain grad| dq {errs['q']:.3g} dk {errs['k']:.3g} dv {errs['v']:.3g} "
+          f"(bound {K1_GRAD_TOL} x max |g|: {scale['q']:.3g}, {scale['k']:.3g}, "
+          f"{scale['v']:.3g}); forward {fwd[0]:.4f} ms (spread {fwd[1]:.4f}; kernel "
+          f"+ bf16 copies), backward {bwd[0]:.4f} ms (spread {bwd[1]:.4f}; the plain "
+          f"recompute), plain forward {plain[0]:.4f} ms ({name}; CUDA events)")
+    return dict(fwd_ms=fwd[0], bwd_ms=bwd[0], plain_ms=plain[0])
+
+
+def plain_bf16_attention(q, k, v, valid, **kw):
+    """The plain version with the Function's casts: in the inputs' dtype on
+    their bf16-rounded values, its output rounded to bf16.  Each rounding
+    passes the gradient through unchanged, as the Function's backward
+    does, so the backward runs wholly in the inputs' dtype."""
+    from p2p_llm_tunnel_tpu_torch.ops.attention import causal_attention
+
+    def rounded(x):
+        return x + (x.bfloat16().to(x.dtype) - x).detach()
+
+    return rounded(causal_attention(*(rounded(x) for x in (q, k, v)), valid, **kw))
+
+
+def single_card_train(name: str) -> dict:
+    """14b: llama3.2-1b at full width and depth, fp32 weights from seed 0,
+    ``make_train_step`` at dp 1 x tp 1: step 1's loss and gradients against
+    the same step with the plain attention, kernel 1 ``n_layers`` times a
+    step, the loss finite at every step and descending over five."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
+    from p2p_llm_tunnel_tpu_torch.parallel.train import make_train_step, param_leaves
+
+    cfg = get_config(TRAIN_MODEL)
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    init_fn, step_fn = make_train_step(cfg, None, lr=TRAIN_LR, device=dev)
+    params, opt = init_fn(0)
+    n_params = sum(x.numel() for x in param_leaves(params))
+    batch = train_batch(cfg.vocab_size, dev)
+    # The reference: the same forward and backward with the plain attention.
+    kernel_fn, tr.flash_causal_attention = tr.flash_causal_attention, plain_bf16_attention
+    try:
+        ref_loss = tr.loss_fn(cfg, params, *batch)
+        ref_loss.backward()
+    finally:
+        tr.flash_causal_attention = kernel_fn
+    ref = {p: flat(params)[p].grad.clone() for p in TRAIN_LEAVES}
+    ref_loss = ref_loss.item()
+    opt.zero_grad(set_to_none=True)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    losses, step_ms, k1 = [], [], []
+    for step in range(TRAIN_STEPS):
+        fa.flash_causal_attention.launches = 0
+        sync()
+        t0 = time.monotonic()
+        params, opt, loss = step_fn(params, opt, *batch)
+        losses.append(loss.item())
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        k1.append(fa.flash_causal_attention.launches)
+        if step == 0:
+            got = {p: flat(params)[p].grad for p in TRAIN_LEAVES}
+            errs = grad_errors(got, ref)
+            del got
+    del ref
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[14b] a loss is not finite: {losses}")
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"[14b] the loss did not descend: {losses}")
+    if abs(losses[0] - ref_loss) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[14b] step 1's loss {losses[0]} is {abs(losses[0] - ref_loss):.3g} "
+                             f"from the plain attention's {ref_loss}")
+    bad = {k: v for k, v in errs.items() if v > TRAIN_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"[14b] gradients off the plain attention's: {bad}")
+    if dev.type == "cuda" and any(n != cfg.n_layers for n in k1):
+        raise AssertionError(f"[14b] kernel 1 launches a step {k1}, not {cfg.n_layers}")
+    steady = statistics.median(step_ms[1:])
+    tokens = TRAIN_B * TRAIN_T
+    print(f"[14b] {TRAIN_MODEL} ({cfg.n_layers} layers, dim {cfg.dim}, "
+          f"{n_params / 1e9:.3f} B parameters) fp32 + AdamW, lr {TRAIN_LR}, B "
+          f"{TRAIN_B} x T {TRAIN_T} ({int(batch[2].sum())} valid tokens), dp 1 x tp 1: "
+          f"losses {[round(x, 5) for x in losses]}; step 1 against the plain attention "
+          f"(same weights, same bf16 casts): loss {ref_loss:.6f} vs {losses[0]:.6f} "
+          f"(bound {TRAIN_LOSS_TOL}), max |grad diff| / max |g| "
+          f"{ {k: round(v, 6) for k, v in errs.items()} } (bound "
+          f"{TRAIN_GRAD_TOL}); kernel 1 launches a step {k1}")
+    print(f"[14b] {steady:.1f} ms a step (median of steps 2-{TRAIN_STEPS}; step 1 "
+          f"{step_ms[0]:.1f} ms), {tokens / steady * 1e3:.0f} tokens/s ({tokens} a "
+          f"step, pads included), peak memory {peak_gb(dev):.3f} GB ({name}; host "
+          f"clock, synchronized)")
+    del params, opt
+    return dict(launches=sum(k1), step_ms=steady, tok_s=tokens / steady * 1e3,
+                peak_gb=peak_gb(dev))
+
+
+def train_rank(coordinator: str, rank: int, world: int, kind: str, results,
+               settings: dict) -> Optional[dict]:
+    """A rank of 14c (``kind`` "dptp": dp 2 x tp 2) or 14d ("pp": pp 2): on
+    the one card, joined over gloo.  Every rank first takes one rank's
+    whole-tree ``loss_fn`` step on the seed-0 weights (the reference),
+    keeps its own part of the gradients, then runs the sharded path and
+    holds it against them.  A spawned rank reports to ``results``; rank 0
+    returns its report.  A failure raises (rank 0) or is reported."""
+    import dataclasses
+    import gc
+    import traceback
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tr
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.ops import flash_attention as fa
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+    from p2p_llm_tunnel_tpu_torch.parallel import make_mesh
+    from p2p_llm_tunnel_tpu_torch.parallel.pipeline import (
+        make_pp_mesh,
+        pipeline_loss_fn,
+        shard_params_pp,
+    )
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import shard_params
+    from p2p_llm_tunnel_tpu_torch.parallel.train import make_train_step, param_leaves
+
+    globals().update(settings)
+    try:
+        dev = pd.rank_device(DEVICE, rank)
+        backend = pd.init_distributed(coordinator, world, rank, device=dev,
+                                      timeout_s=TRAIN_TIMEOUT_S)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        layers = TRAIN_DPTP_LAYERS if kind == "dptp" else None
+        cfg = get_config(TRAIN_MODEL)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        batch = train_batch(cfg.vocab_size, dev)
+        # One rank's whole-tree step: the reference, its gradients whole.
+        full = tr.init_params(cfg, 0, torch.float32, dev)
+        for leaf in param_leaves(full):
+            leaf.requires_grad_(True)
+        for _ in range(2):  # the second call is timed (warm)
+            for leaf in param_leaves(full):
+                leaf.grad = None
+            sync()
+            t0 = time.monotonic()
+            ref_loss = tr.loss_fn(cfg, full, *batch)
+            ref_loss.backward()
+            sync()
+            ref_ms = (time.monotonic() - t0) * 1e3
+        ref_loss = ref_loss.item()
+        ref_grads = _tree_map(full, lambda x: x.grad)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out = dict(rank=rank, backend=backend, ref_loss=ref_loss, ref_ms=ref_ms)
+        if kind == "dptp":
+            mesh = make_mesh(tp=2, dp=2)
+            want = _tree_map(shard_params(ref_grads, cfg, mesh), lambda x: x.clone())
+            del full, ref_grads
+            gc.collect()
+            init_fn, step_fn = make_train_step(cfg, mesh, lr=TRAIN_LR, device=dev)
+            params, opt = init_fn(0)
+            losses, k1 = [], []
+            for step in range(3):
+                fa.flash_causal_attention.launches = 0
+                params, opt, loss = step_fn(params, opt, *batch)
+                losses.append(loss.item())
+                k1.append(fa.flash_causal_attention.launches)
+                if step == 0:
+                    out["errs"] = grad_errors(
+                        {k: x.grad for k, x in flat(params).items()}, flat(want))
+                    del want
+            out.update(
+                loss=losses[0], losses=losses, k1=k1,
+                moments=all(tuple(opt.state[x][m].shape) == tuple(x.shape)
+                            for x in param_leaves(params)
+                            for m in ("exp_avg", "exp_avg_sq")),
+                shapes={k: tuple(flat(params)[k].shape)
+                        for k in ("embed", "blocks.wq", "blocks.wo")})
+        else:
+            mesh = make_pp_mesh(world)
+            stage = shard_params_pp(_tree_map(full, lambda x: x.detach()), mesh)
+            per = cfg.n_layers // world
+            want = dict(ref_grads, blocks={
+                k: v[rank * per:(rank + 1) * per].clone()
+                for k, v in ref_grads["blocks"].items()})
+            del full, ref_grads
+            gc.collect()
+            for leaf in param_leaves(stage):
+                leaf.requires_grad_(True)
+            times, k1 = [], []
+            for _ in range(3):
+                for leaf in param_leaves(stage):
+                    leaf.grad = None
+                fa.flash_causal_attention.launches = 0
+                sync()
+                t0 = time.monotonic()
+                loss = pipeline_loss_fn(cfg, stage, *batch, mesh, TRAIN_MICRO)
+                loss.backward()
+                sync()
+                times.append((time.monotonic() - t0) * 1e3)
+                k1.append(fa.flash_causal_attention.launches)
+            out.update(loss=loss.item(), k1=k1,
+                       errs=grad_errors({k: x.grad for k, x in flat(stage).items()},
+                                        flat(want)),
+                       ms=statistics.median(times[1:]), first_ms=times[0],
+                       ticks=TRAIN_MICRO + world - 1, per_stage=per)
+            del want, stage
+        out["peak_gb"] = peak_gb(dev)
+        if results is not None:
+            results.put(("train", out))
+        return out
+    except BaseException:
+        if results is None:
+            raise
+        results.put(("error", f"rank {rank}:\n{traceback.format_exc()}"))
+        return None
+    finally:
+        pd.shutdown_distributed()
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_mesh_run(kind: str, world: int) -> list:
+    """Ranks 1..world-1 of 14c / 14d as spawned processes, rank 0 here; every
+    rank's report, by rank."""
+    import multiprocessing
+
+    from p2p_llm_tunnel_tpu_torch.parallel import distributed as pd
+
+    coordinator = pd.local_rendezvous()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    settings = {k: globals()[k] for k in (
+        "DEVICE", "TRAIN_MODEL", "TRAIN_B", "TRAIN_T", "TRAIN_LENGTHS", "TRAIN_LR",
+        "TRAIN_DPTP_LAYERS", "TRAIN_MICRO", "TRAIN_TIMEOUT_S")}
+    procs = [ctx.Process(target=train_rank, name=f"train-rank-{r}", daemon=True,
+                         args=(coordinator, r, world, kind, results, settings))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        mine = train_rank(coordinator, 0, world, kind, None, settings)
+        import queue
+
+        peers = []
+        for _ in procs:
+            try:
+                what, value = results.get(timeout=TRAIN_TIMEOUT_S)
+            except queue.Empty:
+                raise AssertionError(f"[14] a {kind} rank sent no report within "
+                                     f"{TRAIN_TIMEOUT_S:.0f} s") from None
+            if what == "error":
+                raise AssertionError(f"[14] a {kind} rank failed: {value}")
+            peers.append(value)
+    finally:
+        for p in procs:
+            p.join(60.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10.0)
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"[14] {kind} ranks exited {bad}")
+    return sorted([mine] + peers, key=lambda r: r["rank"])
+
+
+def check_mesh_ranks(tag: str, ranks: list) -> None:
+    """Each rank's loss and gradients against its whole-tree reference."""
+    for r in ranks:
+        loss = r["loss"]
+        if not math.isfinite(loss) or abs(loss - r["ref_loss"]) > MESH_LOSS_TOL:
+            raise AssertionError(f"{tag} rank {r['rank']}: loss {loss} against one "
+                                 f"rank's whole-tree {r['ref_loss']} (bound "
+                                 f"{MESH_LOSS_TOL})")
+        bad = {k: v for k, v in r["errs"].items() if v > MESH_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"{tag} rank {r['rank']}: gradients off the whole "
+                                 f"tree's by {bad} x max |g| (bound {MESH_GRAD_TOL})")
+
+
+def train_phase(name: str, add_launches) -> None:
+    """Phase 14: training. (a) kernel 1's gradient through its autograd
+    Function at llama3-8b's and llama3.2-1b's heads; (b) llama3.2-1b at
+    full width and depth, five AdamW steps on one card; (c) dp 2 x tp 2
+    over four gloo ranks on the card at 4 layers; (d) pp 2 over two gloo
+    ranks at full depth, ``n_micro`` 4.  Each against one rank's
+    whole-tree step on the same weights."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.device(DEVICE).type == "cuda":
+        for h, kh, d in TRAIN_HEADS:
+            kernel1_grad_case(h, kh, d, name)
+    t0 = time.monotonic()
+    b = single_card_train(name)
+    add_launches({"flash_causal_attention": b["launches"]})
+    print(f"[14b] {time.monotonic() - t0:.1f} s ({name})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = train_mesh_run("dptp", 4)
+    check_mesh_ranks("[14c]", ranks)
+    for r in ranks:
+        if not r["moments"]:
+            raise AssertionError(f"[14c] rank {r['rank']}: a moment is not at its "
+                                 "shard's shape")
+        if r["losses"][-1] >= r["losses"][0]:
+            raise AssertionError(f"[14c] rank {r['rank']}: losses {r['losses']} do "
+                                 "not descend")
+        if torch.device(DEVICE).type == "cuda" and any(
+                n != TRAIN_DPTP_LAYERS for n in r["k1"]):
+            raise AssertionError(f"[14c] rank {r['rank']}: kernel 1 launches a step "
+                                 f"{r['k1']}, not {TRAIN_DPTP_LAYERS}")
+    add_launches({"flash_causal_attention": sum(ranks[0]["k1"])})
+    print(f"[14c] {TRAIN_MODEL} widths at {TRAIN_DPTP_LAYERS} layers, dp 2 x tp 2 over "
+          f"four ranks on {torch.cuda.device_count()} card(s) ({name}), backend "
+          f"{ranks[0]['backend']}: each rank's step-1 loss and gradients against one "
+          f"rank's whole-tree step (bounds {MESH_LOSS_TOL}, {MESH_GRAD_TOL} x max |g|): "
+          + "; ".join(f"rank {r['rank']} loss {r['losses'][0]:.6f} vs "
+                      f"{r['ref_loss']:.6f}, worst leaf {max(r['errs'].values()):.3g}"
+                      for r in ranks))
+    print(f"[14c] losses over 3 steps {ranks[0]['losses']}; moments at the shard "
+          f"shapes {ranks[0]['shapes']}; kernel 1 launches a step {ranks[0]['k1']}; "
+          f"peak memory per rank {[round(r['peak_gb'], 3) for r in ranks]} GB; "
+          f"{time.monotonic() - t0:.1f} s ({name})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = train_mesh_run("pp", TRAIN_PP)
+    check_mesh_ranks("[14d]", ranks)
+    for r in ranks:
+        want = r["ticks"] * r["per_stage"]
+        if torch.device(DEVICE).type == "cuda" and any(n != want for n in r["k1"]):
+            raise AssertionError(f"[14d] rank {r['rank']}: kernel 1 launches "
+                                 f"{r['k1']}, not {want} a value-and-grad")
+    add_launches({"flash_causal_attention": sum(ranks[0]["k1"])})
+    print(f"[14d] {TRAIN_MODEL} at full depth, pp {TRAIN_PP} ({ranks[0]['per_stage']} "
+          f"layers a stage), n_micro {TRAIN_MICRO}, over two ranks on the card ({name}), "
+          f"backend "
+          f"{ranks[0]['backend']}: pipeline_loss_fn's loss and every leaf's gradient "
+          f"against one rank's unsharded loss_fn (bounds {MESH_LOSS_TOL}, "
+          f"{MESH_GRAD_TOL} x max |g|): "
+          + "; ".join(f"rank {r['rank']} loss {r['loss']:.6f} vs {r['ref_loss']:.6f}, "
+                      f"worst leaf {max(r['errs'].values()):.3g}" for r in ranks))
+    print(f"[14d] {max(r['ms'] for r in ranks):.1f} ms a value-and-grad on the slowest "
+          f"stage (median of calls 2-3; the first {max(r['first_ms'] for r in ranks):.1f}"
+          f" ms) against {ranks[0]['ref_ms']:.1f} ms for one rank's unsharded one (its "
+          f"second call); kernel 1 {ranks[0]['k1'][0]} a call a stage ({ranks[0]['ticks']} "
+          f"ticks x {ranks[0]['per_stage']} layers); peak memory per rank "
+          f"{[round(r['peak_gb'], 3) for r in ranks]} GB; {time.monotonic() - t0:.1f} s "
+          f"({name}; both stages on one card over gloo: no interconnect measured)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4577,6 +5079,10 @@ def main() -> int:
     ap.add_argument("--ep-only", action="store_true",
                     help="build, then phase 13 alone (expert parallelism and "
                          "--dp-dcn, ranks on the card); prints no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then phase 14 alone (training: kernel 1's "
+                         "gradient, llama3.2-1b AdamW steps on one card, dp 2 x "
+                         "tp 2 and pp 2 ranks on the card); prints no result line")
     ap.add_argument("--ep-nccl", action="store_true",
                     help=f"needs {EP_NCCL} cards: build, then phase 13e alone "
                          "(mixtral-8x7b at full depth, ep over NCCL, a card a "
@@ -4641,6 +5147,11 @@ def main() -> int:
         t0 = time.monotonic()
         ep_phase(name, lambda counts: None)
         print(f"[13] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
+    if args.train_only:
+        t0 = time.monotonic()
+        train_phase(name, lambda counts: None)
+        print(f"[14] phase {time.monotonic() - t0:.1f} s ({name})")
         return 0
     if args.ep_nccl:
         t0 = time.monotonic()
@@ -4978,6 +5489,11 @@ def main() -> int:
     t0 = time.monotonic()
     ep_phase(name, add_launches)
     print(f"[13] phase {time.monotonic() - t0:.1f} s ({name})")
+    # Phase 14: training — kernel 1 under autograd, llama3.2-1b on one card,
+    # dp 2 x tp 2 and pp 2 ranks on the card.
+    t0 = time.monotonic()
+    train_phase(name, add_launches)
+    print(f"[14] phase {time.monotonic() - t0:.1f} s ({name})")
 
     source = {
         "flash_causal_attention": (

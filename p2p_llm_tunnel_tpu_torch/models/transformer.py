@@ -10,7 +10,8 @@ one kernel-6 launch per layer), one-token-per-slot decode, unfused
 (kernel 2) or through the fused decode layer (kernel 4, one launch per
 layer), the speculative verify burst (``spec_verify_into_cache``:
 kernel 5 fused, the chunk path otherwise), mean-pooled embeddings
-(``encode_pooled``) and mixture-of-experts MLPs (``models/moe``).
+(``encode_pooled``), mixture-of-experts MLPs (``models/moe``) and the
+training objective (``loss_fn``).
 
 Idiom differences from the JAX reference, all deliberate:
 
@@ -62,7 +63,16 @@ Idiom differences from the JAX reference, all deliberate:
   rank's view — it takes the rank's cache block (the rows of its own
   slots, ``parallel/sharding.kv_cache_pspecs``) and rows of that block;
   ``parallel/data_parallel`` routes a wave's rows to their owners and
-  gathers what they sample.
+  gathers what they sample;
+- training (``loss_fn``, the reference's masked mean NLL, with
+  ``parallel/train`` and ``parallel/pipeline``): the prefill path is
+  differentiable — kernel 1 through its autograd Function
+  (``ops/flash_attention``), every collective through its autograd form
+  (``parallel/collectives``: the psums' backward the identity, the
+  replicated input of each column-parallel product through
+  ``copy_to_group``, whose backward sums over tp).  Without grad every
+  collective runs as serving always ran it.  Training runs no sp, as the
+  reference's ``loss_fn`` passes no mesh to ``prefill``.
 """
 
 from __future__ import annotations
@@ -171,13 +181,25 @@ def _sp_gather(x: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
 
 
 def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum ``x`` over the tp ranks IN PLACE (the psum GSPMD inserts after a
-    row-parallel product); every rank ends with the same tensor.  A failed
-    collective raises."""
+    """Sum ``x`` over the tp ranks (the psum GSPMD inserts after a
+    row-parallel product; in place without grad, its backward the
+    identity); every rank ends with the same tensor.  A failed collective
+    raises."""
     if _tp(mesh) > 1:
-        import torch.distributed as dist
+        from p2p_llm_tunnel_tpu_torch.parallel.collectives import all_reduce_sum
 
-        dist.all_reduce(x, group=mesh.tp_group)
+        return all_reduce_sum(x, mesh.tp_group)
+    return x
+
+
+def _tp_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The replicated input of a column-parallel product: ``x`` itself,
+    whose gradient autograd sums over the tp ranks (each rank's is the
+    share of its own columns)."""
+    if _tp(mesh) > 1:
+        from p2p_llm_tunnel_tpu_torch.parallel.collectives import copy_to_group
+
+        return copy_to_group(x, mesh.tp_group)
     return x
 
 
@@ -476,7 +498,8 @@ def _block_tail(cfg: ModelConfig, blk, x, attn, mesh=None):
     if cfg.post_norms:
         attn = _norm(cfg, attn, blk["post_attn_norm"])
     x = x + attn
-    mlp = _mlp(cfg, blk, _norm(cfg, x, blk["mlp_norm"]), mesh)
+    h = _norm(cfg, x, blk["mlp_norm"])
+    mlp = _mlp(cfg, blk, h if cfg.n_experts else _tp_copy(h, mesh), mesh)
     if not cfg.n_experts:
         mlp = _psum(mlp, mesh)
     if cfg.post_norms:
@@ -484,7 +507,9 @@ def _block_tail(cfg: ModelConfig, blk, x, attn, mesh=None):
     return x + mlp
 
 
-def _embed(cfg: ModelConfig, params, tokens, mesh=None):
+def embed_tokens(cfg: ModelConfig, params, tokens, mesh=None):
+    """The token embeddings ``[..., Dm]`` (scaled where the model scales
+    them); under tp the vocab-parallel lookup, summed over the group."""
     embed = params["embed"]
     # A quantized table dequantizes into bf16 activations; every product
     # downstream follows x's dtype (quant.mm).
@@ -510,6 +535,7 @@ def _logits(cfg: ModelConfig, params, x, mesh=None):
     rank computes its ``V/tp`` columns (softcapped, elementwise), and the
     columns of every tp rank are gathered in rank order
     (``parallel/collectives.all_gather``, exact)."""
+    x = _tp_copy(x, mesh)
     if cfg.tie_embeddings:
         logits = head_matmul(x, params["embed"], cfg.act_quant).to(torch.float32)
     else:
@@ -521,6 +547,12 @@ def _logits(cfg: ModelConfig, params, x, mesh=None):
 
         logits = all_gather(logits, -1, mesh.tp_group)
     return logits
+
+
+def final_logits(cfg: ModelConfig, params, x, mesh=None):
+    """The final norm, then the head: f32 logits ``[..., V]`` of the last
+    block's output ``x``."""
+    return _logits(cfg, params, _norm(cfg, x, params["final_norm"]), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -576,8 +608,12 @@ def apply_blocks(
     valid: torch.Tensor,  # [B, T] bool, the whole sequence
     store_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]] = None,
     mesh=None,
+    layer_offset: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Run every block over the prompt batch.  Each layer's (k, v) go to
+    """Run a stacked block chunk (the whole stack, or a pipeline stage's
+    ``[L/pp, ...]`` whose first layer is global layer ``layer_offset``,
+    which places gemma's alternating windows) over the prompt batch.
+    Each layer's (k, v) go to
     ``store_kv(layer, k, v)`` when given (prefill_into_cache writes them
     straight into the cache), else they are stacked and returned as
     ``[L, B, T/sp, K, D]``.  Under tp kernel 1 runs on this rank's head
@@ -591,10 +627,11 @@ def apply_blocks(
     positions = (start + torch.arange(tl, device=x.device)).expand(b, tl)
     attention = _prefill_attention(cfg, mesh)
     ks, vs = [], []
-    for idx in range(cfg.n_layers):
+    for idx in range(blocks["attn_norm"].shape[0]):
         blk = _layer(blocks, idx)
-        q, k, v = _qkv(cfg, blk, _norm(cfg, x, blk["attn_norm"]), positions)
-        attn = attention(q, k, v, valid, _layer_window(cfg, idx, t))
+        h = _tp_copy(_norm(cfg, x, blk["attn_norm"]), mesh)
+        q, k, v = _qkv(cfg, blk, h, positions)
+        attn = attention(q, k, v, valid, _layer_window(cfg, layer_offset + idx, t))
         x = _block_tail(cfg, blk, x, attn, mesh)
         if store_kv is not None:
             store_kv(idx, k, v)
@@ -616,11 +653,10 @@ def prefill(
     """Full-prompt forward. Returns (logits [B,T,V] fp32, k, v [L,B,T,K,D]);
     under sp every rank returns the whole sequence's."""
     _check_model(cfg, mesh)
-    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
+    x = embed_tokens(cfg, params, _seq_block(tokens, mesh), mesh)
     x, ks, vs = apply_blocks(cfg, params["blocks"], x, valid, mesh=mesh)
-    x = _norm(cfg, _sp_gather(x, mesh), params["final_norm"])
-    return (_logits(cfg, params, x, mesh), _sp_gather(ks, mesh, 2),
-            _sp_gather(vs, mesh, 2))
+    return (final_logits(cfg, params, _sp_gather(x, mesh), mesh),
+            _sp_gather(ks, mesh, 2), _sp_gather(vs, mesh, 2))
 
 
 def encode_pooled(
@@ -639,7 +675,7 @@ def encode_pooled(
     differs between kernel 1 (zero) and its plain version (the mean of V),
     and the engine drops such rows."""
     _check_model(cfg, mesh)
-    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
+    x = embed_tokens(cfg, params, _seq_block(tokens, mesh), mesh)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid,
                            store_kv=lambda idx, k, v: None, mesh=mesh)
     x = _norm(cfg, _sp_gather(x, mesh), params["final_norm"]).to(torch.float32)
@@ -705,7 +741,7 @@ def prefill_into_cache(
                 vals = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
             write_packed_prefix(kv_cache[name][idx:idx + 1], slot_idx, vals[None])
 
-    x = _embed(cfg, params, _seq_block(tokens, mesh), mesh)
+    x = embed_tokens(cfg, params, _seq_block(tokens, mesh), mesh)
     x, _, _ = apply_blocks(cfg, params["blocks"], x, valid, store_kv=store,
                            mesh=mesh)
     x = _sp_gather(x, mesh)
@@ -778,7 +814,7 @@ def chunk_prefill_into_cache(
     s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
-    x = _embed(cfg, params, tokens, mesh)
+    x = embed_tokens(cfg, params, tokens, mesh)
     pos = starts.to(torch.long)[:, None] + torch.arange(t, device=tokens.device)[None, :]
     in_cache = pos < s
     write_pos = torch.where(pos < s, pos, pos - t)
@@ -871,7 +907,7 @@ def spec_verify_into_cache(
             torch.arange(b, device=tokens.device), kv_view=kv_view,
             return_all_logits=True, unaligned_int4=True, mesh=mesh,
         )
-    x = _embed(cfg, params, tokens)  # [B, T, Dm]
+    x = embed_tokens(cfg, params, tokens)  # [B, T, Dm]
     rope = burst_rope_rows(positions, t, cfg.head_dim, cfg.rope_theta)
     for idx in range(cfg.n_layers):
         blk = _layer(params["blocks"], idx)
@@ -919,7 +955,7 @@ def ragged_prefill_into_cache(
     _check_model(cfg, mesh)
     descs = (slot_of, start_of, qoff_of, base_of)
     s = _seq_len(kv_cache)
-    x = _embed(cfg, params, tokens[None])  # [1, TOT, Dm]
+    x = embed_tokens(cfg, params, tokens[None])  # [1, TOT, Dm]
     for idx in range(cfg.n_layers):
         blk = _layer(params["blocks"], idx)
         q, k, v = _qkv_proj(cfg, blk, _norm(cfg, x, blk["attn_norm"]))
@@ -974,7 +1010,7 @@ def decode_step(
     s = _seq_len(kv_cache)
     if kv_view is None or kv_view > s:
         kv_view = s
-    x = _embed(cfg, params, tokens[:, None], mesh)  # [B,1,Dm]
+    x = embed_tokens(cfg, params, tokens[:, None], mesh)  # [B,1,Dm]
     # The reference's kernel_ok needs tp == 1 for the fused layer: under tp
     # decode runs unfused (kernel 2 per head shard).
     if cfg.fused_decode_layer and _tp(mesh) == 1:
@@ -1025,3 +1061,52 @@ def decode_step(
         x = _block_tail(cfg, blk, x, attn, mesh)
     x = _norm(cfg, x, params["final_norm"])
     return _logits(cfg, params, x, mesh)[:, 0], kv_cache
+
+
+# ---------------------------------------------------------------------------
+# training objective (parallel/train, parallel/pipeline)
+# ---------------------------------------------------------------------------
+
+def check_training_mesh(mesh) -> None:
+    """Training runs no sequence parallelism, as the reference's: its
+    ``loss_fn`` passes no mesh to ``prefill``, so sp never enters its
+    train step (and ring and Ulysses attention have no backward here)."""
+    if _sp(mesh) > 1:
+        raise ValueError(
+            f"training does not run under sp={mesh.sp}: the reference's loss_fn "
+            "passes no mesh to prefill, so sequence parallelism never enters "
+            "its train step; train on an sp 1 mesh"
+        )
+
+
+def nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """``sum(nll * valid)`` of fp32 logits ``[B, T, V]`` against ``targets``
+    ``[B, T]``: the numerator of ``loss_fn``'s masked mean."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].to(torch.long))[..., 0]
+    return (nll * valid.to(nll.dtype)).sum()
+
+
+def masked_mean(total: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``total / max(sum(valid), 1)``: the reference's masked mean."""
+    return total / valid.sum().clamp(min=1)
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, T]
+    targets: torch.Tensor,  # [B, T]
+    valid: torch.Tensor,  # [B, T] bool
+    mesh=None,
+) -> torch.Tensor:
+    """The masked mean next-token NLL over ``prefill``'s fp32 logits, as
+    the reference's ``loss_fn``: ``sum(nll * valid) / max(sum(valid), 1)``.
+    Differentiable through kernel 1 (``ops/flash_attention``) and, under a
+    tp or ep ``mesh`` (this rank's shard of ``params``), through every
+    collective of the forward; the loss is the same on every rank.  An sp
+    mesh raises (``check_training_mesh``)."""
+    check_training_mesh(mesh)
+    logits = prefill(cfg, params, tokens, valid, mesh)[0]
+    return masked_mean(nll_sum(logits, targets, valid), valid)

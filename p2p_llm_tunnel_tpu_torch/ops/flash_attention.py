@@ -11,6 +11,19 @@ Unlike the TPU kernel there is no ``T % 128`` gate: the kernel masks the
 ragged edge itself, so every prefill bucket goes through it.  Rows that
 see no key return 0 (the plain version returns the mean of V there; no
 real prompt row is such a row — key 0 is always valid for it).
+
+Training: where grad is enabled and q, k or v needs one, the wrapper
+enters ``attention_with_grad``, a ``torch.autograd.Function``.  Its
+forward launches the kernel on bf16 contiguous copies of q/k/v (the
+kernel's only form) and returns the inputs' dtype, so an fp32 model
+trains with bf16 attention on the card.  Its backward recomputes the
+plain version under autograd, in fp32 on the same bf16-rounded inputs
+with the same mask, window, softcap and scale, and returns dq/dk/dv in
+the inputs' dtypes (GQA's sum of dk/dv over the query group falls out of
+autograd).  The reference has no backward kernel either: its gradient is
+XLA's autodiff of the einsum path.  The recompute holds fp32 scores
+``[B, K, G, T, T]`` for one layer at a time.  With grad disabled (serving)
+the wrapper launches exactly as before.
 """
 
 from __future__ import annotations
@@ -78,23 +91,8 @@ def _check(q, k, v, valid) -> None:
         raise ValueError(f"flash_causal_attention inputs span devices {devices}")
 
 
-def flash_causal_attention(
-    q: torch.Tensor,  # [B, T, H, D]
-    k: torch.Tensor,  # [B, T, K, D]
-    v: torch.Tensor,  # [B, T, K, D]
-    valid: torch.Tensor,  # [B, T] bool
-    *,
-    scale: Optional[float] = None,
-    softcap: Optional[float] = None,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """Causal GQA prefill attention -> [B, T, H, D]; drop-in for
-    ``causal_attention``.  ``window`` is a per-layer Python int (None =
-    no window)."""
-    if q.device.type == "cpu":
-        return plain(q, k, v, valid, scale=scale, softcap=softcap, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_causal_attention runs on cuda or cpu, not {q.device}")
+def _launch(q, k, v, valid, *, scale, softcap, window) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (checked first); counts it."""
     _check(q, k, v, valid)
     b, t, h, d = q.shape
     if scale is None:
@@ -112,6 +110,59 @@ def flash_causal_attention(
     kernel_build.check_launch(lib, _NAME, rc)
     flash_causal_attention.launches += 1
     return out
+
+
+class _AttentionGrad(torch.autograd.Function):
+    """The kernel's forward, the plain version's gradient (module note)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, knobs, launch):
+        qb, kb, vb = (x.detach().to(torch.bfloat16).contiguous() for x in (q, k, v))
+        valid = valid.contiguous()
+        ctx.save_for_backward(qb, kb, vb, valid)
+        ctx.knobs, ctx.dtypes = knobs, (q.dtype, k.dtype, v.dtype)
+        return launch(qb, kb, vb, valid, **knobs).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qb, kb, vb, valid = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.to(torch.float32).requires_grad_() for x in (qb, kb, vb)]
+            out = plain(*leaves, valid, **ctx.knobs)
+            grads = torch.autograd.grad(out, leaves, dout.to(out.dtype))
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
+
+
+def attention_with_grad(q, k, v, valid, *, scale=None, softcap=None, window=None,
+                        launch=_launch) -> torch.Tensor:
+    """Kernel 1 under autograd: ``launch`` (the kernel; a test passes the
+    plain version in its place on the CPU) on bf16 copies forward, the
+    plain version's gradient backward."""
+    knobs = dict(scale=scale, softcap=softcap, window=window)
+    return _AttentionGrad.apply(q, k, v, valid, knobs, launch)
+
+
+def flash_causal_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, K, D]
+    v: torch.Tensor,  # [B, T, K, D]
+    valid: torch.Tensor,  # [B, T] bool
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal GQA prefill attention -> [B, T, H, D]; drop-in for
+    ``causal_attention``.  ``window`` is a per-layer Python int (None =
+    no window)."""
+    if q.device.type == "cpu":
+        return plain(q, k, v, valid, scale=scale, softcap=softcap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_causal_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return attention_with_grad(q, k, v, valid, scale=scale, softcap=softcap,
+                                   window=window)
+    return _launch(q, k, v, valid, scale=scale, softcap=softcap, window=window)
 
 
 #: Kernel launches since the last reset (a plain int; chip_smoke.py zeroes

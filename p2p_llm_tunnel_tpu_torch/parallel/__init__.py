@@ -16,18 +16,30 @@ parallel, ``tp`` tensor parallel (megatron column/row split of attention
 and MLP), ``sp`` sequence parallel (prefill over sequence blocks: ring or
 Ulysses attention).  Every axis is ported (the ep sum lives in
 ``models/moe``, the dp split of the engine's slots in
-``parallel/data_parallel``); the pipeline
-(``make_pp_mesh``, ``pipeline_prefill``, ``pipeline_loss_fn``,
-``shard_params_pp``) comes with a later slice (ROADMAP.md item 18e).
+``parallel/data_parallel``).
+
+Training, as the reference's: ``parallel/train`` (``make_optimizer``,
+``make_train_step``: the dp x tp (x ep) AdamW step, gradients through
+kernel 1 and through every collective of the forward) and
+``parallel/pipeline`` (``make_pp_mesh``, ``shard_params_pp``,
+``pipeline_prefill``, ``pipeline_loss_fn``: GPipe over a one-axis pp
+mesh of its own).
 """
 
 from p2p_llm_tunnel_tpu_torch.parallel.mesh import best_mesh, make_mesh
+from p2p_llm_tunnel_tpu_torch.parallel.pipeline import (
+    make_pp_mesh,
+    pipeline_loss_fn,
+    pipeline_prefill,
+    shard_params_pp,
+)
 from p2p_llm_tunnel_tpu_torch.parallel.sharding import (
     kv_cache_pspecs,
     param_pspecs,
     shard_kv_cache,
     shard_params,
 )
+from p2p_llm_tunnel_tpu_torch.parallel.train import make_optimizer, make_train_step
 
 __all__ = [
     "make_mesh",
@@ -36,4 +48,10 @@ __all__ = [
     "kv_cache_pspecs",
     "shard_params",
     "shard_kv_cache",
+    "make_optimizer",
+    "make_train_step",
+    "make_pp_mesh",
+    "shard_params_pp",
+    "pipeline_prefill",
+    "pipeline_loss_fn",
 ]

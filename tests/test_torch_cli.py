@@ -108,7 +108,7 @@ def test_spill_snapshot_and_role_flags_reach_the_engine_config(
     (["--sp", "2", "--sp-mode", "ulysses"], "18b"),
     (["--dp-dcn", "2"], "18d"),
 ])
-def test_unported_flags_exit_with_their_queue_item(extra, item):
+def test_sp_ep_dp_flags_reach_the_engine_config(extra, item):
     """Items 18b, 18c and 18d are ported: --sp, --sp-mode, --ep and
     --dp-dcn reach the engine config (and the mesh flags) as in the JAX
     CLI, and a --coordinator run must count every rank of the mesh they

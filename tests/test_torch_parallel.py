@@ -138,7 +138,7 @@ def test_best_tp_is_the_jax_rule(n_kv_heads, cpu_devices):
     assert best_tp(n_kv_heads, len(cpu_devices)) == (jm.shape["tp"], jm.shape["dp"])
 
 
-def test_best_mesh_refuses_leftover_data_parallelism():
+def test_best_mesh_makes_leftover_ranks_data_parallel():
     """Item 18d is ported: the leftover ranks are a dp axis, built like any
     mesh in a joined world of its ranks and refused outside one."""
     assert best_mesh(n_kv_heads=8, n_ranks=1).tp == 1
@@ -150,7 +150,7 @@ def test_best_mesh_refuses_leftover_data_parallelism():
 
 
 @pytest.mark.parametrize("axis,item", [("sp", "18b"), ("ep", "18c"), ("dp", "18d")])
-def test_unported_axes_name_their_roadmap_item(axis, item):
+def test_sp_ep_dp_meshes_build_like_tp(axis, item):
     """Items 18b, 18c and 18d are ported: an sp, ep or dp mesh is built
     like a tp mesh, and outside a joined world of its ranks it is refused
     like one.  Rank 3 of a tp 2 x <axis> 2 mesh sits at 1 on both."""

@@ -647,3 +647,129 @@ def dp_cli_streams(rank, world, payload):
         del engine
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# training: the dp x tp (x ep) step, the pipeline, the collectives' backward
+# ---------------------------------------------------------------------------
+
+def _tree(tree, fn):
+    """``fn`` of every leaf of a params tree, as a tree of the same keys."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _numpy(tree, fn=lambda x: x):
+    return _tree(tree, lambda x: fn(x).detach().numpy().copy())
+
+
+def train_model(rank, world, payload):
+    """Each case under its ``(tp, ep, dp)`` mesh on JAX's fp32 weights (this
+    rank's shard): ``make_train_step``'s ``steps`` steps on the case's whole
+    batch; returns every step's loss, and after the first the gradients,
+    the parameters and the shapes of both AdamW moments (this rank's
+    shard), and the leaf shapes ``init_fn`` draws."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.sharding import params_from_numpy_sharded
+    from p2p_llm_tunnel_tpu_torch.parallel.train import (
+        make_optimizer,
+        make_train_step,
+        param_leaves,
+    )
+
+    meshes = _meshes(payload.values())
+    out = {}
+    for name, case in payload.items():
+        mesh = meshes[_mesh_key(case)]
+        cfg = get_config(case["preset"], **case["overrides"])
+        init_fn, step_fn = make_train_step(cfg, mesh, lr=case["lr"], device="cpu")
+        drawn, _ = init_fn(0)
+        params = params_from_numpy_sharded(case["params"], cfg, mesh, "cpu",
+                                           torch.float32)
+        for leaf in param_leaves(params):
+            leaf.requires_grad_(True)
+        opt = make_optimizer(params, case["lr"])
+        batch = [torch.from_numpy(case[k]) for k in ("tokens", "targets", "valid")]
+        res = dict(losses=[], init_shapes=_tree(drawn, lambda x: tuple(x.shape)))
+        for step in range(case["steps"]):
+            params, opt, loss = step_fn(params, opt, *batch)
+            res["losses"].append(float(loss))
+            if step == 0:
+                res.update(
+                    grads=_numpy(params, lambda x: x.grad),
+                    params=_numpy(params),
+                    moments=_tree(params, lambda x: tuple(
+                        tuple(opt.state[x][m].shape) for m in ("exp_avg", "exp_avg_sq"))))
+        out[name] = res
+    return out
+
+
+def pipeline_model(rank, world, payload):
+    """Each case on a ``pp = world`` pipeline mesh, this rank one stage of
+    JAX's fp32 weights: ``pipeline_prefill``'s logits and, where the case
+    has targets, ``pipeline_loss_fn``'s loss and this stage's gradients."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.models import transformer as tt
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.parallel.pipeline import (
+        make_pp_mesh,
+        pipeline_loss_fn,
+        pipeline_prefill,
+        shard_params_pp,
+    )
+    from p2p_llm_tunnel_tpu_torch.parallel.train import param_leaves
+
+    mesh = make_pp_mesh(world)
+    out = {}
+    for name, case in payload.items():
+        cfg = get_config(case["preset"])
+        stage = shard_params_pp(tt.params_from_numpy(case["params"], "cpu",
+                                                     torch.float32), mesh)
+        tokens = torch.from_numpy(case["tokens"])
+        valid = torch.from_numpy(case["valid"])
+        with torch.no_grad():
+            logits = pipeline_prefill(cfg, stage, tokens, valid, mesh, case["n_micro"])
+        res = dict(logits=logits.numpy(),
+                   layers=tuple(stage["blocks"]["wq"].shape))
+        if "targets" in case:
+            for leaf in param_leaves(stage):
+                leaf.requires_grad_(True)
+            loss = pipeline_loss_fn(cfg, stage, tokens, torch.from_numpy(case["targets"]),
+                                    valid, mesh, case["n_micro"])
+            loss.backward()
+            res.update(loss=float(loss), grads=_numpy(stage, lambda x: x.grad))
+        out[name] = res
+    return out
+
+
+def collective_grads(rank, world, payload):
+    """Each differentiable exchange of ``parallel/collectives`` over the
+    world on this rank's ``payload["x"][rank]``, pulled back with this
+    rank's cotangent ``payload["dy"][rank]``: ``{op: (forward under grad,
+    forward without grad, the input's gradient)}``."""
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives as col
+
+    group = torch.distributed.group.WORLD
+    ops = {
+        "all_reduce_sum": lambda x: col.all_reduce_sum(x, group),
+        "copy_to_group": lambda x: col.copy_to_group(x, group),
+        "all_gather": lambda x: col.all_gather(x, 1, group),
+        "ring_shift": lambda x: col.ring_shift(x, group),
+    }
+    out = {}
+    for op, fn in ops.items():
+        x = torch.from_numpy(payload["x"][rank]).requires_grad_(True)
+        y = fn(x)
+        dy = torch.from_numpy(payload["dy"][op][rank])
+        y.backward(dy)
+        with torch.no_grad():
+            plain = fn(x.detach().clone())
+        out[op] = (y.detach().numpy().copy(), plain.numpy().copy(),
+                   x.grad.numpy().copy())
+    return out
