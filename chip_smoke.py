@@ -150,6 +150,28 @@ Phases (any failure exits non-zero before the result line):
    gloo ranks at full depth (8 layers a stage), ``n_micro`` 4: each
    stage's loss and gradients against one rank's unsharded ``loss_fn``,
    ms a value-and-grad.
+15. the ``testing/`` twin: (a) ``python -m
+   p2p_llm_tunnel_tpu_torch.testing.local_stack --model llama3-8b --slots
+   16 --max-seq 1024`` as a child process on the card (all 32 layers at
+   llama3-8b's widths, the byte tokenizer's 259-id vocabulary as
+   ``tunnel-gpu serve`` without ``--tokenizer``; the kernels of phase 1,
+   no second build), driven by ``scripts/loadgen.py --port P --tenant
+   herd:32:2 --max-tokens 64``: loadgen exits 0 (no stuck stream, no
+   leaked slot) with every stream ok, ``/healthz``'s
+   ``decode_kernels_per_step`` equals the decode launch report of an
+   engine of the twin's configuration built here first, its
+   ``warmup_compile_s`` is positive, and SIGTERM ends the twin with exit
+   0; loadgen's TTFT p50/p99 and content tokens a second are printed; (b)
+   the same twin with ``--disagg`` (a prefill and a decode engine on the
+   card) under loadgen ``--turns 2 --tenant conv:8``: every stream ok and
+   KV pages shipped (``/metrics``); (c) the decode launch reports
+   (``InferenceEngine.decode_launch_report``) of phases 3 and 6's engines
+   — one hand-written kernel per layer-step on the kernel-2 and the fused
+   paths, each engine's ``engine_decode_kernels_per_step`` gauge equal to
+   its report, the fused layer body at least 40% (int8, int4) or 30%
+   (raw) fewer ops than the unfused one, the reference's thresholds —
+   checked after phase 6, and tiny's report on the card equal to the
+   CPU's at phase 3's and 6a's configurations.
 
 Phase 2 holds every kernel in every KV form (raw, int8, int4): attention
 within tolerance, quantized cache bytes and scales bit-exact; kernel 5
@@ -176,8 +198,8 @@ step on the mux engines of phases 5, 6a and 8a (8a: with kernel 7's
 device ms per step beside the weight-stream bound) and of one verify
 burst on phase 7's.
 ``--kernels-only`` stops after phase 2; ``--tp-only``, ``--sp-only``,
-``--ep-only`` and ``--train-only`` build and run phase 11, 12, 13 or 14
-alone.
+``--ep-only``, ``--train-only`` and ``--twins-only`` build and run phase
+11, 12, 13, 14 or 15 (without 15c's llama3-8b reports) alone.
 """
 
 from __future__ import annotations
@@ -1526,6 +1548,31 @@ def reset_counters() -> None:
             fn.form_launches[key] = 0
     for key in MODEL_CALLS:
         MODEL_CALLS[key] = 0
+
+
+def uncounted(fn):
+    """``fn`` with every counter of ``reset_counters`` as it found them
+    after the call: a follower replays rank 0's launch-report probe (its
+    warmup dispatches one), whose launches are the report's, not the
+    serving path's."""
+    from p2p_llm_tunnel_tpu_torch.parallel import collectives
+
+    def call(*a):
+        kernels = {k: (f.launches, dict(getattr(f, "form_launches", {})))
+                   for k, f in _kernels().items()}
+        calls, exchanges = dict(MODEL_CALLS), dict(collectives.exchanges)
+        try:
+            return fn(*a)
+        finally:
+            for k, f in _kernels().items():
+                f.launches = kernels[k][0]
+                for key, n in kernels[k][1].items():
+                    f.form_launches[key] = n
+            MODEL_CALLS.update(calls)
+            collectives.exchanges.clear()
+            collectives.exchanges.update(exchanges)
+
+    return call
 
 
 def read_counters() -> dict:
@@ -3289,6 +3336,7 @@ def follow_engine(params, cfg, flags, fences=(), model=None, layers=None,
     engine._prefill_rows = counted("_prefill_rows", waves)
     engine._ragged_rows = counted("_ragged_rows", dispatches)
     engine._spec_verify_fn = counted("_spec_verify_fn", spec)
+    engine._launch_probe_fn = uncounted(engine._launch_probe_fn)
     reset_counters()
     if engine.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -5060,6 +5108,271 @@ def train_phase(name: str, add_launches) -> None:
           f"({name}; both stages on one card over gloo: no interconnect measured)")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the testing/ twin (local_stack) driven by scripts/loadgen.py,
+# and the decode launch reports
+# ---------------------------------------------------------------------------
+
+#: The twin's command line on the card (its engine defaults otherwise).
+TWIN_ARGS = ("--model", MODEL, "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ))
+TWIN_READY_S = 600.0
+TWIN_LOADGEN_S = 600.0
+TWIN_LOG = "build/chip_smoke_twin.log"
+#: The decode launch reports of phases 3, 6a, 6b and 6c's llama3-8b
+#: engines, by (KV form, fused): (report, the gauge their warmup set).
+LAUNCH_REPORTS = {}
+#: The reference's cuts of the decode layer body, fused against unfused
+#: (tests/test_fused_decode_layer.py): by KV form.
+FUSED_CUTS = {"int8": 0.40, "int4": 0.40, None: 0.30}
+
+
+async def engine_report(engine) -> dict:
+    """A started engine's decode launch report (run on its executor)."""
+    return await asyncio.get_running_loop().run_in_executor(
+        None, engine.decode_launch_report)
+
+
+async def with_report(phase, engine) -> dict:
+    """``phase(engine)``, then the engine's decode launch report and the
+    gauge its warmup published, kept in ``LAUNCH_REPORTS``."""
+    from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+
+    out = await phase(engine)
+    gauge = global_metrics.gauge("engine_decode_kernels_per_step")
+    LAUNCH_REPORTS[(engine_form(engine), engine.mcfg.fused_decode_layer)] = (
+        await engine_report(engine), gauge)
+    return out
+
+
+def check_launch_reports(name: str) -> None:
+    """15c: the reports of the llama3-8b engines of phases 3 and 6 — one
+    hand-written kernel per layer-step on the kernel-2 and the fused
+    paths, each gauge the report's ``layer_body_major``, and the fused
+    layer body cut against the unfused one at the reference's
+    thresholds."""
+    for (form, fused), (report, gauge) in sorted(LAUNCH_REPORTS.items(),
+                                                 key=str):
+        print(f"[15c] {MODEL} kv {form} fused {fused}: {report}; "
+              f"engine_decode_kernels_per_step {gauge:.0f} ({name})")
+        if report["layer_body_kernels"] != 1:
+            raise AssertionError(f"kv {form} fused {fused}: "
+                                 f"{report['layer_body_kernels']} kernels a layer-step")
+        if gauge != report["layer_body_major"]:
+            raise AssertionError(f"kv {form} fused {fused}: gauge {gauge} != "
+                                 f"report {report['layer_body_major']}")
+    for form, want in FUSED_CUTS.items():
+        fused = LAUNCH_REPORTS[(form, True)][0]["layer_body_ops"]
+        unfused = LAUNCH_REPORTS[(form, False)][0]["layer_body_ops"]
+        cut = 1 - fused / unfused
+        print(f"[15c] kv {form}: layer body {fused} ops fused vs {unfused} "
+              f"unfused, cut {cut:.3f} (reference threshold {want:.2f})")
+        if cut < want:
+            raise AssertionError(f"kv {form}: fused cut {cut:.3f} < {want}")
+
+
+def reports_on_both_devices(name: str) -> None:
+    """15c: tiny's decode launch report on the card equals the CPU's, at
+    phase 3's configuration and at 6a's."""
+    from p2p_llm_tunnel_tpu_torch import cli
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+
+    vocab = get_config("tiny").vocab_size
+    configs = {
+        "3": EngineConfig(model="tiny", num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
+                          dtype="bfloat16"),
+        "6a": cli._engine_config(cli.build_parser().parse_args([
+            "serve", "--backend", "gpu", "--room", "chip-smoke", "--model", "tiny",
+            "--slots", str(NUM_SLOTS), "--max-seq", str(MAX_SEQ), "--kv-quant",
+            "int4", "--fused-decode-layer", "--ragged-prefill"])),
+    }
+    for tag, ecfg in configs.items():
+        reports = {}
+        for dev in (DEVICE, "cpu"):
+            engine = InferenceEngine(engine_cfg=ecfg, device=dev,
+                                     tokenizer=NumericTokenizer(vocab_size=vocab))
+
+            async def run(engine=engine):
+                await engine.start()
+                try:
+                    return await engine_report(engine)
+                finally:
+                    await engine.stop()
+
+            reports[dev] = asyncio.run(run())
+        print(f"[15c] tiny at phase {tag}'s configuration: card {reports[DEVICE]}, "
+              f"CPU {reports['cpu']} ({name})")
+        if reports[DEVICE] != reports["cpu"]:
+            raise AssertionError(f"phase {tag}'s configuration: the card's report "
+                                 f"{reports[DEVICE]} != the CPU's {reports['cpu']}")
+
+
+class TwinStack:
+    """``python -m p2p_llm_tunnel_tpu_torch.testing.local_stack`` with
+    ``TWIN_ARGS`` + ``flags`` as a child process on the card (its logs in
+    ``TWIN_LOG``); ``with`` yields its port once it printed the readiness
+    line, then SIGTERMs it and requires exit 0.  The child is killed on
+    any failure: no process outlives the phase."""
+
+    def __init__(self, *flags):
+        self.cmd = [sys.executable, "-m", "p2p_llm_tunnel_tpu_torch.testing.local_stack",
+                    "--port", "0", "--device", DEVICE, *TWIN_ARGS, *flags]
+
+    def log_tail(self) -> str:
+        with open(TWIN_LOG) as f:
+            return f.read()[-4000:]
+
+    def __enter__(self) -> int:
+        import os
+        import select
+
+        os.makedirs(os.path.dirname(TWIN_LOG), exist_ok=True)
+        with open(TWIN_LOG, "w") as log:
+            self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE, stderr=log,
+                                         text=True)
+        t0, deadline = time.monotonic(), time.monotonic() + TWIN_READY_S
+        try:
+            while time.monotonic() < deadline:
+                ready, _, _ = select.select([self.proc.stdout], [], [],
+                                            max(0.1, deadline - time.monotonic()))
+                line = self.proc.stdout.readline() if ready else ""
+                if not line:
+                    break
+                if line.startswith("LOADGEN_STACK_PORT="):
+                    self.ready_s = time.monotonic() - t0
+                    return int(line.strip().split("=", 1)[1])
+            raise AssertionError(f"twin {self.cmd[3:]} printed no readiness line "
+                                 f"(exit {self.proc.poll()}):\n{self.log_tail()}")
+        except BaseException:
+            self.kill()
+            raise
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.proc.stdout.close()
+
+    def __exit__(self, exc_type, *exc):
+        import signal
+
+        if exc_type is not None:
+            self.kill()
+            return False
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(120)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError("twin did not exit within 120 s of SIGTERM") from None
+        self.proc.stdout.close()
+        if rc != 0:
+            raise AssertionError(f"twin exited {rc} on SIGTERM:\n{self.log_tail()}")
+        return False
+
+
+def twin_get(port: int, path: str) -> str:
+    """GET ``path`` from the twin's listener (loopback)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def metric(text: str, name: str) -> float:
+    """One unlabelled sample of a Prometheus text page."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"{name} not on the metrics page")
+
+
+def run_loadgen(port: int, requests: int, *flags) -> dict:
+    """``scripts/loadgen.py --port P --json ...`` against the twin: exit 0
+    (no stuck stream, no leaked slot, page or transfer in its /healthz
+    check) and every stream ok; its report."""
+    cmd = [sys.executable, "scripts/loadgen.py", "--port", str(port), "--json", *flags]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=TWIN_LOADGEN_S)
+    if out.returncode != 0:
+        raise AssertionError(f"loadgen {flags} exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}\n{out.stdout[-3000:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    ok = sum(t["ok"] for t in report["tenants"])
+    if ok != requests or sum(t["requests"] for t in report["tenants"]) != requests:
+        raise AssertionError(f"loadgen {flags}: {ok} of {requests} streams ok: "
+                             f"{report['tenants']}")
+    return report
+
+
+def print_loadgen(tag: str, report: dict, twin: TwinStack, name: str) -> None:
+    for t in report["tenants"]:
+        print(f"{tag} loadgen {t['tenant']}: {t['ok']}/{t['requests']} ok, "
+              f"{t['tokens']} content tokens in {report['wall_s']} s = "
+              f"{t['tokens'] / report['wall_s']:.1f} tok/s, TTFT p50 "
+              f"{t['ttft_p50_ms']} ms, p99 {t['ttft_p99_ms']} ms; twin ready in "
+              f"{twin.ready_s:.1f} s ({name})")
+
+
+def twin_phase(name: str) -> None:
+    """Phase 15: (a) the twin on the card at llama3-8b's widths and depth,
+    a herd of 32 clients x 2 requests of 64 tokens from loadgen, its
+    /healthz gauge against the report of an engine of the same
+    configuration; (b) the same twin with ``--disagg`` (two engines on the
+    card) under loadgen ``--turns 2``, KV pages shipped; (c) the report of
+    tiny on the card against the CPU's."""
+    import gc
+
+    import torch
+
+    from p2p_llm_tunnel_tpu_torch.testing import local_stack
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The engine the twin builds, here: its decode launch report.
+    ref = local_stack._engine(local_stack.build_parser().parse_args(
+        ["--device", DEVICE, *TWIN_ARGS]))
+
+    async def report_of(engine):
+        await engine.start()
+        try:
+            return await engine_report(engine)
+        finally:
+            await engine.stop()
+
+    want = asyncio.run(report_of(ref))
+    free_engine(ref)
+    del ref
+    print(f"[15a] the twin's configuration ({' '.join(TWIN_ARGS)}): {want}")
+    twin = TwinStack()
+    with twin as port:
+        report = run_loadgen(port, 64, "--tenant", "herd:32:2", "--max-tokens", "64")
+        healthz = json.loads(twin_get(port, "/healthz"))
+    print_loadgen("[15a]", report, twin, name)
+    per_step = healthz["decode_kernels_per_step"]
+    print(f"[15a] /healthz decode_kernels_per_step {per_step}, warmup_compile_s "
+          f"{healthz['warmup_compile_s']}; SIGTERM: exit 0")
+    if not 0 < per_step == want["layer_body_major"]:
+        raise AssertionError(f"/healthz decode_kernels_per_step {per_step} != the "
+                             f"report's {want['layer_body_major']}")
+    if not healthz["warmup_compile_s"] > 0:
+        raise AssertionError(f"warmup_compile_s {healthz['warmup_compile_s']}")
+    twin = TwinStack("--disagg")
+    with twin as port:
+        report = run_loadgen(port, 16, "--tenant", "conv:8", "--turns", "2",
+                             "--max-tokens", "64")
+        page = twin_get(port, "/metrics")
+    print_loadgen("[15b] --disagg", report, twin, name)
+    shipped = metric(page, "engine_pages_shipped_total")
+    print(f"[15b] /metrics: {shipped:.0f} KV pages shipped, "
+          f"{metric(page, 'engine_pages_spliced_total'):.0f} spliced; loadgen's "
+          f"disagg row {report['disagg']}; SIGTERM: exit 0 ({name})")
+    if shipped < 1:
+        raise AssertionError("the disaggregated twin shipped no KV page")
+    reports_on_both_devices(name)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5083,6 +5396,11 @@ def main() -> int:
                     help="build, then phase 14 alone (training: kernel 1's "
                          "gradient, llama3.2-1b AdamW steps on one card, dp 2 x "
                          "tp 2 and pp 2 ranks on the card); prints no result line")
+    ap.add_argument("--twins-only", action="store_true",
+                    help="build, then phase 15 alone (the testing/ twin "
+                         "driven by scripts/loadgen.py, plain and --disagg, "
+                         "and tiny's launch report on the card against the "
+                         "CPU's); prints no result line")
     ap.add_argument("--ep-nccl", action="store_true",
                     help=f"needs {EP_NCCL} cards: build, then phase 13e alone "
                          "(mixtral-8x7b at full depth, ep over NCCL, a card a "
@@ -5153,6 +5471,11 @@ def main() -> int:
         train_phase(name, lambda counts: None)
         print(f"[14] phase {time.monotonic() - t0:.1f} s ({name})")
         return 0
+    if args.twins_only:
+        t0 = time.monotonic()
+        twin_phase(name)
+        print(f"[15] phase {time.monotonic() - t0:.1f} s ({name})")
+        return 0
     if args.ep_nccl:
         t0 = time.monotonic()
         ep_nccl_phase(name)
@@ -5188,7 +5511,8 @@ def main() -> int:
         try:
             await engine.warmup()
             t_ready = time.monotonic() - t0
-            served = await serve_phase(engine, N_REQUESTS, MAX_TOKENS)
+            served = await with_report(
+                lambda e: serve_phase(e, N_REQUESTS, MAX_TOKENS), engine)
             if args.profile:
                 served["profile"] = await profile_phase(
                     engine, NUM_SLOTS, MAX_TOKENS)
@@ -5276,7 +5600,7 @@ def main() -> int:
             or e6a._pool["k"].shape[2] * 2 != e6a._prefix_block
             or e6a._pool["k_scale"].shape[2] != e6a._prefix_block):
         raise AssertionError("int4 engine's pool pages are not packed half pages")
-    t_ready, m6a = run_engine(e6a, mux_phase, args.profile)
+    t_ready, m6a = run_engine(e6a, lambda e: with_report(mux_phase, e), args.profile)
     print_mux("[6a]", e6a, m6a, t_ready, name)
     if any(m6a["launches"][row_name("flash_decode_attention", f)] for f in FORMS):
         raise AssertionError("kernel 2 launched on the fused engine")
@@ -5285,7 +5609,7 @@ def main() -> int:
     del e6a
     # 6b: int8 on the defaults (unfused: kernel 2's int8 form).
     e6b = cli_engine(params, cfg, "--kv-quant", "int8")
-    t_ready, m6b = run_engine(e6b, mux_phase)
+    t_ready, m6b = run_engine(e6b, lambda e: with_report(mux_phase, e))
     print_mux("[6b]", e6b, m6b, t_ready, name)
     add_launches(m6b["launches"])
     free_engine(e6b)
@@ -5295,7 +5619,8 @@ def main() -> int:
                   ("--fused-decode-layer",),
                   ("--kv-quant", "int4", "--no-mux")):
         e6c = cli_engine(params, cfg, *flags)
-        t_ready, short = run_engine(e6c, lambda e: serve_phase(e, 4, 16))
+        t_ready, short = run_engine(
+            e6c, lambda e: with_report(lambda x: serve_phase(x, 4, 16), e))
         nonzero = {k: v for k, v in short["launches"].items() if v}
         print(f"[6c] {' '.join(flags)}: ready in {t_ready:.1f} s; 4 streams x "
               f"16 tokens finished; {short['waves']} prefill waves, "
@@ -5304,6 +5629,8 @@ def main() -> int:
         add_launches(short["launches"])
         free_engine(e6c)
         del e6c
+    # 15c: the decode launch reports of phases 3 and 6's engines.
+    check_launch_reports(name)
 
     # Phase 7: prompt-lookup speculation on the serve CLI's defaults with
     # the int4 cache, fused layers and ragged prefill — the same
@@ -5494,6 +5821,10 @@ def main() -> int:
     t0 = time.monotonic()
     train_phase(name, add_launches)
     print(f"[14] phase {time.monotonic() - t0:.1f} s ({name})")
+    # Phase 15: the testing/ twin on the card, driven by scripts/loadgen.py.
+    t0 = time.monotonic()
+    twin_phase(name)
+    print(f"[15] phase {time.monotonic() - t0:.1f} s ({name})")
 
     source = {
         "flash_causal_attention": (

@@ -1,5 +1,5 @@
-"""The ``tunnel-gpu`` CLI: serve / proxy / signal subcommands + retry
-supervisor (port of p2p_llm_tunnel_tpu/cli.py).
+"""The ``tunnel-gpu`` CLI: serve / proxy / signal / relay subcommands +
+retry supervisor (port of p2p_llm_tunnel_tpu/cli.py).
 
 The tunnel plane is the reference's: the same flags, flag > env > default
 precedence, the same ``run_with_retry`` backoff and SIGTERM drain.
@@ -335,6 +335,14 @@ def build_parser() -> argparse.ArgumentParser:
     sig.add_argument("--stun-port", type=int,
                      default=int(_env("TUNNEL_STUN_PORT", "0")),
                      help="also answer STUN binding requests (0 = off)")
+
+    rly = sub.add_parser("relay", help="run the UDP pairing relay "
+                                       "(TURN-equivalent fallback)")
+    rly.add_argument("--listen", default="0.0.0.0")
+    rly.add_argument("--port", type=int, default=3479)
+    rly.add_argument("--secret", default=_env("TUNNEL_RELAY_SECRET"),
+                     help="require HMAC-authenticated JOINs with this shared "
+                          "credential (env TUNNEL_RELAY_SECRET)")
     return ap
 
 
@@ -646,6 +654,12 @@ async def _amain(args) -> None:
 
             await start_stun_server(args.listen, args.stun_port)
         await SignalServer(args.listen, args.port).serve_forever()
+        return
+
+    if args.command == "relay":
+        from p2p_llm_tunnel_tpu_torch.transport.relay import run_relay_server
+
+        await run_relay_server(args.listen, args.port, args.secret)
         return
 
     if not args.room:

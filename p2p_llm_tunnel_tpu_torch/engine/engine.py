@@ -118,6 +118,7 @@ from p2p_llm_tunnel_tpu_torch.parallel.data_parallel import (
 from p2p_llm_tunnel_tpu_torch.protocol.frames import MAX_KV_PAGES_PER_XFER
 from p2p_llm_tunnel_tpu_torch.transport.chaos import maybe_spill_chaos
 from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox, global_flight
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import LaunchCount
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 from p2p_llm_tunnel_tpu_torch.utils.metrics import (
     derived_retry_after_s,
@@ -246,6 +247,7 @@ _SPMD_OPS = {
     "spec": "_spec_verify_fn",
     "embed": "_encode",
     "set_bias": "_set_bias",
+    "probe": "_launch_probe_fn",
 }
 
 
@@ -689,29 +691,14 @@ class InferenceEngine:
         positions = torch.where(ov_mask, ov_pos, self._dev_positions)
         counts = self._dev_counts
         any_pen = bool((samp.freq_pen != 0.0).any() or (samp.pres_pen != 0.0).any())
-        rows = torch.arange(b, device=self.device)
         if any_pen:
             # In place, as the reference's reset_counts under its cond.
             counts.masked_fill_(ov_mask[:, None], 0)
-            counts.index_put_((rows, ov_tok.long()), ov_mask.to(counts.dtype),
-                              accumulate=True)
-        toks, lps = [], []
-        for _ in range(steps):
-            logits, _ = decode_step(
-                self.mcfg, self.params, self.kv_cache, tokens, positions,
-                kv_view=kv_view, mesh=self.mesh,
-            )
-            sampled = sampling.sample(logits, samp, self._gen, counts=counts,
-                                      pos=positions + 1, bias=self._bias)
-            if any_pen:
-                counts.index_put_((rows, sampled.long()),
-                                  torch.ones_like(sampled, dtype=counts.dtype),
-                                  accumulate=True)
-            if any_lp:
-                lps.append(sampling.logprob_data(logits, sampled))
-            toks.append(sampled)
-            tokens, positions = sampled, positions + 1
-        self._dev_tokens, self._dev_positions = tokens, positions
+            counts.index_put_((torch.arange(b, device=self.device), ov_tok.long()),
+                              ov_mask.to(counts.dtype), accumulate=True)
+        toks, lps, self._dev_tokens, self._dev_positions = self._decode_steps(
+            self.mcfg, tokens, positions, samp, kv_view, steps,
+            counts if any_pen else None, any_lp)
         lp_out = None
         if any_lp:
             lp_out = tuple(torch.stack([lp[j] for lp in lps], dim=1)
@@ -722,6 +709,33 @@ class InferenceEngine:
             if lp_out is not None:
                 lp_out = tuple(gather_rows(x, self._dp) for x in lp_out)
         return toks, lp_out
+
+    def _decode_steps(self, cfg: ModelConfig, tokens, positions,
+                      samp: sampling.SamplingParams, kv_view: int, steps: int,
+                      counts=None, any_lp: bool = False):
+        """``steps`` decode steps of model ``cfg`` from the device carry
+        ``tokens``/``positions``: (sampled tokens and logprob data per step,
+        the last tokens, the positions after).  ``counts`` (the penalty
+        counts, updated in place) when any row has a penalty."""
+        if counts is not None:
+            rows = torch.arange(tokens.shape[0], device=self.device)
+        toks, lps = [], []
+        for _ in range(steps):
+            logits, _ = decode_step(
+                cfg, self.params, self.kv_cache, tokens, positions,
+                kv_view=kv_view, mesh=self.mesh,
+            )
+            sampled = sampling.sample(logits, samp, self._gen, counts=counts,
+                                      pos=positions + 1, bias=self._bias)
+            if counts is not None:
+                counts.index_put_((rows, sampled.long()),
+                                  torch.ones_like(sampled, dtype=counts.dtype),
+                                  accumulate=True)
+            if any_lp:
+                lps.append(sampling.logprob_data(logits, sampled))
+            toks.append(sampled)
+            tokens, positions = sampled, positions + 1
+        return toks, lps, tokens, positions
 
     def _prefill_fn(self, tokens, lengths, slots, samp, echo=False):
         """Plain prefill of one wave into its slots (cache written IN
@@ -881,11 +895,16 @@ class InferenceEngine:
         return self._spec_rows(tokens, positions, samp, kv_view)
 
     def _spec_rows(self, tokens, positions, samp, kv_view: int):
-        tokens, positions = self._host(tokens), self._host(positions)
+        return self._spec_burst(self.mcfg, self._host(tokens),
+                                self._host(positions), samp, kv_view)
+
+    def _spec_burst(self, cfg: ModelConfig, tokens, positions, samp,
+                    kv_view: int):
+        """``_spec_rows`` of model ``cfg`` on device ``tokens``/``positions``."""
         b, t = tokens.shape
         k = t - 1
         logits, _ = spec_verify_into_cache(
-            self.mcfg, self.params, tokens, positions, self.kv_cache,
+            cfg, self.params, tokens, positions, self.kv_cache,
             kv_view=kv_view, mesh=self.mesh,
         )  # [B, t, V]
         if samp.bias_on is not None and samp.bias_on.any():
@@ -1030,20 +1049,113 @@ class InferenceEngine:
     async def warmup(self) -> None:
         """Build the CUDA kernels (nvcc, at first use) and run one decode
         burst, one verify burst when speculation is on, and one prefill
-        wave before serving, so no request pays for any.  Eager PyTorch
+        wave before serving, so no request pays for any; then count the
+        decode burst's launches (``_set_kernel_gauge``).  Eager PyTorch
         compiles nothing per shape, so unlike the reference's per-bucket
-        program grid (``warmup_plan``) one of each kind suffices."""
+        program grid (``warmup_plan``) one of each kind suffices: its
+        ``engine_warmup_programs`` are these warm dispatches, and
+        ``engine_warmup_compile_max_s`` the slowest step of the warmup
+        (the build, a warm dispatch or the count)."""
         loop = asyncio.get_running_loop()
-        t0 = time.monotonic()
-        if self.device.type == "cuda":
-            await loop.run_in_executor(self._executor, kernel_build.build)
-        await loop.run_in_executor(self._executor, self._warm_decode)
+        programs = [self._warm_decode]
         if self.ecfg.spec_ngram > 0:
-            await loop.run_in_executor(self._executor, self._warm_spec)
-        await loop.run_in_executor(self._executor, self._warm_prefill)
+            programs.append(self._warm_spec)
+        programs.append(self._warm_prefill)
+        steps = [*programs, self._set_kernel_gauge]
+        if self.device.type == "cuda":
+            steps.insert(0, kernel_build.build)
+        t0 = time.monotonic()
+        slowest = 0.0
+        for step in steps:
+            t1 = time.monotonic()
+            await loop.run_in_executor(self._executor, step)
+            slowest = max(slowest, time.monotonic() - t1)
         global_metrics.set_gauge("engine_warmup_compile_s",
                                  time.monotonic() - t0)
+        global_metrics.set_gauge("engine_warmup_programs", len(programs))
+        global_metrics.set_gauge("engine_warmup_compile_max_s", slowest)
         self._warmup_done = True
+
+    def decode_launch_report(self, view: Optional[int] = None,
+                             steps: Optional[int] = None) -> Dict[str, int]:
+        """Launch counts (``utils/launch_count``) of one decode burst of
+        ``steps`` steps (default ``decode_steps``) at kv view ``view``
+        (default: the smallest bucket), every row parked so nothing is
+        written; the reference's keys, in the port's meaning:
+
+        - ``total_ops`` / ``total_major`` / ``total_kernels``: ops that do
+          device work, the kernel roots among them, and the hand-written
+          kernels (in place of ``pallas_calls``) of the whole burst;
+        - ``layer_body_ops`` / ``layer_body_major`` /
+          ``layer_body_kernels``: the same per decode layer-step — one
+          step of the model at 2 layers less one step at 1, on the same
+          weights.
+
+        The counts depend on the configuration only: a kernel wrapper
+        counts as one launch on either device, so the CPU and the card
+        give the same numbers.  Runs on the engine's executor (under SPMD
+        on every rank: the burst holds collectives), so call it between
+        ``start()`` and ``stop()``, never from the executor itself."""
+        view = self._view_buckets()[0] if view is None else view
+        steps = self.ecfg.decode_steps if steps is None else steps
+        return self._executor.submit(self._dispatch, "probe", "decode", view,
+                                     steps).result()
+
+    def spec_launch_report(self, view: Optional[int] = None,
+                           k: Optional[int] = None) -> Dict[str, int]:
+        """:meth:`decode_launch_report` of one verify burst of ``k``
+        proposals (default ``spec_k``): with the fused layer one kernel-5
+        launch per layer for the whole burst."""
+        view = self._view_buckets()[0] if view is None else view
+        k = self.ecfg.spec_k if k is None else k
+        return self._executor.submit(self._dispatch, "probe", "spec", view,
+                                     k).result()
+
+    @torch.inference_mode(False)
+    @torch.no_grad()
+    def _launch_probe_fn(self, kind: str, view: int, width: int) -> Dict[str, int]:
+        """(SPMD op ``probe``) The launch report of ``kind`` "decode" (a
+        burst of ``width`` steps) or "spec" (a verify burst of ``width``
+        proposals): every row parked past the cache, greedy, no penalty,
+        bias or logprobs; the inputs are made before counting starts.  It
+        counts outside inference mode, where composite ops (``matmul``,
+        ``linear``) reach the counter as the ops they launch (``mm``)."""
+        rows = int(self.kv_cache["k"].shape[1])
+        park = torch.full((rows,), self.ecfg.max_seq, dtype=torch.int32,
+                          device=self.device)
+        samp = sampling.make_params(rows)
+        tokens = torch.zeros((rows, 1 + width), dtype=torch.int32,
+                             device=self.device)
+
+        def count(n_layers: int, w: int) -> Dict[str, int]:
+            cfg = dc_replace(self.mcfg, n_layers=n_layers)
+            with LaunchCount() as c:
+                if kind == "decode":
+                    self._decode_steps(cfg, tokens[:, 0], park, samp, view, w)
+                else:
+                    self._spec_burst(cfg, tokens, park, samp, view)
+            return c.counts()
+
+        total = count(self.mcfg.n_layers, width)
+        hi = min(2, self.mcfg.n_layers)
+        two, one = count(hi, 1), count(hi - 1, 1)
+        report = {f"total_{key}": n for key, n in total.items()}
+        report.update({f"layer_body_{key}": two[key] - one[key] for key in two})
+        return report
+
+    def _set_kernel_gauge(self) -> None:
+        """Publish ``engine_decode_kernels_per_step``: the kernel roots per
+        decode layer-step of the burst (:meth:`decode_launch_report`)."""
+        report = self._dispatch("probe", "decode", self._view_buckets()[0],
+                                self.ecfg.decode_steps)
+        global_metrics.set_gauge("engine_decode_kernels_per_step",
+                                 report["layer_body_major"])
+        log.info(
+            "decode burst launch profile: %d major kernels per layer-step "
+            "(%d ops; %d hand-written kernels)",
+            report["layer_body_major"], report["layer_body_ops"],
+            report["layer_body_kernels"],
+        )
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

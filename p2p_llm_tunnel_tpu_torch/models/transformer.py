@@ -125,15 +125,15 @@ KVCache = Dict[str, torch.Tensor]
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device; None means the card.  With no card and
     no explicit CPU request this raises — the port never carries on
-    silently on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    silently on the CPU, and a ``cuda`` device never fails later at its
+    first allocation."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the PyTorch engine runs on the card; pass "
             "device='cpu' (CLI: --device cpu) to run on the CPU"
         )
-    return torch.device("cuda")
+    return dev
 
 
 def _check_model(cfg: ModelConfig, mesh=None) -> None:

@@ -43,6 +43,7 @@ import torch
 from p2p_llm_tunnel_tpu_torch.models.quant import unpack_int4
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.attention import cached_attention
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "flash_decode_attention"
 _SUPPORTED_D = (16, 32, 64, 128, 256)  # every preset's head_dim
@@ -193,6 +194,7 @@ def _check(q, k_cache, v_cache, k_scale, v_scale, positions, form,
     return s
 
 
+@kernel_entry
 def flash_decode_attention(
     q: torch.Tensor,  # [B, 1, H, D]
     k_cache: torch.Tensor,  # [B, S, K, D] bf16 | int8 | [B, S/2, K, D] int4
@@ -279,6 +281,7 @@ def _plane_lib() -> ctypes.CDLL:
     return lib
 
 
+@kernel_entry
 def flash_decode_attention_plane(
     q: torch.Tensor,  # [B, 1, H, D]
     k_cache: torch.Tensor,  # [B, S, K, D] raw

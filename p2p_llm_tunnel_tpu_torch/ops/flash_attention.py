@@ -35,6 +35,7 @@ import torch
 
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
 from p2p_llm_tunnel_tpu_torch.ops.attention import causal_attention
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "flash_causal_attention"
 _SUPPORTED_D = (16, 32, 64, 128, 256)  # every preset's head_dim
@@ -142,6 +143,7 @@ def attention_with_grad(q, k, v, valid, *, scale=None, softcap=None, window=None
     return _AttentionGrad.apply(q, k, v, valid, knobs, launch)
 
 
+@kernel_entry
 def flash_causal_attention(
     q: torch.Tensor,  # [B, T, H, D]
     k: torch.Tensor,  # [B, T, K, D]

@@ -54,6 +54,7 @@ from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
     dequant_f32,
 )
 from p2p_llm_tunnel_tpu_torch.ops.rope import rope_table
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "fused_decode_layer"
 _QMAX = {"int8": 127.0, "int4": 7.0}
@@ -359,6 +360,7 @@ def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
         raise ValueError(f"fused_decode_layer inputs span devices {devices}")
 
 
+@kernel_entry
 def fused_decode_layer(
     q: torch.Tensor,  # [B, H, D] post-projection, PRE-rope
     k_new: torch.Tensor,  # [B, K, D] post-projection, PRE-rope

@@ -53,6 +53,7 @@ from p2p_llm_tunnel_tpu_torch.ops.fused_decode import (  # noqa: F401  (re-expor
     smem_bytes,
     split_kv_workspace,
 )
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "fused_spec_decode_layer"
 
@@ -180,6 +181,7 @@ def _check(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions,
         raise ValueError(f"fused_spec_decode_layer inputs span devices {devices}")
 
 
+@kernel_entry
 def fused_spec_decode_layer(
     q: torch.Tensor,  # [B, T, H, D] post-projection, PRE-rope
     k_new: torch.Tensor,  # [B, T, K, D] post-projection, PRE-rope

@@ -63,6 +63,7 @@ from p2p_llm_tunnel_tpu_torch.ops.decode_attention import (
     dequant_f32,
 )
 from p2p_llm_tunnel_tpu_torch.ops.rope import rope_table
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "ragged_prefill_attention"
 _SUPPORTED_D = (16, 32, 64, 128, 256)  # every preset's head_dim
@@ -358,6 +359,7 @@ def _check_kernel(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
         raise ValueError(f"ragged_prefill_attention inputs span devices {devices}")
 
 
+@kernel_entry
 def ragged_prefill_attention(
     q: torch.Tensor,        # [TOT, H, D] flat-packed tail queries, PRE-rope
     k_new: torch.Tensor,    # [TOT, K, D] flat-packed new keys, PRE-rope

@@ -60,6 +60,7 @@ from p2p_llm_tunnel_tpu_torch.models.quant import (
     _quantize_act,
 )
 from p2p_llm_tunnel_tpu_torch.ops import kernel_build
+from p2p_llm_tunnel_tpu_torch.utils.launch_count import kernel_entry
 
 _NAME = "quant_matmul"
 FORMS = ("int8", "w8a8", "int4")
@@ -430,6 +431,7 @@ def _entry(key, m, k, form, layout, qshape, sshape, in_dim, group_size, device,
     return entry
 
 
+@kernel_entry
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
                  form: str, layout: str = "kn", in_dim: Optional[int] = None,
                  group_size: Optional[int] = None) -> torch.Tensor:

@@ -59,8 +59,9 @@ METRICS_CATALOG: Dict[str, str] = {
     "engine_batch_occupancy": "fraction of decode slots occupied (gauge)",
     "engine_degraded": "1 while the decode watchdog deems the engine stalled (gauge)",
     "engine_decode_kernels_per_step": (
-        "launch-proxy major kernels per decode layer-step in the "
-        "TPU-lowered burst program (gauge; utils/hlo.py)"
+        "kernel roots (products, scatters/gathers, sorts, hand-written "
+        "kernels) per decode layer-step of a parked eager burst, counted "
+        "at dispatch after warmup (gauge; utils/launch_count.py)"
     ),
     "engine_warmup_compile_s": (
         "wall seconds warmup spent compiling the serving program set "
@@ -68,13 +69,14 @@ METRICS_CATALOG: Dict[str, str] = {
     ),
     # -- engine flight recorder / cold-start profiler ----------
     "engine_warmup_programs": (
-        "distinct programs the warmup grid compiled/loaded before serving "
-        "(gauge; the per-program breakdown lives in the CompileWatch "
-        "journal and the bench-smoke row)"
+        "warm dispatches warmup ran before serving, one per program kind "
+        "(decode, spec when on, prefill): eager PyTorch compiles nothing "
+        "per shape (gauge)"
     ),
     "engine_warmup_compile_max_s": (
-        "wall seconds of the single slowest warmup program compile "
-        "(gauge; the indivisible floor a chip window must fit)"
+        "wall seconds of the slowest warmup step: the kernel build, a "
+        "warm dispatch or the launch count (gauge; at most "
+        "engine_warmup_compile_s)"
     ),
     "engine_cold_compiles_total": (
         "programs compiled ON the serving path after warmup declared the "

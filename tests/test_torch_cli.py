@@ -411,3 +411,96 @@ def test_coordinator_ranks_build_the_engine_the_jax_cli_builds(tmp_path):
             jargs.mux, jargs.prefix_cache)
     assert lead["backend"] and not follower["backend"]
     assert len(lead["ids"]) == 5 and follower["ops"] is None
+
+
+# ---------------------------------------------------------------------------
+# relay / signal
+# ---------------------------------------------------------------------------
+
+def _subparser(parser: argparse.ArgumentParser, name: str) -> argparse.ArgumentParser:
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return sub.choices[name]
+
+
+def _flags(parser: argparse.ArgumentParser) -> dict:
+    return {a.dest: (tuple(a.option_strings), a.default, a.type)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("command", ["relay", "signal"])
+def test_relay_and_signal_flags_equal_the_jax_cli(command, monkeypatch):
+    for env in ("TUNNEL_RELAY_SECRET", "TUNNEL_STUN_PORT"):
+        monkeypatch.delenv(env, raising=False)
+    want = _flags(_subparser(j_cli.build_parser(), command))
+    assert _flags(_subparser(cli.build_parser(), command)) == want
+    # The env defaults are read when the parser is built, as in the JAX CLI.
+    env, dest, value = {"relay": ("TUNNEL_RELAY_SECRET", "secret", "s3cret"),
+                        "signal": ("TUNNEL_STUN_PORT", "stun_port", 3478)}[command]
+    monkeypatch.setenv(env, str(value))
+    got = cli.build_parser().parse_args([command])
+    jgot = j_cli.build_parser().parse_args([command])
+    assert getattr(got, dest) == getattr(jgot, dest) == value
+
+
+def test_relay_dispatches_to_the_ports_relay_server(monkeypatch):
+    from p2p_llm_tunnel_tpu_torch.transport import relay
+
+    calls = []
+
+    async def fake(host, port, secret):
+        calls.append((host, port, secret))
+
+    monkeypatch.setattr(relay, "run_relay_server", fake)
+    args = cli.build_parser().parse_args(
+        ["relay", "--listen", "127.0.0.1", "--port", "4000", "--secret", "k"])
+    asyncio.run(cli._amain(args))  # no --room needed, no engine built
+    assert calls == [("127.0.0.1", 4000, "k")]
+    asyncio.run(cli._amain(cli.build_parser().parse_args(["relay"])))
+    assert calls[-1] == ("0.0.0.0", 3479, None)
+
+
+def test_relay_started_by_the_cli_pairs_two_sessions():
+    """Two channels that never exchange direct candidates talk through a
+    relay that ``tunnel-gpu relay`` started (tests/test_nat_traversal.py's
+    pairing case on the port's relay, channels and handshake)."""
+    import socket
+
+    pytest.importorskip("cryptography")
+    from p2p_llm_tunnel_tpu_torch.transport.crypto import HandshakeKeys
+    from p2p_llm_tunnel_tpu_torch.transport.udp import UdpChannel
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    ka, kb = HandshakeKeys(), HandshakeKeys()
+    box_a = ka.derive(kb.public_bytes, offerer=True, room="relay-room")
+    box_b = kb.derive(ka.public_bytes, offerer=False, room="relay-room")
+
+    async def run():
+        args = cli.build_parser().parse_args(
+            ["relay", "--listen", "127.0.0.1", "--port", str(port)])
+        server = asyncio.create_task(cli._amain(args))
+        await asyncio.sleep(0.2)
+        assert not server.done()
+        relay_addr = ("127.0.0.1", port)
+        a = await UdpChannel.bind("127.0.0.1")
+        b = await UdpChannel.bind("127.0.0.1")
+        try:
+            a.set_session(box_a)
+            b.set_session(box_b)
+            await asyncio.gather(a.join_relay(relay_addr, "tok123"),
+                                 b.join_relay(relay_addr, "tok123"))
+            await asyncio.gather(a.punch([relay_addr], timeout=5.0),
+                                 b.punch([relay_addr], timeout=5.0))
+            await a.send(b"hello through the relay")
+            assert await asyncio.wait_for(b.recv(), 5.0) == b"hello through the relay"
+            await b.send(b"and back")
+            assert await asyncio.wait_for(a.recv(), 5.0) == b"and back"
+        finally:
+            a.close()
+            b.close()
+            server.cancel()
+            await asyncio.gather(server, return_exceptions=True)
+
+    asyncio.run(run())

@@ -61,7 +61,10 @@ def test_probe_starts_clean(report):
     assert report["_startup"] == []
     for name in ("engine.engine", "engine.prefix_cache",
                  "ops.prefill_attention", "models.transformer",
-                 "ops.fused_decode", "ops.fused_spec_decode", "models.quant"):
+                 "ops.fused_decode", "ops.fused_spec_decode", "models.quant",
+                 "utils.launch_count", "testing", "testing.mock_llm",
+                 "testing.simple_upstream", "testing.frame_client",
+                 "testing.local_stack"):
         assert f"p2p_llm_tunnel_tpu_torch.{name}" in MODULES
 
 

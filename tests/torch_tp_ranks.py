@@ -273,6 +273,49 @@ def engine_streams(rank, world, payload):
     return out
 
 
+def warmup_gauges(rank, world, payload):
+    """A ``tp = world`` engine per config of ``payload["configs"]`` (the
+    tiny preset at ``payload["vocab"]``): rank 0 warms it up and returns,
+    per config, the warmup gauges and its launch report; the other ranks
+    replay rank 0's dispatches, the launch probe among them."""
+    from p2p_llm_tunnel_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
+    from p2p_llm_tunnel_tpu_torch.models.config import get_config
+    from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+
+    out = {}
+    for name, kw in payload["configs"].items():
+        engine = InferenceEngine(
+            model_cfg=get_config("tiny", vocab_size=payload["vocab"]),
+            engine_cfg=EngineConfig(**{"num_slots": 4, "max_seq": 128,
+                                       "tp": world, **kw}),
+            tokenizer=NumericTokenizer(payload["vocab"]), device="cpu")
+        if rank != 0:
+            out[name] = engine.spmd_follower_loop()
+            continue
+        for gauge in GAUGES:
+            global_metrics.set_gauge(gauge, 0.0)
+
+        async def drive():
+            await engine.start()
+            try:
+                await engine.warmup()
+                report = await asyncio.get_running_loop().run_in_executor(
+                    None, engine.decode_launch_report)
+                return {"gauges": {g: global_metrics.gauge(g) for g in GAUGES},
+                        "report": report}
+            finally:
+                await engine.stop()
+
+        out[name] = asyncio.run(drive())
+    return out
+
+
+#: The gauges the engine's warmup publishes.
+GAUGES = ("engine_decode_kernels_per_step", "engine_warmup_programs",
+          "engine_warmup_compile_s", "engine_warmup_compile_max_s")
+
+
 def engine_fences(rank, world, payload):
     """Construct a ``tp = world`` engine (or the config's own ``tp x sp``
     mesh) per config on every rank (their groups are created in the same
