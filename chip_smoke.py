@@ -178,7 +178,8 @@ within tolerance, quantized cache bytes and scales bit-exact; kernel 5
 also within the same tolerance of T sequential kernel-4 launches (the
 max difference printed; caches bit-exact); kernels 2, 4 and 5 also
 bitwise equal over two launches on equal inputs; kernel 3 (raw only; no
-serving path calls it) also against kernel 2; kernel 6 also at q-block
+serving path calls it) also against kernel 2 and bitwise run to run, at
+views 512, 1024 and 4096 with its cluster plan; kernel 6 also at q-block
 widths 8 and 32; kernel 7 (int8, w8a8, int4) at every llama3-8b
 projection and the head at 17, 85 and 1024 rows, a tied head and group
 64, tiny-qwen's head (N 259) at 1, 17 and 153 rows, a K tail (K 4100) and
@@ -924,11 +925,30 @@ def spec_case(h, kh, d, form, t=SPEC_T, view=FUSED_VIEW, s_max=MAX_SEQ,
     return row
 
 
+#: Kernel 3's views in phase 2: the main path's bucket (the JSON row), its
+#: max_seq, and a long view where the cluster split does the most.
+PLANE_VIEWS = (512, 1024, 4096)
+
+
+def plane_positions(b: int, s: int) -> list:
+    """Kernel 3's positions at view ``s``: decode_positions' block edges up
+    to max_seq (its parked row at max_seq lies past the plane); past
+    max_seq, edges spread over the whole view and one row parked at S."""
+    if s <= MAX_SEQ:
+        return decode_positions(b, s)
+    edges = [0, 63, 64, 127, 128, 511, 512, 1000, s // 4, s // 2 - 1, s // 2,
+             3 * s // 4 - 1, 3 * s // 4, s - 65, s - 2, s - 1]
+    act = sorted({min(p, s - 1) for p in edges})
+    return (act * b)[: b - 1] + [s]
+
+
 def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **kw):
     """Kernel 3 (raw) on strided [:, :S] windows of a [B, S_max, K, D]
     cache layer, against its plain version and against kernel 2 on the
-    same inputs; timed L2-cold as kernel 2 is, with its device time, its
-    bound and kernel 2's SDPA yardstick."""
+    same inputs, and twice on equal inputs (BITWISE equal: rank 0 merges
+    the cluster's partials in rank order); timed L2-cold as kernel 2 is,
+    with its device time, its bound, kernel 2's SDPA yardstick and its
+    cluster plan."""
     import torch
 
     from p2p_llm_tunnel_tpu_torch.ops import decode_attention as da
@@ -938,6 +958,7 @@ def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **k
                                  layers, seed)
     kc, vc, _ = view(layers - 1)
     got = da.flash_decode_attention_plane(q, kc, vc, pos, **kw)
+    again = da.flash_decode_attention_plane(q, kc, vc, pos, **kw)
     want = da.plain(q, kc, vc, pos, **kw)
     k2 = da.flash_decode_attention(q, kc, vc, pos, **kw)
     torch.cuda.synchronize()
@@ -945,10 +966,14 @@ def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **k
     keys = torch.arange(s, device="cuda")[None, :]
     seen = ((keys <= pos[:, None]) & (pos[:, None] - keys < win)).any(-1)
     name = f"flash_decode_attention_plane S={s} H{h} K{kh} D{d} {kw}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on equal inputs differ in "
+                             f"{int(got.ne(again).sum())} values")
     err = max(check_close(name, got[seen], want[seen]),
               check_close(name + " vs kernel 2", got[seen], k2[seen]))
     if not timed:
         return err
+    plan = da.plane_plan(b, s, kh, h // kh, d)
     live = [min(p, s - 1) + 1 for p in positions]
     nbytes = 2 * 2 * sum(live) * kh * d + 2 * 2 * b * h * d + 4 * b
     views = [view(lay)[:2] for lay in range(layers)]
@@ -963,6 +988,8 @@ def plane_case(b, s, h, kh, d, positions, s_max=MAX_SEQ, seed=0, timed=True, **k
         plain_ms=timed_ms(lambda: da.plain(q, kc, vc, pos, **kw))[0],
         **decode_library(q, view, s, pos, None, library_copies(
             2 * 2 * b * h * s * d, layers)),
+        plan=(f"cluster {plan.cluster}, {plan.tiles_per_cta} tiles a CTA, "
+              f"{plan.stages} stages, {plan.smem_bytes} B, bitwise run to run"),
     )
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * h * sum(live))
     return row
@@ -1442,7 +1469,8 @@ def kernel_phase(cfg) -> dict:
             decode_case(b, s, h, kh, d, decode_positions(b, s), form=form)
             for s in ((128, 256, 512, 1024) if form is None else (512,))]
     rows["flash_decode_attention_plane"] = [
-        plane_case(b, 512, h, kh, d, decode_positions(b, 512))]
+        plane_case(b, s, h, kh, d, plane_positions(b, s), s_max=max(MAX_SEQ, s))
+        for s in PLANE_VIEWS]
     for form in FORMS:
         rows[row_name("fused_decode_layer", form)] = [fused_case(h, kh, d, form)]
     for form in FORMS:

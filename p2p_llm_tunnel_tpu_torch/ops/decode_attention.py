@@ -30,13 +30,16 @@ f32 and does not round to the activation dtype (the Pallas body's rule).
 The module also holds kernel 3, :func:`flash_decode_attention_plane`
 (``csrc/flash_decode_attention_plane.cu``), the counterpart of the
 reference's legacy whole-plane body: raw caches only, kept as a
-cross-check of kernel 2 and never called by the model layer.
+cross-check of kernel 2 and never called by the model layer.  It shares
+nothing with kernel 2's split-KV body: a thread-block cluster per (slot,
+KV head) splits the plane along S on its own plan (:func:`plane_plan`)
+and merges through distributed shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -265,8 +268,64 @@ flash_decode_attention.form_launches = {"none": 0, "int8": 0, "int4": 0}
 _PLANE = "flash_decode_attention_plane"
 #: The plane kernel's key block (the Pallas BLOCK_K): S must be a multiple.
 PLANE_BLOCK = 128
+#: Keys per ring tile of kernel 3 (two per block).
+PLANE_TILE = 64
 #: Query heads per KV head the plane kernel holds (its MAX_G).
 _PLANE_MAX_GROUP = 8
+#: Cluster sizes kernel 3 launches with (8 is the portable maximum).
+PLANE_CLUSTERS = (1, 2, 4, 8)
+#: The plan's aim: two CTAs an SM on the H100's 132 SMs.  Each CTA pays a
+#: fixed cost (its barriers, partials and merge) that more CTAs do not
+#: hide: at B 17, 8 KV heads, clusters of 2 beat 4 and 8 at views 512-4096
+#: (PERF.md §6, PR 18's plan sweep).
+_PLANE_TARGET_CTAS = 2 * 132
+#: Ring depth (the kernel's MAX_STAGES): two K/V tile pairs keep three CTAs
+#: an SM at D 128 (a third stage cost an SM's third CTA and bought nothing
+#: in the sweep).
+_PLANE_STAGES = 2
+#: Shared memory around the ring: 1 KB of slack to align it and a 1 KB
+#: header of mbarriers and merge factors.
+_PLANE_OVERHEAD = 2048
+
+
+class PlanePlan(NamedTuple):
+    """Kernel 3's launch: ``cluster`` CTAs a (slot, KV head) along the
+    grid's rank axis, ``tiles_per_cta`` contiguous 64-key tiles each (rank
+    r holds tiles [r*T, (r+1)*T) of the plane), a ring of ``stages`` K/V
+    tile pairs, ``smem_bytes`` of dynamic shared memory a CTA, and the grid
+    (rank, KV head, slot)."""
+
+    cluster: int
+    tiles_per_cta: int
+    stages: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def plane_plan(b: int, s: int, kh: int, g: int, d: int) -> PlanePlan:
+    """Kernel 3's plan for B slots, a plane of S keys, KH KV heads of G
+    query rows and head dim D: the smallest cluster that gives the card
+    two CTAs an SM (B*KH*C >= 264), never a rank with no tile of the
+    plane; a ring of up to two tile pairs
+    (``csrc/flash_decode_attention_plane.cu``: 2*64*D bf16 a stage)."""
+    if s <= 0 or s % PLANE_BLOCK:
+        raise ValueError(f"plane decode kernel needs S % {PLANE_BLOCK} == 0, got {s}")
+    if not 1 <= g <= _PLANE_MAX_GROUP:
+        raise ValueError(f"plane decode kernel takes 1..{_PLANE_MAX_GROUP} query "
+                         f"rows per kv head, got {g}")
+    tiles = s // PLANE_TILE
+
+    def idle_rank(c):  # the cluster's last rank would start past S
+        return (c - 1) * -(-tiles // c) >= tiles
+
+    c = 1
+    while (c < PLANE_CLUSTERS[-1] and not idle_rank(2 * c)
+           and b * kh * c < _PLANE_TARGET_CTAS):
+        c *= 2
+    per = -(-tiles // c)
+    stages = min(per, _PLANE_STAGES)
+    smem = _PLANE_OVERHEAD + stages * 2 * PLANE_TILE * d * 2
+    return PlanePlan(c, per, stages, smem, (c, kh, b))
 
 
 def _plane_lib() -> ctypes.CDLL:
@@ -276,8 +335,7 @@ def _plane_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        ] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
@@ -295,15 +353,27 @@ def flash_decode_attention_plane(
     """Kernel 3, the Hopper counterpart of the JAX package's legacy
     ``flash_decode_attention_plane`` (``csrc/flash_decode_attention_plane.cu``):
     the function of :func:`flash_decode_attention` on a raw cache, keys
-    ``<= pos`` within the window, from the whole plane up to the frontier.
+    ``<= pos`` within the window, from the whole plane up to the frontier,
+    on a thread-block cluster per (slot, KV head) laid out by
+    :func:`plane_plan` and merged through distributed shared memory.
     Kept, as in the JAX package, only to cross-check kernel 2's online
     softmax: the model layer never calls it.  Requires ``S % 128 == 0``, as
-    the reference does.  Its plain version is ``cached_attention``; the
-    wrapper runs that for CPU tensors only, and launches or raises for CUDA
-    tensors, under kernel 2's input rules (raw form only)."""
-    s = k_cache.shape[1]
+    the reference does, a raw (floating) cache and at most 8 query heads
+    per KV head, on either device.  Its plain version is
+    ``cached_attention``; the wrapper runs that for CPU tensors only, and
+    launches or raises for CUDA tensors, under kernel 2's input rules (raw
+    form only)."""
+    b, _, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
     if s % PLANE_BLOCK:
         raise ValueError(f"plane decode kernel needs S % {PLANE_BLOCK} == 0, got {s}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not x.dtype.is_floating_point:
+            raise TypeError(f"flash_decode_attention_plane takes a raw cache, got "
+                            f"{x.dtype} {name} (quantized caches go to kernel 2)")
+    if h % kh or h // kh > _PLANE_MAX_GROUP:
+        raise ValueError(f"flash_decode_attention_plane kernel takes H/K <= "
+                         f"{_PLANE_MAX_GROUP} query rows per kv head, got {h}/{kh}")
     if q.device.type == "cpu":
         return cached_attention(q, k_cache, v_cache, positions, scale=scale,
                                 softcap=softcap, window=window)
@@ -311,10 +381,9 @@ def flash_decode_attention_plane(
         raise ValueError(f"flash_decode_attention_plane runs on cuda or cpu, not {q.device}")
     _check(q, k_cache, v_cache, None, None, positions, None,
            max_group=_PLANE_MAX_GROUP, kernel="flash_decode_attention_plane")
-    b, _, h, d = q.shape
-    kh = k_cache.shape[2]
     if scale is None:
         scale = d**-0.5
+    plan = plane_plan(b, s, kh, h // kh, d)
     lib = _plane_lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -324,7 +393,8 @@ def flash_decode_attention_plane(
             positions.data_ptr(), out.data_ptr(), b, s, h, kh, d,
             k_cache.stride(0), float(scale),
             0.0 if softcap is None else float(softcap),
-            _NO_WINDOW if window is None else int(window), stream,
+            _NO_WINDOW if window is None else int(window), plan.cluster,
+            plan.tiles_per_cta, plan.stages, plan.smem_bytes, stream,
         )
     kernel_build.check_launch(lib, _PLANE, rc)
     flash_decode_attention_plane.launches += 1

@@ -504,3 +504,94 @@ def test_kernel7_plan_at_a_k_tail(form):
     ranges = qm.split_ranges(p, 4100)
     assert ranges[0][0] == 0 and ranges[-1][1] == 4100
     assert p["nslabs"] == -(-4100 // p["bk"])
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: the plane kernel's cluster plan
+# ---------------------------------------------------------------------------
+
+#: H100 SMs; the main path's kernel-3 shape (B 17 rows, 8 KV heads, S 512).
+SMS = 132
+
+
+@pytest.mark.parametrize("d", _SUPPORTED_D)
+@pytest.mark.parametrize("s", [128, 256, 384, 512, 1024, 4096])
+def test_kernel3_plan_geometry(s, d):
+    """Over slots, KV heads and groupings: the cluster is 1, 2, 4 or 8 and
+    spans the grid's rank axis; every 64-key tile of [0, S) belongs to
+    exactly one CTA of a cluster and no rank starts past S; the ring fits and its shared memory is the
+    source's (2 KB + stages x 2 x 64 x D bf16), within the card's 227 KB."""
+    tiles = s // da.PLANE_TILE
+    for b in (1, 5, 17, 64):
+        for kh in (1, 2, 8):
+            for g in (1, 4, 7, 8):
+                p = da.plane_plan(b, s, kh, g, d)
+                assert p.cluster in da.PLANE_CLUSTERS
+                assert p.grid == (p.cluster, kh, b) and p.grid[0] % p.cluster == 0
+                owner = [r for r in range(p.cluster)
+                         for t in range(r * p.tiles_per_cta, (r + 1) * p.tiles_per_cta)
+                         if t < tiles]
+                assert len(owner) == tiles  # each tile once, in rank order
+                assert owner == sorted(owner) and owner[0] == 0
+                assert p.cluster <= tiles
+                assert (p.cluster - 1) * p.tiles_per_cta < tiles
+                assert 1 <= p.stages <= min(2, p.tiles_per_cta)
+                assert p.smem_bytes == 2048 + p.stages * 2 * 64 * d * 2
+                assert p.smem_bytes <= kernel_build.MAX_SMEM_BYTES
+                if b * kh * p.cluster < 2 * SMS:
+                    # the cluster grew as far as the plane or the ABI allow
+                    c2 = 2 * p.cluster
+                    assert p.cluster == 8 or (c2 - 1) * -(-tiles // c2) >= tiles
+
+
+@pytest.mark.parametrize("s", [512, 1024, 4096])
+def test_kernel3_plan_at_the_main_path_shape(s):
+    """B 17, 8 KV heads (llama3-8b's heads) at views 512 (the main path's
+    bucket), 1024 and 4096: clusters of 2, 272 CTAs (at least two an SM on
+    132 SMs), each walking half the plane through a 2-stage ring, and three
+    CTAs' shared memory fit an SM, so the grid is one wave."""
+    p = da.plane_plan(17, s, 8, 4, 128)
+    assert (p.cluster, p.tiles_per_cta, p.stages) == (2, s // 128, 2)
+    ctas = p.grid[0] * p.grid[1] * p.grid[2]
+    assert ctas == 272 and ctas >= 2 * SMS
+    assert 3 * (p.smem_bytes + BLOCK_RESERVED) <= SM_BYTES
+    assert ctas <= 3 * SMS
+
+
+@pytest.mark.parametrize("b,kh,cluster", [(1, 8, 8), (4, 8, 8), (9, 8, 4), (17, 4, 4),
+                                            (1, 1, 8)])
+def test_kernel3_plan_grows_the_cluster_for_few_slots(b, kh, cluster):
+    """Few (slot, KV head) pairs: the cluster grows up to 8 ranks along S
+    to reach two CTAs an SM."""
+    p = da.plane_plan(b, 4096, kh, 4, 128)
+    assert p.cluster == cluster and p.cluster * p.tiles_per_cta == 64
+
+
+@pytest.mark.parametrize("s,g", [(100, 4), (512, 9), (512, 0)])
+def test_kernel3_plan_refuses_what_the_kernel_does_not_take(s, g):
+    with pytest.raises(ValueError):
+        da.plane_plan(17, s, 8, g, 128)
+
+
+@pytest.mark.cuda
+def test_kernel3_matches_its_plain_version_on_the_card():
+    """On the card (chip_smoke.py phase 2 holds views 512, 1024 and 4096
+    and five preset geometries): kernel 3 within chip_smoke's tolerance of
+    its plain version on a strided [:, :S] cache view, with a parked row,
+    and two launches on equal inputs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: kernel 3 is CUDA C++ and has no "
+                    "interpret mode (chip_smoke.py runs it on the card)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, kh, d = 17, 512, 32, 8, 128
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").bfloat16()
+    kc = torch.randn((b, 1024, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
+    vc = torch.randn((b, 1024, kh, d), generator=g, device="cuda").bfloat16()[:, :s]
+    pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 255, 256, 257, 300, 383, 400,
+                        500, 510, 511, 1024], dtype=torch.int32, device="cuda")
+    got = da.flash_decode_attention_plane(q, kc, vc, pos)
+    again = da.flash_decode_attention_plane(q, kc, vc, pos)
+    want = da.plain(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=2e-2)
