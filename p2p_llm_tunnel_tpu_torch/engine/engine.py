@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import functools
 import math
 import time
 from collections import deque
@@ -117,7 +118,11 @@ from p2p_llm_tunnel_tpu_torch.parallel.data_parallel import (
 )
 from p2p_llm_tunnel_tpu_torch.protocol.frames import MAX_KV_PAGES_PER_XFER
 from p2p_llm_tunnel_tpu_torch.transport.chaos import maybe_spill_chaos
-from p2p_llm_tunnel_tpu_torch.utils.flight import global_blackbox, global_flight
+from p2p_llm_tunnel_tpu_torch.utils.flight import (
+    UnitQueue,
+    global_blackbox,
+    global_flight,
+)
 from p2p_llm_tunnel_tpu_torch.utils.launch_count import LaunchCount
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 from p2p_llm_tunnel_tpu_torch.utils.metrics import (
@@ -285,6 +290,19 @@ def _tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, x) for x in tree)
     return fn(tree)
+
+
+def _unit(kind: str):
+    """Run an executor-thread method as one device-timed unit of ``kind``
+    (``FlightRecorder.unit``) into the engine's unit queue: its launches
+    and its results' host copy."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(self, *args, **kwargs):
+            with global_flight.unit(kind, self._units):
+                return fn(self, *args, **kwargs)
+        return timed
+    return wrap
 
 
 class _HostCopy:
@@ -633,6 +651,8 @@ class InferenceEngine:
         self._flight_pageins = 0
         self._last_mux: Dict[str, object] = {}
         self._last_burst: Tuple[int, int] = (0, 0)
+        # This engine's device-timed units, resolved into its records.
+        self._units = UnitQueue(self.device)
         global_blackbox.set_engine_provider(self._blackbox_state)
         # Dedicated single thread for every tensor operation.
         self._executor = concurrent.futures.ThreadPoolExecutor(
@@ -1311,6 +1331,7 @@ class InferenceEngine:
             outs.append(out[: len(chunk)])
         return np.concatenate(outs, axis=0)
 
+    @_unit("prefill")
     @torch.inference_mode()
     def _encode(self, tokens: np.ndarray, valid: np.ndarray) -> np.ndarray:
         out = encode_pooled(self.mcfg, self.params,
@@ -1381,6 +1402,7 @@ class InferenceEngine:
         global_metrics.inc("engine_page_xfer_bytes_total", total)
         return result
 
+    @_unit("pool")
     def _export_copy_out(self, pairs) -> Dict:
         """Executor thread: gather each page to host RAM, re-pin it
         against this engine's own meta (so an unpinned page never reaches
@@ -1711,6 +1733,7 @@ class InferenceEngine:
             b *= 2
         return min(b, self.ecfg.max_seq)
 
+    @_unit("prefill")
     @torch.inference_mode()
     def _dispatch_prefill_batch(self, runs: List[RunningSlot], t: int,
                                 hists: Optional[List[int]] = None,
@@ -1789,6 +1812,7 @@ class InferenceEngine:
         return sampling.SamplingParams(temp, top_k, top_p, zeros, zeros, lps,
                                        seeds, bias_on)
 
+    @_unit("prefill")
     @torch.inference_mode()
     def _dispatch_chunk_rows(self, rows, t: int) -> _HostCopy:
         """Pack rows of ``(run, start, segment_ids, sample?)`` into ONE
@@ -1920,6 +1944,7 @@ class InferenceEngine:
                 return eager
         return full
 
+    @_unit("decode")
     @torch.inference_mode()
     def _dispatch_decode(self, *, view: Optional[int] = None,
                          steps: Optional[int] = None):
@@ -1985,6 +2010,7 @@ class InferenceEngine:
             )
             self._slot_bias_on[i] = bool(lb)
 
+    @_unit("prefill")
     def _set_bias(self, row: int, ids: np.ndarray, vals: np.ndarray) -> None:
         """Zero the slot's bias row, then add the request's entries (under
         dp on the slot's rank only)."""
@@ -2164,15 +2190,17 @@ class InferenceEngine:
             bias_on=self._slot_bias_on & active,
         )
         view = self._kv_view_bucket() if view is None else view
-        emitted, counts = self._dispatch(
-            "spec", tokens, positions.astype(np.int32), samp, view,
-        )
+        with global_flight.unit("decode", self._units):
+            emitted, counts = self._dispatch(
+                "spec", tokens, positions.astype(np.int32), samp, view,
+            )
+            pending = _HostCopy((emitted, counts))
         assign = [
             run.request.request_id
             if run is not None and self._active_mask[i] else None
             for i, run in enumerate(self.scheduler.slots)
         ] + [None]
-        out = _HostCopy((emitted, counts)).get()
+        out = pending.get()
         # The device decode carry is stale for every row now.
         self._ov_mask[:] = True
         return out, assign
@@ -2274,6 +2302,7 @@ class InferenceEngine:
             self._positions[slot] = out.cache_len - 1
         self._emit(out, tok, evicted, lp_info, prompt_lps)
 
+    @_unit("pool")
     def _prefix_copy_in(self, hits: List[Tuple[int, List[int]]]) -> None:
         """Copy matched pool blocks into the hit slots (executor thread):
         ``hits`` is [(slot, pool_ids)], ONE batched copy per
@@ -2304,6 +2333,7 @@ class InferenceEngine:
         if total:
             global_metrics.inc("engine_prefix_saved_blocks_total", total)
 
+    @_unit("pool")
     def _copy_out_entries(self, entries) -> None:
         pr = self.ecfg.prefill_rows
         for lo in range(0, len(entries), pr):
@@ -3038,6 +3068,7 @@ class InferenceEngine:
             global_metrics.inc("engine_spill_pageouts_total", committed)
         self._flight_pageouts = committed
 
+    @_unit("pool")
     def _spill_copy_out(self, plan) -> List[Tuple[bytes, Optional[Dict], bytes]]:
         """Executor thread: copy each planned page to host RAM (after every
         write the stream queued before it) and checksum the TRUE bytes.
@@ -3117,6 +3148,7 @@ class InferenceEngine:
             global_metrics.inc("engine_spill_pageins_total", ok_n)
         self._flight_pageins = ok_n
 
+    @_unit("pool")
     def _spill_copy_in(self, items) -> List[Tuple[bytes, int, bool]]:
         """Executor thread: verify + splice pages into their claimed pool
         slots.  Every page passes :func:`verify_page_pin` AND its checksum
@@ -3308,12 +3340,12 @@ class InferenceEngine:
             spec_proposed=self._flight_spec[0],
             spec_accepted=self._flight_spec[1],
             spec_k=self._flight_spec[2],
-            cold_compiles=0,
             admit_ms=round((t_admit - it_t0) * 1000.0, 3),
             prefill_ms=round((t_prefill - t_admit) * 1000.0, 3),
             dispatch_ms=round((t_dispatch - t_prefill) * 1000.0, 3),
             fetch_ms=round((t_fetch - t_dispatch) * 1000.0, 3),
             process_ms=round((now - t_fetch) * 1000.0, 3),
+            **self._units.drain(),
         )
 
     async def _dispatch_prefill_work(self, loop) -> Tuple[List, int]:

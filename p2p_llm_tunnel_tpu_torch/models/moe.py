@@ -32,6 +32,8 @@ from typing import Callable, Dict
 
 import torch
 
+from p2p_llm_tunnel_tpu_torch.utils.flight import global_flight
+
 
 def init_moe_blocks(cfg, dense: Callable) -> Dict[str, torch.Tensor]:
     """MoE leaves for the stacked block tree.  ``dense(shape, fan_in, name)``
@@ -69,26 +71,31 @@ def moe_mlp(cfg, blk, h: torch.Tensor, act_fn: Callable,
     router's weights, as the reference; under ep the f32 partials are
     summed over the ep ranks (``parallel/collectives.all_reduce_sum``; a
     failed collective raises), and the gradients of ``h`` and of the
-    router are summed there too."""
-    weights = route(cfg, blk["router"], h)
-    ep = 1 if mesh is None else mesh.ep
-    if ep > 1:
-        from p2p_llm_tunnel_tpu_torch.parallel.collectives import (
-            all_reduce_sum,
-            copy_to_group,
-        )
+    router are summed there too.  With the span journal on, the block is
+    one device-timed ``moe`` unit of the flight recorder, nested in the
+    engine's decode or prefill unit that runs it (none outside one)."""
+    with global_flight.unit("moe"):
+        weights = route(cfg, blk["router"], h)
+        ep = 1 if mesh is None else mesh.ep
+        if ep > 1:
+            from p2p_llm_tunnel_tpu_torch.parallel.collectives import (
+                all_reduce_sum,
+                copy_to_group,
+            )
 
-        # Under autograd each rank's cotangents of the whole weight map and
-        # of h are the shares of its own experts: summed over ep.
-        n = cfg.n_experts // ep
-        weights = copy_to_group(weights, mesh.ep_group)
-        weights = weights[..., mesh.ep_rank * n:(mesh.ep_rank + 1) * n]
-        h = copy_to_group(h, mesh.ep_group)
-    gate = torch.einsum("btd,edf->btef", h, blk["moe_gate"].to(h.dtype))
-    up = torch.einsum("btd,edf->btef", h, blk["moe_up"].to(h.dtype))
-    inner = act_fn(gate) * up  # [B, T, E, F]
-    down = torch.einsum("btef,efd->bted", inner, blk["moe_down"].to(h.dtype))
-    out = torch.einsum("bted,bte->btd", down.to(torch.float32), weights)
-    if ep > 1:
-        out = all_reduce_sum(out, mesh.ep_group)
-    return out.to(h.dtype)
+            # Under autograd each rank's cotangents of the whole weight
+            # map and of h are the shares of its own experts: summed over
+            # ep.
+            n = cfg.n_experts // ep
+            weights = copy_to_group(weights, mesh.ep_group)
+            weights = weights[..., mesh.ep_rank * n:(mesh.ep_rank + 1) * n]
+            h = copy_to_group(h, mesh.ep_group)
+        gate = torch.einsum("btd,edf->btef", h, blk["moe_gate"].to(h.dtype))
+        up = torch.einsum("btd,edf->btef", h, blk["moe_up"].to(h.dtype))
+        inner = act_fn(gate) * up  # [B, T, E, F]
+        down = torch.einsum("btef,efd->bted", inner,
+                            blk["moe_down"].to(h.dtype))
+        out = torch.einsum("bted,bte->btd", down.to(torch.float32), weights)
+        if ep > 1:
+            out = all_reduce_sum(out, mesh.ep_group)
+        return out.to(h.dtype)

@@ -1,4 +1,4 @@
-"""Engine flight recorder, compile/cold-start journal, postmortem black box.
+"""Engine flight recorder with device-timed units, postmortem black box.
 
 The metrics registry answers AGGREGATE questions and the span journal
 answers PER-REQUEST ones; neither answers *what did the engine loop decide
@@ -13,12 +13,11 @@ decode-stall watchdog trips.  This module is that third leg:
   slice/counter tracks through the existing ``/healthz?trace=1`` journal
   (so the fleet stitching yields per-peer engine lanes for free) and
   summarized by ``scripts/traceview.py --flight``.
-- :class:`CompileWatch` — the compile/cold-start journal: every compiled
-  program emits one ``(program, key, shape, seconds, phase, cache_hit,
-  cold)`` event.  A compile event AFTER warmup completed is a hole in the
-  warmup bucket grid (the ``test_warmup_aot`` bug class) surfaced at
-  runtime as ``engine_cold_compiles_total`` + a timeline event instead of
-  only in tests.
+  While the span journal is on (``serve --trace``), it also times the
+  engine's units of device work on the card's own clock
+  (:meth:`FlightRecorder.unit`): CUDA events around every decode burst,
+  prefill dispatch, pool copy and MoE block, resolved without a new sync
+  into the ``dev_*_ms`` / ``exec_cpu_ms`` fields of the records.
 - :class:`BlackBox` — postmortem capture: on a watchdog trip, SLO breach,
   drain timeout, or fatal engine error, atomically snapshot {flight tail,
   scheduler/slot/tenant state, recent spans, metrics, EngineConfig} into
@@ -42,15 +41,17 @@ the explicitly-waived wall-clock fields (``WALLCLOCK_WAIVED`` + the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, ContextManager, Deque, Dict, List, Optional
 
 from p2p_llm_tunnel_tpu_torch.utils.logging import get_logger
 from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+from p2p_llm_tunnel_tpu_torch.utils.tracing import global_tracer
 
 log = get_logger(__name__)
 
@@ -128,7 +129,6 @@ FLIGHT_SCHEMA: Dict[str, str] = {
         "burst width K the dispatched spec-verify program used this "
         "iteration (0 when no spec burst ran)"
     ),
-    "cold_compiles": "mid-serve cold compiles detected during this iteration",
     "streams_detached": (
         "streams parked in the detached-stream registry's grace window "
         "at iteration end (nonzero while the engine is "
@@ -139,6 +139,44 @@ FLIGHT_SCHEMA: Dict[str, str] = {
     "dispatch_ms": "decode-burst dispatch host wall (waived)",
     "fetch_ms": "previous-burst device->host fetch wall (waived)",
     "process_ms": "token accounting + segment finish wall (waived)",
+    # Device-timed units (FlightRecorder.unit, UnitQueue.drain): written
+    # only while the span journal is on and the engine runs on a CUDA
+    # device; each sums the engine's units whose end event completed since
+    # the previous record.
+    "dev_decode_ms": (
+        "device time of the decode units resolved in this record: decode "
+        "bursts and speculative verify bursts (CUDA events; waived)"
+    ),
+    "dev_prefill_ms": (
+        "device time of the prefill units resolved in this record: plain "
+        "waves, chunk and ragged segments, logit-bias writes, embeddings "
+        "(waived)"
+    ),
+    "dev_pool_ms": (
+        "device time of the pool units resolved in this record: prefix "
+        "copy-ins, prompt and conversation inserts, spill and export page "
+        "copies (waived)"
+    ),
+    "dev_moe_ms": (
+        "device time of the MoE blocks (router through the last einsum) "
+        "resolved in this record, nested inside decode and prefill units; "
+        "absent when none resolved (waived)"
+    ),
+    "dev_gap_ms": (
+        "stream time between consecutive top-level units resolved in this "
+        "record, end event to the next start event: the device stood "
+        "empty of engine work (waived)"
+    ),
+    "exec_cpu_ms": (
+        "CPU time of the engine's executor thread inside the resolved "
+        "top-level units: launch and op overhead and any spinning wait "
+        "inside a unit; the fetch waits lie outside every unit (waived)"
+    ),
+    "dev_units_dropped": (
+        "units dropped since the previous record because the engine's unit "
+        "queue was full: while nonzero the dev_* fields undercount and the "
+        "gap chain skips the hole"
+    ),
 }
 
 #: The one catalogue of legal postmortem-bundle top-level fields
@@ -157,7 +195,6 @@ POSTMORTEM_SCHEMA: Dict[str, str] = {
     "captured_unix_s": "wall-clock capture instant (waived)",
     "degraded": "the engine_degraded gauge at capture time (0/1)",
     "flight": "the last N flight records (FLIGHT_SCHEMA rows)",
-    "compile_events": "the compile/cold-start journal (CompileWatch rows)",
     "spans": "recent span-journal records (empty when tracing is off)",
     "metrics": "full metrics snapshot (counters, gauges, histogram tails)",
     "slo": "per-objective SLO verdicts at capture time",
@@ -168,7 +205,7 @@ POSTMORTEM_SCHEMA: Dict[str, str] = {
     ),
 }
 
-POSTMORTEM_SCHEMA_VERSION = 1
+POSTMORTEM_SCHEMA_VERSION = 2
 
 #: Legal capture triggers.
 POSTMORTEM_TRIGGERS = ("watchdog", "slo", "drain", "crash", "manual",
@@ -211,16 +248,148 @@ def postmortem_canonical(obj: object) -> object:
     return obj
 
 
+#: Kinds of top-level units: the engine's entries that launch device work.
+#: Consecutive top-level units bound the time the stream stood empty.
+UNIT_KINDS = ("decode", "prefill", "pool")
+#: The kind of unit opened inside a top-level one: summed under its own
+#: kind and left out of the gap chain.
+NESTED_KIND = "moe"
+
+_NO_UNIT = contextlib.nullcontext()
+
+
+class _Unit:
+    """One unit of device work: a timing event recorded on the device's
+    current stream before its first launch and one after its last, and,
+    for a top-level unit, the opening thread's CPU time in between (ms once
+    closed).  A nested unit reads no clock: under a busy second thread
+    ``time.thread_time()`` costs ~0.1 ms a call on the card's host, and an
+    MoE model opens a nested unit per layer and step."""
+
+    __slots__ = ("queue", "opened", "kind", "top", "stream", "start", "end",
+                 "cpu", "broken")
+
+    def __init__(self, queue: "UnitQueue", opened: List["_Unit"], kind: str,
+                 stream):
+        self.queue, self.opened, self.kind = queue, opened, kind
+        self.stream = stream
+        self.top = kind != NESTED_KIND
+        self.cpu = 0.0
+        self.broken = False  # a dropped unit precedes it: no gap to it
+
+    def __enter__(self) -> "_Unit":
+        import torch
+
+        self.opened.append(self)
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+        if self.top:
+            self.cpu = time.thread_time()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        import torch
+
+        if self.top:
+            self.cpu = (time.thread_time() - self.cpu) * 1000.0
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.end.record(self.stream)
+        self.opened.pop()
+        if exc_type is None:
+            self.queue._enqueue(self)
+        return False
+
+
+class UnitQueue:
+    """One engine's device-timed units, in the order its executor thread
+    closed them, and the end of its gap chain.  The executor thread
+    appends; the engine loop resolves them into each flight record
+    (:meth:`drain`).  Each engine owns its queue, so engines that share a
+    process (``serve --replicas``, a disaggregated prefill/decode pair)
+    neither resolve each other's units nor chain a gap across two threads
+    or two devices."""
+
+    #: Units waiting to be resolved; past this many, new units are dropped
+    #: and counted (the records' ``dev_units_dropped``): a queue whose loop
+    #: does not drain it holds no more.
+    CAP = 8192
+
+    def __init__(self, device):
+        self.device = device
+        #: Units are timed on a CUDA device only (while the span journal is on).
+        self.timed = str(device).split(":")[0] == "cuda"
+        self.dropped = 0  # units dropped, ever (executor thread)
+        self._dropped_seen = 0  # of those, reported in a record (loop thread)
+        self._units: Deque[_Unit] = deque()
+        self._chain_end = None  # end event of the last resolved top-level unit
+        self._break_chain = False
+
+    def _enqueue(self, u: _Unit) -> None:
+        """Queue a closed unit (the executor thread; the loop thread pops).
+        Past ``CAP`` it is dropped and counted, and the next top-level unit
+        measures no gap back across it."""
+        if len(self._units) >= self.CAP:
+            self.dropped += 1
+            if u.top:
+                self._break_chain = True
+            return
+        if u.top and self._break_chain:
+            u.broken, self._break_chain = True, False
+        self._units.append(u)
+
+    def drain(self) -> Dict[str, float]:
+        """The device-timing fields of one record (loop thread): resolves,
+        in order, the queued units whose end event has completed, by
+        ``elapsed_time``, and stops at the first still in flight, which
+        waits with every later unit for a later record.  Nothing waits on
+        the device.  Returns device ms summed by kind (``dev_moe_ms`` only
+        when an MoE unit resolved), the gaps between consecutive top-level
+        units, their executor CPU ms and the units dropped since the last
+        record; ``{}`` while the queue's units are not timed."""
+        if not (global_tracer.enabled and self.timed):
+            if self._units or self._chain_end is not None:
+                self._units.clear()
+                self._chain_end = None
+            return {}
+        ms = dict.fromkeys(UNIT_KINDS + (NESTED_KIND,), 0.0)
+        nested = 0
+        gap = cpu = 0.0
+        q = self._units
+        while q and q[0].end.query():
+            u = q.popleft()
+            ms[u.kind] += u.start.elapsed_time(u.end)
+            if not u.top:
+                nested += 1
+                continue
+            cpu += u.cpu
+            if self._chain_end is not None and not u.broken:
+                gap += self._chain_end.elapsed_time(u.start)
+            self._chain_end = u.end
+        dropped = self.dropped
+        fields = {
+            "dev_decode_ms": round(ms["decode"], 4),
+            "dev_prefill_ms": round(ms["prefill"], 4),
+            "dev_pool_ms": round(ms["pool"], 4),
+            "dev_gap_ms": round(gap, 4),
+            "exec_cpu_ms": round(cpu, 4),
+            "dev_units_dropped": dropped - self._dropped_seen,
+        }
+        self._dropped_seen = dropped
+        if nested:
+            fields["dev_moe_ms"] = round(ms[NESTED_KIND], 4)
+        return fields
+
+
 class FlightRecorder:
     """Bounded, thread-safe, always-on ring of engine-loop iteration
     records, plus the loop's current-phase marker (what the watchdog
-    reports as stall attribution)."""
+    reports as stall attribution) and, while the span journal is on, the
+    opener of device-timed units (:meth:`unit`)."""
 
     #: Chrome counter tracks exported per record (the rest of the fields
     #: ride the per-iteration slice's args).
     COUNTER_FIELDS = ("queue_depth", "backlog_rows", "budget_tokens",
                       "active_slots")
-
     def __init__(self, capacity: Optional[int] = None):
         if capacity is None:
             capacity = int(
@@ -231,6 +400,7 @@ class FlightRecorder:
         self._records: Deque[Dict[str, object]] = deque(maxlen=self.capacity)
         self._iter = 0
         self._phase = "idle"
+        self._tls = threading.local()  # the units open on each thread
 
     def configure(self, *, capacity: Optional[int] = None) -> None:
         with self._lock:
@@ -273,6 +443,36 @@ class FlightRecorder:
             rec.update(fields)
             self._records.append(rec)
         global_metrics.inc("engine_flight_iterations_total")
+
+    # -- device-timed units ------------------------------------------------
+
+    def unit(self, kind: str, queue: Optional[UnitQueue] = None
+             ) -> ContextManager:
+        """``with recorder.unit(kind, queue):`` around the launches of one
+        unit of device work on the current stream of ``queue``'s device,
+        its results' host copy included; the unit goes to ``queue``.
+        ``kind`` is one of UNIT_KINDS, or NESTED_KIND, which takes no queue:
+        it goes to the queue of the top-level unit open on its thread, and
+        is not timed without one (training opens none).  A top-level unit
+        opened inside an open unit, or a nested one inside a nested one, is
+        part of the enclosing unit and not timed apart.  Off (the span
+        journal off, or not a CUDA queue): no event is made or recorded and
+        no clock is read."""
+        if not global_tracer.enabled:
+            return _NO_UNIT
+        opened = getattr(self._tls, "opened", None)
+        if opened is None:
+            opened = self._tls.opened = []
+        if kind == NESTED_KIND:
+            if not opened or opened[-1].kind == NESTED_KIND:
+                return _NO_UNIT
+            queue = opened[0].queue
+        elif opened or queue is None or not queue.timed:
+            return _NO_UNIT
+        import torch
+
+        return _Unit(queue, opened, kind,
+                     torch.cuda.current_stream(queue.device))
 
     # -- reading -----------------------------------------------------------
 
@@ -322,68 +522,14 @@ class FlightRecorder:
         return events
 
 
-class CompileWatch:
-    """Bounded, thread-safe journal of program-compile events.
-
-    One event per (program kind, bucket shape) the FIRST time a process
-    compiles/loads it: warmup's AOT phase, warmup's serial execute pass
-    (``cache_hit`` when the AOT phase already compiled the key), and —
-    the alarm case — ``cold=True`` mid-serve compiles after warmup
-    declared the grid complete."""
-
-    def __init__(self, capacity: int = 512):
-        self._lock = threading.Lock()
-        self._events: Deque[Dict[str, object]] = deque(maxlen=max(1, capacity))
-        self._seq = 0
-        self._cold = 0
-
-    def reset(self) -> None:
-        with self._lock:
-            self._events.clear()
-            self._seq = 0
-            self._cold = 0
-
-    def note(self, *, program: str, key: str, shape: List[int],
-             seconds: float, phase: str, cache_hit: bool = False,
-             cold: bool = False) -> None:
-        with self._lock:
-            self._seq += 1
-            self._events.append({
-                "seq": self._seq, "program": program, "key": key,
-                "shape": list(shape), "seconds": round(seconds, 4),
-                "phase": phase, "cache_hit": bool(cache_hit),
-                "cold": bool(cold),
-            })
-            if cold:
-                self._cold += 1
-
-    def mark(self) -> int:
-        """Current sequence number — pass to :meth:`since` to read only
-        events recorded after this point (one engine's warmup)."""
-        with self._lock:
-            return self._seq
-
-    def since(self, mark: int) -> List[Dict[str, object]]:
-        with self._lock:
-            return [dict(e) for e in self._events if e["seq"] > mark]
-
-    def events(self) -> List[Dict[str, object]]:
-        with self._lock:
-            return [dict(e) for e in self._events]
-
-    @property
-    def cold_total(self) -> int:
-        return self._cold
-
-
 class BlackBox:
     """Postmortem bundle capture + bounded in-memory store + archive dir.
 
     ``capture`` assembles EXACTLY the POSTMORTEM_SCHEMA key set from the
-    process-global observability state (flight ring, compile journal,
-    span journal, metrics registry, SLO verdicts) plus the registered
-    engine provider, stores the bundle in a small ring (served at
-    ``GET /healthz?postmortem=1``), and — when a directory is configured
+    process-global observability state (flight ring, span journal, metrics
+    registry, SLO verdicts) plus the registered engine provider, stores
+    the bundle in a small ring (served at ``GET /healthz?postmortem=1``),
+    and — when a directory is configured
     (``TUNNEL_POSTMORTEM_DIR`` / serve ``--postmortem-dir``) — writes it
     atomically (tmp + rename) as one JSON file."""
 
@@ -477,8 +623,6 @@ class BlackBox:
                 engine_state = provider()
             except Exception as e:  # a torn engine must not block capture
                 engine_state = {"provider_error": str(e)}
-        from p2p_llm_tunnel_tpu_torch.utils.tracing import global_tracer
-
         bundle: Dict[str, object] = {
             "schema_version": POSTMORTEM_SCHEMA_VERSION,
             "trigger": trigger,
@@ -486,7 +630,6 @@ class BlackBox:
             "captured_unix_s": round(time.time(), 3),
             "degraded": global_metrics.gauge("engine_degraded"),
             "flight": global_flight.records(last_n=self.FLIGHT_TAIL),
-            "compile_events": global_compile_watch.events(),
             "spans": [
                 {
                     "name": r.name, "trace_id": r.trace_id,
@@ -519,9 +662,8 @@ class BlackBox:
         global_metrics.inc("engine_postmortems_total")
         log.error(
             "postmortem captured: trigger=%s attribution=%s "
-            "(%d flight records, %d compile events)",
-            trigger, attribution, len(bundle["flight"]),
-            len(bundle["compile_events"]),
+            "(%d flight records)", trigger, attribution,
+            len(bundle["flight"]),
         )
         if directory:
             # Archive off the caller's thread: the SLO-edge capture runs
@@ -596,7 +738,6 @@ class BlackBox:
 
 #: Process-wide singletons (the global_metrics/global_tracer convention).
 global_flight = FlightRecorder()
-global_compile_watch = CompileWatch()
 global_blackbox = BlackBox()
 
 

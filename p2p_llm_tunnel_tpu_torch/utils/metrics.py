@@ -67,7 +67,7 @@ METRICS_CATALOG: Dict[str, str] = {
         "wall seconds warmup spent compiling the serving program set "
         "(gauge; the number a chip window must fit before serving)"
     ),
-    # -- engine flight recorder / cold-start profiler ----------
+    # -- engine flight recorder / warmup ----------
     "engine_warmup_programs": (
         "warm dispatches warmup ran before serving, one per program kind "
         "(decode, spec when on, prefill): eager PyTorch compiles nothing "
@@ -77,11 +77,6 @@ METRICS_CATALOG: Dict[str, str] = {
         "wall seconds of the slowest warmup step: the kernel build, a "
         "warm dispatch or the launch count (gauge; at most "
         "engine_warmup_compile_s)"
-    ),
-    "engine_cold_compiles_total": (
-        "programs compiled ON the serving path after warmup declared the "
-        "bucket grid complete (counter; every increment is a hole in the "
-        "warmup grid — the test_warmup_aot bug class surfaced at runtime)"
     ),
     "engine_flight_iterations_total": (
         "engine-loop iterations recorded by the flight recorder (counter; "

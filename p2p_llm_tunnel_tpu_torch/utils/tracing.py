@@ -121,11 +121,6 @@ SPAN_CATALOG: Dict[str, str] = {
         "the scheduler evicted the request at its deadline — queued or "
         "mid-decode (instant)"
     ),
-    "engine.cold_compile": (
-        "a program compiled ON the serving path after warmup completed — "
-        "a hole in the warmup bucket grid; attrs carry the program key "
-        "(instant; cold-start profiler)"
-    ),
 }
 
 #: Optional trace-context request header: ``<trace_id>/<parent_span_id>``,
