@@ -8,9 +8,15 @@ every token and the router weights (zero for unrouted experts) scale the
 combine.  Shapes stay static, nothing is dropped, and the routed math is
 reproduced exactly, at ``n_experts / n_experts_per_tok`` times the FLOPs
 of a routed gather (4x for mixtral's 8 experts, top 2).  The expert
-products are plain batched matrix products (``torch.einsum``), as the
-reference leaves them to XLA outside any Pallas kernel; a routed grouped
-GEMM is later work (ROADMAP.md).
+products are plain batched matrix products, as the reference leaves them to
+XLA outside any Pallas kernel, run expert-major on the weights' stored
+layout: the ``B*T`` rows, broadcast over the expert axis, meet each
+expert's ``[Dm, F]`` (gate, up) and ``[F, Dm]`` (down) slice in place
+(``torch.bmm`` over E), and the ``[E, B*T, .]`` activations stay
+expert-major up to the combine.  No weight is copied; contracting the
+weights' middle axis in one product (``einsum("btd,edf->btef")``) would
+re-lay the whole ``[E, Dm, F]`` weight out first.  A routed grouped GEMM
+is later work (ROADMAP.md).
 
 Expert parallelism, as the reference's ``moe_pspecs`` sets it up
 (``parallel/sharding``): a rank of an ``ep`` mesh holds experts ``[e*E/ep,
@@ -90,12 +96,15 @@ def moe_mlp(cfg, blk, h: torch.Tensor, act_fn: Callable,
             weights = copy_to_group(weights, mesh.ep_group)
             weights = weights[..., mesh.ep_rank * n:(mesh.ep_rank + 1) * n]
             h = copy_to_group(h, mesh.ep_group)
-        gate = torch.einsum("btd,edf->btef", h, blk["moe_gate"].to(h.dtype))
-        up = torch.einsum("btd,edf->btef", h, blk["moe_up"].to(h.dtype))
-        inner = act_fn(gate) * up  # [B, T, E, F]
-        down = torch.einsum("btef,efd->bted", inner,
-                            blk["moe_down"].to(h.dtype))
-        out = torch.einsum("bted,bte->btd", down.to(torch.float32), weights)
+        b, t, dm = h.shape
+        e = blk["moe_gate"].shape[0]
+        x = h.reshape(b * t, dm).expand(e, b * t, dm)  # a view, not a copy
+        gate = torch.bmm(x, blk["moe_gate"].to(h.dtype))  # [E, N, F]
+        up = torch.bmm(x, blk["moe_up"].to(h.dtype))
+        inner = act_fn(gate) * up
+        down = torch.bmm(inner, blk["moe_down"].to(h.dtype))  # [E, N, Dm]
+        out = torch.einsum("end,ne->nd", down.to(torch.float32),
+                           weights.reshape(b * t, e))
         if ep > 1:
             out = all_reduce_sum(out, mesh.ep_group)
-        return out.to(h.dtype)
+        return out.reshape(b, t, dm).to(h.dtype)

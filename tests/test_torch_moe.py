@@ -12,6 +12,14 @@ break an exact tie of router probabilities differently: the weight seeds
 here have no tie in any row's top k (``test_router_seeds_are_tie_free``
 checks it for the inputs the other tests use).
 
+The expert products read the stored ``[E, Dm, F]`` weights in place: no
+clone, copy or contiguous in the block takes an input of an expert
+weight's size, forward or backward, where the einsum formulation
+(tests/test_torch_moe_card.py's ``einsum_moe``) copies each weight; the
+block's output equals that formulation's on one row, an odd row count
+and several batches and positions (the card file holds both at
+mixtral-8x7b's widths).
+
 Greedy streams of the port's tiny-moe engine through the loopback tunnel
 are byte-identical to the JAX engine's on every engine path that reaches
 the MLP: the plain loop, the serve defaults with chunk prefill and with
@@ -52,6 +60,7 @@ from p2p_llm_tunnel_tpu_torch.models import transformer as tt
 from p2p_llm_tunnel_tpu_torch.models.config import get_config
 from p2p_llm_tunnel_tpu_torch.transport import loopback_pair
 from p2p_llm_tunnel_tpu_torch.utils.metrics import global_metrics
+from test_torch_moe_card import einsum_moe
 from test_torch_mux import N_CONV, _drive
 
 VOCAB = 259
@@ -170,6 +179,57 @@ def test_single_expert_equals_the_dense_mlp():
     want, _, _ = tt.prefill(dense_cfg, dense, tokens, valid)
     got, _, _ = tt.prefill(moe_cfg, moe, tokens, valid)
     torch.testing.assert_close(got, want, **FP32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the expert products on the stored [E, Dm, F] layout
+# ---------------------------------------------------------------------------
+
+COPY_OPS = ("aten::clone", "aten::copy_", "aten::contiguous")
+
+
+def _largest_copy(prof):
+    """The most elements any copying op of the profile took as an input."""
+    return max((np.prod(s) for ev in prof.events() if ev.name in COPY_OPS
+                for s in ev.input_shapes if s), default=0)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_mlp_copies_no_expert_weight(dtype, grad):
+    """No clone, copy or contiguous in the block takes an input of an
+    expert weight's size (``n_experts * dim * ffn_dim`` elements): the
+    products read the stored layout in place, forward and, under
+    autograd, backward.  The einsum formulation is the control: it
+    copies the whole weight."""
+    _, cfg, _, tp = _params(dtype)
+    blk = _layer(tp)
+    if grad:
+        blk = {k: v.clone().requires_grad_(True) for k, v in blk.items()}
+    _, h = _hidden((2, 5, cfg.dim), dtype)
+    weight = cfg.n_experts * cfg.dim * cfg.ffn_dim
+    with torch.profiler.profile(record_shapes=True, profile_memory=True) as prof:
+        out = tmoe.moe_mlp(cfg, blk, h, _act)
+        if grad:
+            out.float().sum().backward()
+    assert _largest_copy(prof) < weight
+    with torch.no_grad(), torch.profiler.profile(record_shapes=True) as prof:
+        einsum_moe(cfg, _layer(tp), h, _act)
+    assert _largest_copy(prof) >= weight
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (3, 5), (5, 1)],
+                         ids=["one-row", "odd-rows", "batch-and-time", "decode-rows"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_mlp_matches_the_einsum_formulation(dtype, shape):
+    """The expert-major products give the einsum formulation's output:
+    fp32 within 1e-5, bf16 within the file's bf16 bound."""
+    _, cfg, _, tp = _params(dtype)
+    _, h = _hidden(shape + (cfg.dim,), dtype, seed=9)
+    got = tmoe.moe_mlp(cfg, _layer(tp), h, _act)
+    want = einsum_moe(cfg, _layer(tp), h, _act)
+    assert got.dtype == h.dtype and got.shape == h.shape
+    _close(got, want.float().numpy(), FP32_TOL if dtype == "float32" else None)
 
 
 # ---------------------------------------------------------------------------
