@@ -2,7 +2,8 @@
 
 After the window has closed, a sample drawn from ``--seed`` of the
 requests the window finished, the longest among them always, is run
-through the plain reference (``benchmark/reference``) over each prompt and
+through the plain reference of the configuration's architecture
+(``benchmark/arch/<name>.py`` ``logits_at``) over each prompt and
 the tokens served for it.  The number compared is the widest gap by which a
 served token's logit lies below the reference's best logit at its
 position: a greedy server at the configuration's precision keeps it near
@@ -30,7 +31,6 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from benchmark.client import ok
-from benchmark.reference import Shape, logits_at
 
 
 def sample(recs: Sequence[Dict], seed: int, tokens: int) -> List[Dict]:
@@ -64,14 +64,17 @@ def _gap(ref: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return ref.max(-1).values - ref.gather(-1, tokens[:, None])[:, 0]
 
 
-def served_gaps(shape: Shape, params: Dict, recs: Sequence[Dict], device,
+def served_gaps(model, shape, params: Dict, recs: Sequence[Dict], device,
                 control: bool = False) -> Dict[str, float]:
     """The widest gap of the tokens judged (``logit_gap``), the mean gap
     over them (``logit_gap_mean``), the number of tokens compared and how
     many the reference would have ranked otherwise.  The tokens judged are
     the ones served for ``recs``, or with ``control`` the ones the float8
     forward ranks first at the same positions; then the served tokens'
-    two gaps are kept beside them (``served_gap``, ``served_gap_mean``)."""
+    two gaps are kept beside them (``served_gap``, ``served_gap_mean``).
+    ``model`` is the configuration's architecture module, whose
+    ``logits_at`` is the reference."""
+    logits_at = model.logits_at
     seqs, want, served = _inputs(recs, device)
     ref = logits_at(shape, params, seqs, want)
     gaps = torch.cat([_gap(r, s) for r, s in zip(ref, served)])
@@ -87,7 +90,7 @@ def served_gaps(shape: Shape, params: Dict, recs: Sequence[Dict], device,
     return out
 
 
-def judge(cfg: Dict, shape: Shape, params: Dict, recs: Sequence[Dict],
+def judge(cfg: Dict, model, shape, params: Dict, recs: Sequence[Dict],
           sent: Sequence[Dict], seed: int, device, control: bool,
           unchanged: bool) -> Tuple[bool, Dict, Dict]:
     """``correct``, each number compared with its limit, and the readings:
@@ -96,7 +99,7 @@ def judge(cfg: Dict, shape: Shape, params: Dict, recs: Sequence[Dict],
     every request of the run finished whole; the weights unwritten."""
     picked = sample([r for r in sent if ok(r)], seed,
                     int(cfg["check"]["tokens"]))
-    readings = (served_gaps(shape, params, picked, device, control)
+    readings = (served_gaps(model, shape, params, picked, device, control)
                 if picked else {"tokens": 0.0})
     readings["sampled_requests"] = len(picked)
     failed = [r for r in recs if not ok(r)]

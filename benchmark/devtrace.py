@@ -5,8 +5,9 @@ The window records the card's operations (kernels, copies, fills) and the
 host's operator calls, so the two share one clock: a ``bench.sync`` range
 opened at a known ``time.monotonic()`` instant maps the trace's times onto
 the host's, and idle gaps can be labelled with what the engine loop was
-doing.  A window can come back blind (no device event at all: seen on the
-card before); the caller takes another.
+doing.  A window can come back blind: no device event at all, or copies and
+fills alone while the engine decoded (both seen on the card: the kernels'
+records lost); the caller takes another.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Dict, List, Optional, Tuple
 
 #: How many device operations and idle gaps a breakdown lists.
 TOP = 10
+#: Names of the device operations that are copies and fills, not kernels.
+NOT_KERNELS = ("Memcpy", "Memset")
 
 
 @dataclass
@@ -113,7 +116,7 @@ class DeviceWindow:
 
     def summary(self) -> Optional[DeviceSummary]:
         """The window's device operations on the host's clock, or None when
-        it holds none (a blind window)."""
+        it holds no kernel (a blind window)."""
         from torch.autograd import DeviceType
 
         events = self._prof.events()
@@ -135,7 +138,7 @@ class DeviceWindow:
             spans.append((a, b))
             n, s = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, s + (b - a))
-        if not spans:
+        if all(name.startswith(NOT_KERNELS) for name in by_name):
             return None
         merged = _merge(spans)
         edges = [self.t0] + [x for ab in merged for x in ab] + [self.t1]

@@ -13,6 +13,7 @@ import math
 import statistics
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 from benchmark import roofline
@@ -25,7 +26,8 @@ METRICS_DIR = Path(__file__).resolve().parent / "metrics"
 class Context:
     """One run's records, on the host's ``time.monotonic()`` clock."""
 
-    shape: object  # reference.Shape
+    shape: object  # the architecture's Shape
+    arch: ModuleType  # the configuration's benchmark/arch/<name>.py
     seconds: float
     t0: float  # the measured window
     t1: float
@@ -172,7 +174,7 @@ def window_flops(ctx: Context) -> float:
     (one decode step), and for each request whose first token arrived in
     the window its prompt less its share of the window's prefix-pool hits
     (hits spread over those prompts in proportion to their lengths)."""
-    shape = ctx.shape
+    shape, counts = ctx.shape, ctx.arch
     total = 0.0
     prefilled = []
     for r in ctx.requests:
@@ -183,11 +185,11 @@ def window_flops(ctx: Context) -> float:
             if k == 0:
                 prefilled.append(p)
             else:
-                total += roofline.decode_flops(shape, p + k - 1)
+                total += counts.decode_flops(shape, p + k - 1)
     hits = ctx.delta("engine_prefix_hit_tokens_total") or 0.0
     share = min(1.0, hits / sum(prefilled)) if prefilled else 0.0
     for p in prefilled:
-        total += roofline.prefill_flops(shape, int(round(p * share)), p)
+        total += counts.prefill_flops(shape, int(round(p * share)), p)
     return total
 
 
@@ -210,7 +212,7 @@ def decode_attn_roofline(ctx: Context) -> Optional[float]:
     steps = sum(rows[0][1] for rows in bursts if rows)
     if n == 0 or steps == 0:
         return None
-    nbytes = sum(roofline.burst_bytes(ctx.shape, rows) for rows in bursts)
+    nbytes = sum(ctx.arch.burst_bytes(ctx.shape, rows) for rows in bursts)
     return 100.0 * (nbytes / steps / roofline.PEAK_HBM_BYTES_S) / (secs / n)
 
 

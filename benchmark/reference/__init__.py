@@ -1,7 +1,5 @@
-"""The benchmark's plain reference: a float32 PyTorch forward pass written
-from the models' published descriptions, independent of the served
-program (it imports nothing of it)."""
-
-from benchmark.reference.model import Shape, logits_at
-
-__all__ = ["Shape", "logits_at"]
+"""The benchmark's plain reference: the float32 PyTorch building blocks
+(``blocks.py``) that each architecture's forward pass
+(``benchmark/arch/<name>.py``) is written from, after the models'
+published descriptions and independent of the served program (nothing
+here imports it)."""

@@ -9,8 +9,9 @@ run from the root of a checkout.  One process, in order:
    (``benchmark/configs/<config>.json``), its traffic mix
    (``benchmark/traffic/<traffic>.json``) and the readers of its metrics
    (``benchmark/metrics/<metric>.py``), all by name;
-2. draws the weights from ``--seed`` on the card (``weights.py``) and hands
-   them to the port's engine, which serves them behind its tunnel
+2. draws the weights from ``--seed`` on the card (the configuration's
+   architecture, ``benchmark/arch/<name>.py``) and hands them to the
+   port's engine, which serves them behind its tunnel
    (``stack.py``: engine -> serve -> loopback -> proxy on 127.0.0.1);
 3. warms up: the engine's kernels and programs, then ``warmup_s`` of the
    cell's own traffic;
@@ -140,20 +141,20 @@ async def measure(cell: Dict, seed: int, seconds: float, trace: bool,
     from p2p_llm_tunnel_tpu_torch.utils.flight import global_flight
     from p2p_llm_tunnel_tpu_torch.utils.tracing import global_tracer
 
-    from benchmark import check, measures, weights
+    from benchmark import arch, check, measures, weights
     from benchmark.client import ok
     from benchmark.devtrace import DeviceWindow
     from benchmark.probes import BurstLog, HostLoad, PhaseLog
-    from benchmark.reference import Shape
     from benchmark.stack import Stack, build_engine
 
     cfg = cell["config"]
     mix = json.loads(Path(cell["mix_file"]).read_text())
-    shape = Shape.from_config(cfg)
+    model = arch.for_config(cfg)
+    shape = model.shape(cfg)
     cuda = device == "cuda"
 
     marks = {"imports": time.monotonic() - t_start}
-    params = weights.draw(shape, seed, device)
+    params = model.draw(shape, seed, device)
     before = weights.digest(params)
     marks["weights"] = time.monotonic() - t_start
     global_flight.configure(capacity=1_000_000)
@@ -230,12 +231,13 @@ async def measure(cell: Dict, seed: int, seconds: float, trace: bool,
     # The window has closed: judge what it served.
     unchanged = bool(torch.equal(before, weights.digest(params)))
     sent = [r for r in recs if t0 <= r["send"] < t1]
-    correct, checks, readings = check.judge(cfg, shape, params, recs, sent,
-                                            seed, device, control, unchanged)
+    correct, checks, readings = check.judge(cfg, model, shape, params, recs,
+                                            sent, seed, device, control,
+                                            unchanged)
 
     ctx = measures.Context(
-        shape=shape, seconds=seconds, t0=t0, t1=t1, setup_s=setup_s,
-        requests=recs, flight=flight, spans=spans,
+        shape=shape, arch=model, seconds=seconds, t0=t0, t1=t1,
+        setup_s=setup_s, requests=recs, flight=flight, spans=spans,
         counters={n: (counters0[n], counters1[n]) for n in COUNTERS},
         device=summary, bursts=bursts)
     metrics = {}

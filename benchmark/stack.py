@@ -5,9 +5,10 @@ The port's real serving path, as ``testing/local_stack.py`` assembles it:
 ``loopback_pair`` and ``run_proxy`` over the other, listening on
 127.0.0.1.  The engine is built from a configuration file's ``engine``
 section (``EngineConfig`` fields), the port's preset named by ``preset``
-with every published size of the file laid over it, the benchmark's own
-weights, and ``NumericTokenizer`` over the whole vocabulary, so every
-served id crosses the tunnel as the text ``"<id> "``.
+with every published size of the file laid over it (as the fields its
+architecture maps them to: ``benchmark/arch/<name>.py`` ``model_fields``),
+the benchmark's own weights, and ``NumericTokenizer`` over the whole
+vocabulary, so every served id crosses the tunnel as the text ``"<id> "``.
 """
 
 from __future__ import annotations
@@ -23,25 +24,13 @@ from p2p_llm_tunnel_tpu_torch.engine.tokenizer import NumericTokenizer
 from p2p_llm_tunnel_tpu_torch.models.config import get_config
 from p2p_llm_tunnel_tpu_torch.transport.loopback import loopback_pair
 
-from benchmark.reference import Shape
-
-#: Published configuration keys -> the port's ModelConfig fields.
-MODEL_FIELDS = {
-    "vocab_size": "vocab_size", "hidden_size": "dim",
-    "intermediate_size": "ffn_dim", "num_hidden_layers": "n_layers",
-    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-    "head_dim": "head_dim", "rope_theta": "rope_theta",
-    "rms_norm_eps": "norm_eps", "sliding_window": "sliding_window",
-    "num_local_experts": "n_experts", "num_experts_per_tok": "n_experts_per_tok",
-}
+from benchmark import arch
 
 
 def model_config(cfg: Dict):
     """The port's ModelConfig for a configuration file: its preset with
     every size the file states."""
-    shape = Shape.from_config(cfg)
-    over = {field: getattr(shape, key) for key, field in MODEL_FIELDS.items()}
-    return get_config(cfg["preset"], **over)
+    return get_config(cfg["preset"], **arch.for_config(cfg).model_fields(cfg))
 
 
 def build_engine(cfg: Dict, params, device) -> InferenceEngine:

@@ -7,7 +7,8 @@ program's do."""
 import pytest
 
 from benchmark import measures
-from benchmark.reference import Shape
+from benchmark.arch import mistral
+from benchmark.arch.mistral import Shape
 
 SHAPE = Shape(32000, 4096, 14336, 32, 32, 8, 128, 1e4, 1e-5, 4096, 0, 0)
 NEW = ("decode_device_ms_per_step", "device_gap_share",
@@ -15,8 +16,8 @@ NEW = ("decode_device_ms_per_step", "device_gap_share",
 
 
 def ctx(flight):
-    return measures.Context(shape=SHAPE, seconds=10.0, t0=100.0, t1=110.0,
-                            setup_s=1.0, requests=[], flight=flight)
+    return measures.Context(shape=SHAPE, arch=mistral, seconds=10.0, t0=100.0,
+                            t1=110.0, setup_s=1.0, requests=[], flight=flight)
 
 
 def rec(t, steps, decode, prefill, pool, gap, cpu, moe=None, dur=50.0):

@@ -9,9 +9,10 @@ from types import SimpleNamespace
 
 import pytest
 
-from benchmark import measures, roofline
+from benchmark import measures
+from benchmark.arch import mistral
+from benchmark.arch.mistral import Shape
 from benchmark.devtrace import DeviceSummary, _merge
-from benchmark.reference import Shape
 
 ROOT = Path(__file__).resolve().parents[2]
 SHAPE = Shape(32000, 4096, 14336, 32, 32, 8, 128, 1e4, 1e-5, 4096, 0, 0)
@@ -34,8 +35,8 @@ class Bursts:
 
 
 def ctx(**kw):
-    base = dict(shape=SHAPE, seconds=10.0, t0=100.0, t1=110.0, setup_s=42.5,
-                requests=[])
+    base = dict(shape=SHAPE, arch=mistral, seconds=10.0, t0=100.0, t1=110.0,
+                setup_s=42.5, requests=[])
     base.update(kw)
     return measures.Context(**base)
 
@@ -131,9 +132,9 @@ def test_step_mfu_by_hand():
     reqs = [req(100.0, [100.1, 100.2, 100.3], plen=100)]
     c = ctx(requests=reqs,
             counters={"engine_prefix_hit_tokens_total": (0.0, 50.0)})
-    flops = (roofline.prefill_flops(SHAPE, 50, 100)
-             + roofline.decode_flops(SHAPE, 100)
-             + roofline.decode_flops(SHAPE, 101))
+    flops = (mistral.prefill_flops(SHAPE, 50, 100)
+             + mistral.decode_flops(SHAPE, 100)
+             + mistral.decode_flops(SHAPE, 101))
     assert measures.load("step_mfu")(c) == pytest.approx(
         100.0 * flops / (10.0 * 989e12))
 
@@ -156,7 +157,7 @@ def test_decode_attn_roofline_by_hand():
     # 2 bursts x 8 steps x 32 layers = 512 launches, 1 ms each
     d = summary([], {"void fused_decode_layer_kernel<128, 4>(...)": (512, 0.512),
                      "gemm": (10, 1.0)})
-    nbytes_per_step = sum(roofline.decode_attention_bytes(SHAPE, p + i)
+    nbytes_per_step = sum(mistral.decode_attention_bytes(SHAPE, p + i)
                           for p, _ in rows for i in range(8)) / 8
     want = 100.0 * nbytes_per_step / 3.35e12 / 1e-3
     c = ctx(device=d, bursts=bursts)
@@ -174,6 +175,44 @@ def test_merge_and_gaps():
     d2 = summary([], {"a": (1, 0.5), "b": (3, 1.5)})
     assert d2.top_ops() == [["b", 1.5], ["a", 0.5]]
     assert d2.kernel("a") == (1, 0.5)
+
+
+def traced(*device_ops):
+    """A profiled window from 200 s to 203 s on the host's clock whose
+    trace holds the sync range at 0 us and ``(name, start s, end s)``
+    device operations on the trace's clock."""
+    from torch.autograd import DeviceType
+
+    from benchmark.devtrace import DeviceWindow
+
+    def ev(name, a, b, kind):
+        return SimpleNamespace(name=name, device_type=kind,
+                               time_range=SimpleNamespace(start=a * 1e6,
+                                                          end=b * 1e6))
+
+    events = [ev(DeviceWindow.SYNC, 0.0, 0.0, DeviceType.CPU)]
+    events += [ev(n, a, b, DeviceType.CUDA) for n, a, b in device_ops]
+    w = DeviceWindow()
+    w._prof = SimpleNamespace(events=lambda: events)
+    w.t0, w.t1, w._t_sync = 200.0, 203.0, 200.0
+    return w.summary()
+
+
+@pytest.mark.parametrize("ops", [
+    [],
+    [("Memset (Device)", 0.1, 0.2),
+     ("Memcpy HtoD (Pageable -> Device)", 1.0, 1.1),
+     ("Memcpy DtoH (Device -> Pinned)", 2.0, 2.1)],
+])
+def test_a_window_without_kernels_is_blind(ops):
+    assert traced(*ops) is None
+
+
+def test_a_window_with_kernels_reads_them():
+    d = traced(("Memset (Device)", 0.1, 0.2), ("gemm", 1.0, 1.5),
+               ("gemm", 1.4, 2.0))
+    assert d.busy_s == pytest.approx(1.1)
+    assert d.kernel("gemm") == (2, pytest.approx(1.1))
 
 
 def test_every_reader_is_a_metric():

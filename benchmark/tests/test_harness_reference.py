@@ -7,8 +7,9 @@ import torch
 
 from p2p_llm_tunnel_tpu_torch.models import transformer
 
-from benchmark import check, weights
-from benchmark.reference import Shape, logits_at
+from benchmark import check
+from benchmark.arch import mistral
+from benchmark.arch.mistral import Shape, logits_at
 from benchmark.stack import model_config
 
 TINY = {"hidden_size": 64, "intermediate_size": 96, "num_hidden_layers": 3,
@@ -26,7 +27,7 @@ CASES = {
 def test_reference_matches_the_port_in_float32(case):
     cfg = CASES[case]
     shape = Shape.from_config(cfg)
-    params = weights.draw(shape, 2**31 + 3, "cpu", dtype=torch.float32)
+    params = mistral.draw(shape, 2**31 + 3, "cpu", dtype=torch.float32)
     mcfg = model_config(cfg)
     assert mcfg.n_experts == shape.num_local_experts
     if shape.sliding_window is not None:
@@ -46,7 +47,7 @@ def test_window_and_experts_change_the_answer():
     seq = [torch.arange(23) % 300]
     want = [(0, 23)]
     a = CASES["dense-window"]
-    params = weights.draw(Shape.from_config(a), 5, "cpu", torch.float32)
+    params = mistral.draw(Shape.from_config(a), 5, "cpu", torch.float32)
     windowed = logits_at(Shape.from_config(a), params, seq, want)[0]
     full = logits_at(Shape.from_config(CASES["dense"]), params, seq, want)[0]
     assert torch.allclose(windowed[:7], full[:7], atol=1e-5)
@@ -56,23 +57,23 @@ def test_window_and_experts_change_the_answer():
 def test_control_and_gap():
     cfg = CASES["dense"]
     shape = Shape.from_config(cfg)
-    params = weights.draw(shape, 11, "cpu", dtype=torch.bfloat16)
+    params = mistral.draw(shape, 11, "cpu", dtype=torch.bfloat16)
     prompt = list(range(5, 45))
     ref = logits_at(shape, params, [torch.tensor(prompt)], [(39, 40)])[0]
     best = int(ref.argmax())
     worst = int(ref.argmin())
     rec = {"prompt": prompt, "ids": [best], "c": 0, "s": 0, "turn": 0}
-    out = check.served_gaps(shape, params, [rec], "cpu")
+    out = check.served_gaps(mistral, shape, params, [rec], "cpu")
     assert out["logit_gap"] == 0.0 and out["tokens"] == 1.0
     # The control judges the float8 forward's first-ranked token instead.
-    ctl = check.served_gaps(shape, params, [rec], "cpu", control=True)
+    ctl = check.served_gaps(mistral, shape, params, [rec], "cpu", control=True)
     assert ctl["served_gap"] == 0.0 and ctl["tokens"] == 1.0
     low = logits_at(shape, params, [torch.tensor(prompt)], [(39, 40)],
                     precision="fp8")[0]
     assert ctl["logit_gap"] == pytest.approx(
         float(ref.max() - ref[0, int(low.argmax())]))
     rec["ids"] = [worst]
-    bad = check.served_gaps(shape, params, [rec], "cpu")
+    bad = check.served_gaps(mistral, shape, params, [rec], "cpu")
     assert bad["logit_gap"] == pytest.approx(float(ref.max() - ref.min()))
 
 
